@@ -1,0 +1,119 @@
+"""Diffusion noise schedules and precomputed buffers.
+
+Port of `safediffcon_tpu/core/schedules.py`: the tables are built once in
+float64 numpy, exactly as there, and stored as float32 tensors on a device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class DiffusionSchedule(NamedTuple):
+    """All per-timestep buffers needed by sampling and guidance."""
+
+    betas: torch.Tensor
+    alphas: torch.Tensor
+    alphas_prev: torch.Tensor
+    alphas_cumprod: torch.Tensor
+    alphas_cumprod_prev: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
+    log_one_minus_alphas_cumprod: torch.Tensor
+    sqrt_recip_alphas_cumprod: torch.Tensor
+    sqrt_recipm1_alphas_cumprod: torch.Tensor
+    posterior_variance: torch.Tensor
+    posterior_log_variance_clipped: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
+    loss_weight: torch.Tensor
+
+    @property
+    def num_timesteps(self) -> int:
+        return int(self.betas.shape[0])
+
+
+def sigmoid_beta_schedule(
+    timesteps: int, start: float = -3, end: float = 3, tau: float = 1
+) -> np.ndarray:
+    """Sigmoid schedule (arXiv 2212.11972 Fig. 8); the smoke task's default."""
+    steps = timesteps + 1
+    x = np.linspace(0, timesteps, steps, dtype=np.float64) / timesteps
+    v_start = 1 / (1 + np.exp(-start / tau))
+    v_end = 1 / (1 + np.exp(-end / tau))
+    alphas_cumprod = (-1 / (1 + np.exp(-((x * (end - start) + start) / tau))) + v_end) / (
+        v_end - v_start
+    )
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = 1 - (alphas_cumprod[1:] / alphas_cumprod[:-1])
+    return np.clip(betas, 0, 0.999)
+
+
+# the smoke task's schedule; "linear" and "cosine" come with the Burgers and
+# tokamak slices
+_BETA_SCHEDULES = {"sigmoid": sigmoid_beta_schedule}
+
+
+def make_schedule(
+    timesteps: int = 1000,
+    beta_schedule: str = "sigmoid",
+    objective: str = "pred_noise",
+    device="cuda",
+) -> DiffusionSchedule:
+    """Build the full buffer set for a diffusion process on `device`."""
+    if beta_schedule not in _BETA_SCHEDULES:
+        raise ValueError(f"beta schedule {beta_schedule!r} is not ported")
+    betas = _BETA_SCHEDULES[beta_schedule](timesteps)
+
+    alphas = 1.0 - betas
+    alphas_prev = np.concatenate([[1.0], alphas[:-1]])
+    alphas_cumprod = np.cumprod(alphas)
+    alphas_cumprod_prev = np.concatenate([[1.0], alphas_cumprod[:-1]])
+
+    posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+
+    snr = alphas_cumprod / (1 - alphas_cumprod)
+    if objective == "pred_noise":
+        loss_weight = np.ones_like(snr)
+    elif objective == "pred_x0":
+        loss_weight = snr
+    elif objective == "pred_v":
+        loss_weight = snr / (snr + 1)
+    else:
+        raise ValueError(f"unknown objective {objective!r}")
+
+    def as_f32(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+    return DiffusionSchedule(
+        betas=as_f32(betas),
+        alphas=as_f32(alphas),
+        alphas_prev=as_f32(alphas_prev),
+        alphas_cumprod=as_f32(alphas_cumprod),
+        alphas_cumprod_prev=as_f32(alphas_cumprod_prev),
+        sqrt_alphas_cumprod=as_f32(np.sqrt(alphas_cumprod)),
+        sqrt_one_minus_alphas_cumprod=as_f32(np.sqrt(1.0 - alphas_cumprod)),
+        log_one_minus_alphas_cumprod=as_f32(np.log(1.0 - alphas_cumprod)),
+        sqrt_recip_alphas_cumprod=as_f32(np.sqrt(1.0 / alphas_cumprod)),
+        sqrt_recipm1_alphas_cumprod=as_f32(np.sqrt(1.0 / alphas_cumprod - 1)),
+        posterior_variance=as_f32(posterior_variance),
+        posterior_log_variance_clipped=as_f32(
+            np.log(np.clip(posterior_variance, 1e-20, None))
+        ),
+        posterior_mean_coef1=as_f32(
+            betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+        ),
+        posterior_mean_coef2=as_f32(
+            (1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)
+        ),
+        loss_weight=as_f32(loss_weight),
+    )
+
+
+def extract(buf: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Gather per-timestep scalars for a batch of timesteps `t` (B,) and
+    shape them (B, 1, ..., 1) for broadcasting against an ndim-tensor."""
+    out = buf[t]
+    return out.reshape(out.shape[0], *((1,) * (ndim - 1)))

@@ -1,0 +1,134 @@
+"""Weight bridge: a flax UNet3D parameter tree -> the port's `state_dict`.
+
+The flax tree names each submodule by class and creation order at the UNet3D
+scope (`ResnetBlock3D_4`, `_PreNormResidual3D_7`, `Conv_1`, ...; the attention
+modules wrapped by `_PreNormResidual3D` are created, and so named, at the
+UNet3D scope too, and `nn.remat` keeps the unwrapped names). `unet3d_scope_map`
+replays that creation order over the torch module tree. Leaves convert as:
+
+  Dense kernel (in, out)                     -> Linear weight (out, in)
+  Conv / ConvTranspose kernel (kD,kH,kW,I,O) -> weight (O, I, kD, kH, kW)
+  GroupNorm scale, Embed embedding           -> weight
+  bias, ChanLayerNorm g                      -> unchanged
+
+The input is nested dicts of numpy arrays (or anything `np.asarray` takes),
+with or without the top-level "params" key.
+"""
+from __future__ import annotations
+
+from collections import Counter
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from safediffcon_torch.models.unet3d import UNet3D
+
+# inner flax path (below the scope) -> torch sub-path, by scope kind
+_INNER = {
+    "ResnetBlock3D": {
+        "Dense_0": "mlp",
+        "Block3D_0/Conv_0": "block1.conv",
+        "Block3D_0/GroupNorm_0": "block1.norm",
+        "Block3D_1/Conv_0": "block2.conv",
+        "Block3D_1/GroupNorm_0": "block2.norm",
+        "Conv_0": "res_conv",
+    },
+    "TemporalAttention": {"Dense_0": "to_qkv", "Dense_1": "to_out"},
+    "SpatialLinearAttention3D": {"Dense_0": "to_qkv", "Dense_1": "to_out"},
+    "_MidSpatial": {"Dense_0": "to_qkv", "Dense_1": "to_out"},
+    "_PreNormResidual3D": {"ChanLayerNorm_0": ""},
+    "TimeMLP": {"Dense_0": "linear1", "Dense_1": "linear2"},
+    "leaf": {"": ""},
+}
+
+
+def unet3d_scope_map(model: UNet3D) -> Dict[str, tuple]:
+    """flax scope name -> (torch module prefix, scope kind)."""
+    count: Counter = Counter()
+    out = {
+        "time_rel_pos_bias": ("time_rel_pos_bias", "leaf"),
+        "TimeMLP_0": ("time_mlp", "TimeMLP"),
+        "init_conv": ("init_conv", "leaf"),
+        "final_conv": ("final_conv", "leaf"),
+    }
+
+    def take(kind, prefix, map_kind=None):
+        out[f"{kind}_{count[kind]}"] = (prefix, map_kind or kind)
+        count[kind] += 1
+
+    def pre_norm(kind, prefix):
+        # the wrapped module is created before its _PreNormResidual3D
+        take(kind, prefix + ".fn")
+        take("_PreNormResidual3D", prefix + ".norm")
+
+    pre_norm("TemporalAttention", "init_temporal_attn")
+    for i, level in enumerate(model.downs):
+        take("ResnetBlock3D", f"downs.{i}.0")
+        take("ResnetBlock3D", f"downs.{i}.1")
+        pre_norm("SpatialLinearAttention3D", f"downs.{i}.2")
+        pre_norm("TemporalAttention", f"downs.{i}.3")
+        if not isinstance(level[4], nn.Identity):
+            take("Conv", f"downs.{i}.4", "leaf")
+    take("ResnetBlock3D", "mid_block1")
+    pre_norm("_MidSpatial", "mid_spatial_attn")
+    pre_norm("TemporalAttention", "mid_temporal_attn")
+    take("ResnetBlock3D", "mid_block2")
+    for i, level in enumerate(model.ups):
+        take("ResnetBlock3D", f"ups.{i}.0")
+        take("ResnetBlock3D", f"ups.{i}.1")
+        pre_norm("SpatialLinearAttention3D", f"ups.{i}.2")
+        pre_norm("TemporalAttention", f"ups.{i}.3")
+        if not isinstance(level[4], nn.Identity):
+            take("ConvTranspose", f"ups.{i}.4", "leaf")
+    take("ResnetBlock3D", "final_block")
+    return out
+
+
+def _leaf(name: str, value: np.ndarray):
+    """flax leaf -> (torch parameter name, array in torch layout)."""
+    if name == "kernel":
+        if value.ndim == 2:
+            return "weight", value.T
+        if value.ndim == 5:
+            return "weight", value.transpose(4, 3, 0, 1, 2)
+        raise ValueError(f"unexpected kernel rank {value.ndim}")
+    if name in ("scale", "embedding"):
+        return "weight", value
+    if name in ("bias", "g"):
+        return name, value
+    raise ValueError(f"unexpected flax leaf {name!r}")
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def flax_to_state_dict(model: UNet3D, params: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert a flax UNet3D param tree into a state_dict for `model`."""
+    if "params" in params:
+        params = params["params"]
+    scopes = unet3d_scope_map(model)
+    sd = {}
+    for path, value in _flatten(params):
+        scope, inner, leaf = path[0], "/".join(path[1:-1]), path[-1]
+        if scope not in scopes:
+            raise KeyError(f"flax scope {scope!r} has no counterpart in the port's UNet3D")
+        prefix, kind = scopes[scope]
+        sub = _INNER[kind][inner]
+        name, arr = _leaf(leaf, np.asarray(value, dtype=np.float32))
+        key = ".".join(p for p in (prefix, sub, name) if p)
+        sd[key] = torch.tensor(arr)
+    return sd
+
+
+def load_flax_params(model: UNet3D, params: Mapping) -> UNet3D:
+    """Load a flax param tree into `model` in place (strict: every tensor of
+    the model must be covered, with its shape) and return the model."""
+    model.load_state_dict(flax_to_state_dict(model, params), strict=True)
+    return model

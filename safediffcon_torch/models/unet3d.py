@@ -1,0 +1,391 @@
+"""3D (video) U-Net denoiser for the 2D smoke task.
+
+Port of `safediffcon_tpu/models/unet3d.py` (reference topology:
+2d/video_diffusion_pytorch/video_diffusion_pytorch_conv3d.py:357-574).
+Activations stay channels-last (B, F, H, W, C) as in the JAX module; each
+convolution views its input as NCDHW with `permute` (no copy: the permuted
+view has the channels-last-3d strides cuDNN takes directly) and views the
+result back.
+
+`attn_impl="packed"` is a TPU matrix-unit layout whose result equals
+per-head attention (`safediffcon_tpu/models/unet3d.py:66-79`); the port
+accepts either flag and computes per-head attention. The serving path takes
+no gradients through the network, so there is no rematerialization.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from safediffcon_torch.models.layers import ChanLayerNorm, TimeMLP
+
+ATTN_IMPLS = ("heads", "packed")
+
+
+def _rel_pos_buckets(n: int, num_buckets: int = 32, max_distance: int = 128) -> np.ndarray:
+    """T5 relative position buckets for an n x n attention map
+    (reference: video_diffusion_pytorch_conv3d.py:86-104)."""
+    q = np.arange(n)[:, None]
+    k = np.arange(n)[None, :]
+    rel = k - q
+    neg = -rel
+    num_buckets //= 2
+    ret = (neg < 0).astype(np.int64) * num_buckets
+    nabs = np.abs(neg)
+    max_exact = num_buckets // 2
+    is_small = nabs < max_exact
+    val_if_large = max_exact + (
+        np.log(np.maximum(nabs, 1) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).astype(np.int64)
+    val_if_large = np.minimum(val_if_large, num_buckets - 1)
+    return ret + np.where(is_small, nabs, val_if_large)
+
+
+def _rope(x: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Interleaved rotary position embedding over the token axis (axis -2);
+    the angle table is built in float64 numpy and cast, as in JAX."""
+    n, d = x.shape[-2], x.shape[-1]
+    freqs = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
+    angles = np.arange(n)[:, None] * freqs[None, :]
+    cos = torch.as_tensor(np.cos(angles), dtype=x.dtype, device=x.device)
+    sin = torch.as_tensor(np.sin(angles), dtype=x.dtype, device=x.device)
+    x1 = x[..., 0::2]
+    x2 = x[..., 1::2]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x1 * sin + x2 * cos
+    return torch.stack([rx1, rx2], dim=-1).reshape(x.shape)
+
+
+class Conv3dCL(nn.Conv3d):
+    """nn.Conv3d over channels-last (B, F, H, W, C) tensors."""
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+
+
+def _flax_same_transpose_pad(k: int, s: int):
+    """(low, high) padding of the stride-dilated input that flax's
+    ConvTranspose(padding="SAME") applies (jax.lax.conv_transpose)."""
+    pad_len = k + s - 2
+    pad_a = k - 1 if s > k - 1 else int(math.ceil(pad_len / 2))
+    return pad_a, pad_len - pad_a
+
+
+class ConvTransposeCL(nn.Module):
+    """flax `nn.ConvTranspose(padding="SAME", transpose_kernel=False)` on
+    channels-last tensors.
+
+    flax dilates the input by the stride, pads it and CORRELATES it with the
+    kernel as stored, with no flip. `F.conv_transpose3d` flips its kernel and
+    swaps its channel axes, so it gets the flipped, transposed weight and the
+    padding k - 1 - pad that reproduces flax's pad (which is symmetric for
+    every kernel and stride UNet3D uses; asymmetric ones are refused). The
+    weight is held in correlation layout (Cout, Cin, kD, kH, kW), like a
+    Conv3d's."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size, stride):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.stride = tuple(stride)
+        self.padding = []
+        for k, s in zip(self.kernel_size, self.stride):
+            lo, hi = _flax_same_transpose_pad(k, s)
+            if lo != hi:
+                raise NotImplementedError(f"asymmetric SAME padding for k={k}, s={s}")
+            self.padding.append(k - 1 - lo)
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in, *self.kernel_size))
+        self.bias = nn.Parameter(torch.zeros(dim_out))
+
+    def forward(self, x):
+        w = self.weight.flip(2, 3, 4).transpose(0, 1)
+        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w, self.bias,
+                               stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+class GroupNormCL(nn.Module):
+    """flax `nn.GroupNorm` (epsilon 1e-5) over the trailing channel axis."""
+
+    def __init__(self, groups: int, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.groups = groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        b, c = x.shape[0], x.shape[-1]
+        g = x.reshape(b, -1, self.groups, c // self.groups)
+        var, mean = torch.var_mean(g, dim=(1, 3), keepdim=True, unbiased=False)
+        g = (g - mean) * torch.rsqrt(var + self.eps)
+        return g.reshape(x.shape) * self.weight + self.bias
+
+
+class TemporalAttention(nn.Module):
+    """Full attention over the frame axis with RoPE + relative position bias
+    (reference: video_diffusion_pytorch_conv3d.py:277-353)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
+        self.to_out = nn.Linear(hidden, dim, bias=False)
+
+    def forward(self, x, pos_bias=None):
+        b, f, hh, ww, c = x.shape
+        t = x.permute(0, 2, 3, 1, 4).reshape(b, hh * ww, f, c)
+        q, k, v = self.to_qkv(t).chunk(3, dim=-1)
+
+        def heads(z):  # (..., n, H*D) -> (..., H, n, D)
+            return z.reshape(*z.shape[:-1], self.heads, self.dim_head).transpose(-3, -2)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        q = q * (self.dim_head ** -0.5)
+        q = _rope(q)
+        k = _rope(k)
+        sim = q @ k.transpose(-1, -2)
+        if pos_bias is not None:
+            sim = sim + pos_bias  # (H, F, F) broadcast over (B, HW)
+        sim = sim - sim.amax(dim=-1, keepdim=True)
+        out = sim.softmax(dim=-1) @ v
+        out = out.transpose(-3, -2).reshape(b, hh * ww, f, self.heads * self.dim_head)
+        out = self.to_out(out)
+        return out.reshape(b, hh, ww, f, c).permute(0, 3, 1, 2, 4)
+
+
+class SpatialLinearAttention3D(nn.Module):
+    """Per-frame linear attention over H*W tokens
+    (reference: video_diffusion_pytorch_conv3d.py:232-258)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
+        self.to_out = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        b, f, hh, ww, c = x.shape
+        t = x.reshape(b * f, hh * ww, c)
+        q, k, v = self.to_qkv(t).chunk(3, dim=-1)
+
+        def heads(z):  # (B', N, H*D) -> (B', H, D, N)
+            bb, n, _ = z.shape
+            return z.reshape(bb, n, self.heads, self.dim_head).permute(0, 2, 3, 1)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        q = q.softmax(dim=-2)
+        k = k.softmax(dim=-1)
+        q = q * (self.dim_head ** -0.5)
+        context = k @ v.transpose(-1, -2)  # (B', H, D, E)
+        out = context.transpose(-1, -2) @ q  # (B', H, E, N)
+        bb, h, d, n = out.shape
+        out = out.permute(0, 3, 1, 2).reshape(bb, n, h * d)
+        return self.to_out(out).reshape(b, f, hh, ww, c)
+
+
+class MidSpatialAttention(nn.Module):
+    """Full per-frame spatial attention at the bottleneck (`_MidSpatial`)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
+        self.to_out = nn.Linear(hidden, dim, bias=False)
+
+    def forward(self, z):
+        b, ff, hh, ww, c = z.shape
+        tkn = z.reshape(b * ff, hh * ww, c)
+        q, k, v = self.to_qkv(tkn).chunk(3, dim=-1)
+
+        def heads(zz):  # (B', N, H*D) -> (B', H, N, D)
+            bb, n, _ = zz.shape
+            return zz.reshape(bb, n, self.heads, self.dim_head).transpose(1, 2)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        q = q * (self.dim_head ** -0.5)
+        sim = q @ k.transpose(-1, -2)
+        sim = sim - sim.amax(dim=-1, keepdim=True)
+        out = sim.softmax(dim=-1) @ v
+        bb, hd, n, d = out.shape
+        out = out.transpose(1, 2).reshape(bb, n, hd * d)
+        return self.to_out(out).reshape(b, ff, hh, ww, c)
+
+
+class Block3D(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8):
+        super().__init__()
+        self.conv = Conv3dCL(dim_in, dim_out, kernel_size=3, padding=1)
+        self.norm = GroupNormCL(groups, dim_out)
+
+    def forward(self, x, scale_shift=None):
+        x = self.norm(self.conv(x))
+        if scale_shift is not None:
+            scale, shift = scale_shift
+            x = x * (scale + 1) + shift
+        return F.silu(x)
+
+
+class ResnetBlock3D(nn.Module):
+    """Two conv blocks with FiLM time conditioning + residual; `time_dim=None`
+    builds the block without its time projection."""
+
+    def __init__(self, dim_in: int, dim_out: int, time_dim: Optional[int], groups: int = 8):
+        super().__init__()
+        self.mlp = nn.Linear(time_dim, dim_out * 2) if time_dim else None
+        self.block1 = Block3D(dim_in, dim_out, groups)
+        self.block2 = Block3D(dim_out, dim_out, groups)
+        self.res_conv = Conv3dCL(dim_in, dim_out, kernel_size=1) if dim_in != dim_out else None
+
+    def forward(self, x, time_emb=None):
+        scale_shift = None
+        if self.mlp is not None and time_emb is not None:
+            h_t = self.mlp(F.silu(time_emb))
+            h_t = h_t.reshape(h_t.shape[0], 1, 1, 1, h_t.shape[-1])
+            scale_shift = h_t.chunk(2, dim=-1)
+        h = self.block1(x, scale_shift)
+        h = self.block2(h)
+        if self.res_conv is not None:
+            x = self.res_conv(x)
+        return h + x
+
+
+class PreNormResidual(nn.Module):
+    """x + fn(ChanLayerNorm(x)) (`_PreNormResidual3D`)."""
+
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.norm = ChanLayerNorm(dim)
+        self.fn = fn
+
+    def forward(self, x, **kw):
+        return self.fn(self.norm(x), **kw) + x
+
+
+class UNet3D(nn.Module):
+    """UNet3D forward on (B, F, H, W, C) float32 input and (B,) timesteps."""
+
+    def __init__(
+        self,
+        dim: int = 64,
+        dim_mults: Sequence[int] = (1, 2, 4),
+        channels: int = 7,
+        attn_heads: int = 4,
+        attn_dim_head: int = 32,
+        resnet_groups: int = 8,
+        conv_impl: str = "xla",
+        attn_impl: str = "packed",
+    ):
+        super().__init__()
+        if conv_impl == "pallas":
+            raise NotImplementedError(
+                "conv_impl='pallas' needs the fused 3x3x3 conv kernel, which is not "
+                "ported yet; use conv_impl='xla' (the framework conv)")
+        if conv_impl != "xla":
+            raise ValueError(f"unknown conv_impl {conv_impl!r}")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+
+        def temporal(d):
+            return PreNormResidual(d, TemporalAttention(d, attn_heads, attn_dim_head))
+
+        def spatial(d):
+            return PreNormResidual(d, SpatialLinearAttention3D(d, attn_heads, attn_dim_head))
+
+        time_dim = dim * 4
+        self.time_rel_pos_bias = nn.Embedding(32, attn_heads)
+        self.time_mlp = TimeMLP(dim, time_dim)
+        self.init_conv = Conv3dCL(channels, dim, kernel_size=7, padding=3)
+        self.init_temporal_attn = temporal(dim)
+
+        dims = [dim] + [dim * m for m in dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        num_res = len(in_out)
+
+        # each level: [resnet, resnet, spatial attn, temporal attn, resample]
+        self.downs = nn.ModuleList()
+        for i, (dim_in, dim_out) in enumerate(in_out):
+            is_last = i >= num_res - 1
+            self.downs.append(nn.ModuleList([
+                ResnetBlock3D(dim_in, dim_out, time_dim, resnet_groups),
+                ResnetBlock3D(dim_out, dim_out, time_dim, resnet_groups),
+                spatial(dim_out),
+                temporal(dim_out),
+                # spatial-only downsample, k(1,4,4) s(1,2,2)
+                nn.Identity() if is_last else Conv3dCL(
+                    dim_out, dim_out, kernel_size=(1, 4, 4), stride=(1, 2, 2),
+                    padding=(0, 1, 1)),
+            ]))
+
+        mid_dim = dims[-1]
+        self.mid_block1 = ResnetBlock3D(mid_dim, mid_dim, time_dim, resnet_groups)
+        self.mid_spatial_attn = PreNormResidual(
+            mid_dim, MidSpatialAttention(mid_dim, attn_heads, attn_dim_head))
+        self.mid_temporal_attn = temporal(mid_dim)
+        self.mid_block2 = ResnetBlock3D(mid_dim, mid_dim, time_dim, resnet_groups)
+
+        self.ups = nn.ModuleList()
+        for i, (dim_in, dim_out) in enumerate(reversed(in_out)):
+            is_last = i >= num_res - 1
+            self.ups.append(nn.ModuleList([
+                ResnetBlock3D(dim_out * 2, dim_in, time_dim, resnet_groups),
+                ResnetBlock3D(dim_in, dim_in, time_dim, resnet_groups),
+                spatial(dim_in),
+                temporal(dim_in),
+                # spatial-only transposed-conv upsample, k(1,4,4) s(1,2,2)
+                nn.Identity() if is_last else ConvTransposeCL(
+                    dim_in, dim_in, kernel_size=(1, 4, 4), stride=(1, 2, 2)),
+            ]))
+
+        self.final_block = ResnetBlock3D(dim * 2, dim, None, resnet_groups)
+        self.final_conv = Conv3dCL(dim, channels, kernel_size=1)
+
+    def forward(self, x, t):
+        x = x.to(torch.float32)
+        f = x.shape[1]
+        buckets = torch.as_tensor(_rel_pos_buckets(f, num_buckets=32, max_distance=32),
+                                  device=x.device)
+        pos_bias = self.time_rel_pos_bias(buckets).permute(2, 0, 1)  # (H, F, F)
+        time_emb = self.time_mlp(t)
+
+        x = self.init_conv(x)
+        x = self.init_temporal_attn(x, pos_bias=pos_bias)
+        r = x
+
+        h = []
+        for res1, res2, spatial_attn, temporal_attn, downsample in self.downs:
+            x = res1(x, time_emb)
+            x = res2(x, time_emb)
+            x = spatial_attn(x)
+            x = temporal_attn(x, pos_bias=pos_bias)
+            h.append(x)
+            x = downsample(x)
+
+        x = self.mid_block1(x, time_emb)
+        x = self.mid_spatial_attn(x)
+        x = self.mid_temporal_attn(x, pos_bias=pos_bias)
+        x = self.mid_block2(x, time_emb)
+
+        for res1, res2, spatial_attn, temporal_attn, upsample in self.ups:
+            x = torch.cat([x, h.pop()], dim=-1)
+            x = res1(x, time_emb)
+            x = res2(x, time_emb)
+            x = spatial_attn(x)
+            x = temporal_attn(x, pos_bias=pos_bias)
+            x = upsample(x)
+
+        x = torch.cat([x, r], dim=-1)
+        x = self.final_block(x)
+        return self.final_conv(x).to(torch.float32)

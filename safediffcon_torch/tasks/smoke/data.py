@@ -1,0 +1,175 @@
+"""2D smoke dataset: generation through the solver, and npz splits.
+
+Port of `generate_smoke_dataset` and `SmokeDataset.load` of
+`safediffcon_tpu/tasks/smoke/data.py` (reference:
+2d/apps/a_gen_dataset_128.py:100-345,491-744; record format
+2d/ddpm/data_2d.py:43-113): random smoke blobs steered by a 4-phase waypoint
+velocity program through the maze, recorded as 32 frames of 64^2
+(every 8th 128^2 frame, 2x spatial downsample) + the two absorption rates
+tiled over space -> (32, 64, 64, 7) channels-last per sample.
+
+The waypoints come from the same numpy generator as in JAX, so a seed gives
+the same blobs and velocity programs in both packages; the full-field control
+noise is drawn on the device from a `torch.Generator` seeded with `seed`,
+which gives other numbers than JAX's key.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from safediffcon_torch.solvers import smoke as S
+from safediffcon_torch.tasks.smoke.task import FRAMES, RESCALER
+
+log = logging.getLogger(__name__)
+
+
+def _waypoints(rng: np.random.Generator):
+    """Random start + waypoint x-positions (reference: exp2_target_128,
+    2d/apps/a_gen_dataset_128.py:179-211)."""
+    m = 4
+    start_x = 2 * round(rng.integers(16 + 2 + m, 112 - 10 - m) / 2)
+    start_y = 2 * round(rng.integers(16 + 2 + m, 40 - 10 - m) / 2)
+    a = 0 if start_x < 64 - 8 else 1
+    t1 = rng.integers(16 + m, 64 - 8) if a == 0 else rng.integers(64, 112 - 8 - m)
+    t2 = rng.integers(16 + m, 64 - 8) if a == 0 else rng.integers(64, 112 - 8 - m)
+    t3 = rng.integers(50, 80 - 1 - 8)
+    end_x = rng.integers(64 - 8, 64 + 8 - 8)
+    xs = [int(start_x), int(t1), int(t2), int(t3), int(end_x)]
+    ys = [int(start_y), 40, 50, 64, 112]
+    return xs, ys
+
+
+def _velocity_program(rng: np.random.Generator, xs, ys, n_frames: int,
+                      y_scale: float = 1.0, min_scale: float = 2.0,
+                      max_scale: float = 5.0):
+    """Per-frame (vx, vy) targets from the waypoint path
+    (reference: get_per_vel, 2d/apps/a_gen_dataset_128.py:130-176)."""
+    seg = [np.hypot(xs[i + 1] - xs[i], ys[i + 1] - ys[i]) for i in range(4)]
+    total = sum(seg)
+    v = total / float(n_frames)
+    scale = rng.uniform(min_scale, max_scale)
+    vxs = [scale * v * (xs[i + 1] - xs[i]) / seg[i] for i in range(4)]
+    vys = [y_scale * v * (ys[i + 1] - ys[i]) / seg[i] for i in range(4)]
+    iv = [int(n_frames * seg[i] / total) for i in range(3)]
+    bounds = np.cumsum([iv[0] + 1, iv[1], iv[2]])
+    phase = np.searchsorted(bounds, np.arange(n_frames), side="right")
+    return np.asarray(vxs)[phase], np.asarray(vys)[phase]
+
+
+def generate_smoke_dataset(
+    path: str,
+    n_train: int = 512,
+    n_cal: int = 200,
+    n_test: int = 50,
+    seed: int = 0,
+    n_frames: int = 256,
+    record_frames: int = FRAMES,
+    space_scale: int = 2,
+    gen_batch: int = 16,
+    accuracy: float = 1e-6,
+    max_iter: int = 500,
+    backend: str = "auto",
+    device="cuda",
+) -> None:
+    """Generate all splits with the batched rollout on `device` and save one
+    npz. backend "auto" is kernel K1 (`solvers.smoke.resolve_backend`).
+    Controls are full-field N(v, |v|/10) noise recorded every time_scale
+    frames with the interior
+    zeroed (reference: get_envolve, 2d/apps/a_gen_dataset_128.py:287-313).
+    The JAX version's mass-conservation filter comes with the training
+    slice, whose datasets use it."""
+    masks = S.build_masks(device)
+    time_scale = max(n_frames // record_frames, 1)
+    n_rec = n_frames // time_scale
+    size = S.N // space_scale
+    lo, hi = 16 // space_scale, 112 // space_scale
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    total = n_train + n_cal + n_test
+
+    t0 = time.time()
+    recs = []
+    done = 0
+    while done < total:
+        b = min(gen_batch, total - done)
+        dens0 = np.zeros((b, S.CELLS, S.CELLS), np.float32)
+        vxs = np.zeros((b, n_frames), np.float32)
+        vys = np.zeros((b, n_frames), np.float32)
+        for i in range(b):
+            xs, ys = _waypoints(rng)
+            dens0[i, ys[0] : ys[0] + 10, xs[0] : xs[0] + 10] = 1.0
+            vxs[i], vys[i] = _velocity_program(rng, xs, ys, n_frames)
+
+        v0 = torch.zeros((b, S.N, S.N, 2), device=device)
+        v0[..., 1] = 0.8
+        vx_t = torch.as_tensor(vxs, device=device)
+        vy_t = torch.as_tensor(vys, device=device)
+        noise = torch.randn((b, n_frames - 1, S.N, S.N, 2), generator=gen, device=device)
+        ctrl = torch.stack([
+            vx_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 0]),
+            vy_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 1]),
+        ], dim=-1)
+        del noise
+        rec = S.smoke_rollout(masks, torch.as_tensor(dens0, device=device), v0, ctrl,
+                              accuracy, max_iter, backend=backend)
+        ctrl_full = torch.cat([torch.zeros_like(ctrl[:, :1]), ctrl], dim=1)
+        # subsample on the device; only the (b, n_rec, size, size) record crosses
+        dsub = rec.density[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+        vel = rec.velocity[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+        c_rec = ctrl_full[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+        smoke = rec.smoke_rate[:, ::time_scale].cpu().numpy()
+        safe = rec.smoke_safe_rate[:, ::time_scale].cpu().numpy()
+        del rec, ctrl, ctrl_full
+
+        c_rec[:, :, lo:hi, lo:hi, :] = 0.0  # indirect control band
+        out = np.zeros((b, n_rec, size, size, 7), np.float32)
+        out[:, :, : dsub.shape[2], : dsub.shape[3], 0] = dsub
+        out[..., 1] = vel[..., 0]
+        out[..., 2] = vel[..., 1]
+        out[..., 3] = c_rec[..., 0]
+        out[..., 4] = c_rec[..., 1]
+        out[..., 5] = smoke[:, :, None, None]
+        out[..., 6] = safe[:, :, None, None]
+        recs.append(out)
+        done += b
+        log.info("smoke datagen %d/%d sims (%.2f s/sim)", done, total,
+                 (time.time() - t0) / max(done, 1))
+
+    data = np.concatenate(recs)
+    splits = {
+        "train": data[:n_train],
+        "cal": data[n_train : n_train + n_cal],
+        "test": data[n_train + n_cal :],
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **{f"{k}_data": v for k, v in splits.items()})
+
+
+@dataclasses.dataclass
+class SmokeDataset:
+    """In-memory split: data (N, F, 64, 64, 7) numpy.
+
+    `data` is normalized (/RESCALER); `raw` is physical units (the test
+    split of the reference is consumed unscaled, 2d/ddpm/data_2d.py:92-113).
+    """
+
+    data: np.ndarray
+    raw: np.ndarray
+
+    @classmethod
+    def load(cls, path: str, split: str, subset: Optional[int] = None) -> "SmokeDataset":
+        with np.load(path) as z:
+            raw = z[f"{split}_data"]
+        if subset is not None:
+            raw = raw[:subset]
+        return cls(data=(raw / RESCALER).astype(np.float32, copy=False), raw=raw)
+
+    def __len__(self) -> int:
+        return self.data.shape[0]

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's smoke serving path on one CUDA card.
+"""Drive the PyTorch port's smoke serving and training paths on one CUDA card.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`. It
 needs one CUDA card and the CUDA toolkit (nvcc); without a card it exits
@@ -7,27 +7,46 @@ non-zero before printing any result, and it has no CPU path. Any phase that
 fails ends the run with a non-zero exit.
 
   1. device: the card's name and power limit, torch version, TF32 flags;
-  2. build: kernel K1 (safediffcon_torch/csrc/pressure_cg.cu) into
-     build/kernels/;
+  2. build: kernels K1 (safediffcon_torch/csrc/pressure_cg.cu) and K2
+     (safediffcon_torch/csrc/conv3d_mxu.cu) into build/kernels/, one nvcc
+     each, started together;
   3. K1 against its plain PyTorch version on the card at the serving shapes
      (B = 8, 10 and 50 samples of 127^2, warm start, accuracy 1e-6 and 1e-8,
      max_iter 500, convergence checks every 1 and every 32 iterations),
      the residual |A p - div|, and the gradient (a solve of the cotangent);
   4. the serving path at the reference model's full width (UNet3D dim 64,
      mults (1, 2, 4), 7 channels, 32 frames of 64^2, seeded weights):
-     generate 50 cal and 50 test sims with the port's solver (256 frames at
-     128^2, CG 1e-6), then SmokePipeline.calibrate and guided evaluate with
+     generate 16 train, 50 cal and 50 test sims with the port's solver (256
+     frames at 128^2, CG 1e-6), then SmokePipeline.calibrate and guided
+     evaluate with
      the SmokeConformalConfig defaults (DDIM 100, eta 1, solver 1e-8 / 500,
      backend "auto" = K1) and the pipeline's default chunks, so each runs
      one batch of 50 and reports its peak device memory. K1's launch count
      is zeroed just before calibrate and read just after evaluate;
   5. a small input run on the card and on the CPU (whose path the CPU tests
      hold against the JAX package) with the same weights and noise, in
-     float32 without TF32: the metrics must agree.
+     float32 without TF32: the metrics must agree;
+  6. K2 against its plain PyTorch version on the card at the 10 (H, Cin,
+     Cout) of UNet3D's 3x3x3 convs, B = 16, F = 32: the forward in float32
+     and (two shapes) bfloat16, dx through the autograd Function and dW
+     against autograd of the plain version (TF32 off), with the kernel's,
+     the plain version's and one F.conv3d call's times and the bound;
+  7. a small pretrain on the card (K2) and on the CPU (its plain version,
+     which the CPU tests hold against the JAX package) with the same
+     weights and draws, TF32 off: the losses must agree;
+  8. pretraining at the reference width on K2 (SmokePretrainConfig with
+     conv_impl "pallas": batch 16, remat "full", float32) for
+     PRETRAIN_STEPS steps after one warm-up step; K2's launch count is
+     zeroed just before and must read 90 per step just after;
+  9. one posttrain epoch and one InfFT epoch through run_inference from
+     the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 100 (the
+     SmokePipeline model, framework conv; K1 in evaluate), then one InfFT
+     step at Q = 1, where its loss has a gradient.
 
 Its last three lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import math
 import subprocess
@@ -36,17 +55,32 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM data-sheet peaks: HBM3 bandwidth, float32 outside the tensor cores
+# H100 SXM data-sheet peaks: HBM3 bandwidth, float32 outside the tensor cores,
+# TF32 and bf16 dense tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 # CG work per cell per iteration: 5-point stencil (9), three dot products
 # (6), max |r| (2), three axpy updates (6)
 CG_FLOPS_PER_CELL = 23
 CELLS = 127
 N_CAL, N_TEST = 50, 50  # sims per split (reference: 200 cal, 50 test)
+N_TRAIN = 16  # one pretrain batch (reference: 19,800 train sims)
 GEN_BATCH = 50
+# K2 at UNet3D dim 64, mults (1, 2, 4), 32 frames of 64^2: (H = W, Cin, Cout)
+# of each 3x3x3 conv and its launches per forward (models/unet3d.py)
+K2_SHAPES = [(64, 64, 64, 8), (64, 128, 64, 2), (32, 64, 128, 1), (32, 128, 128, 3),
+             (32, 256, 64, 1), (32, 64, 64, 3), (16, 128, 256, 1), (16, 256, 256, 7),
+             (16, 512, 128, 1), (16, 128, 128, 3)]
+K2_BATCH, FRAMES = 16, 32
+K2_BF16 = [(64, 64, 64), (16, 512, 128)]
+PRETRAIN_STEPS = 10  # the EMA first moves at step 10
+FT_SIMS = 8  # cal and test sims of the posttrain / InfFT epochs
+POSTTRAIN_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -165,17 +199,18 @@ def phase_serving(K, smoke):
     K.pressure_cg_cuda.iterations = []
     launches0 = K.pressure_cg_cuda.launches
     t0 = time.perf_counter()
-    smoke.generate_smoke_dataset(path, n_train=0, n_cal=N_CAL, n_test=N_TEST, seed=0,
+    smoke.generate_smoke_dataset(path, n_train=N_TRAIN, n_cal=N_CAL, n_test=N_TEST, seed=0,
                                  gen_batch=GEN_BATCH, accuracy=1e-6, max_iter=500, device="cuda")
     torch.cuda.synchronize()
     datagen_s = time.perf_counter() - t0
     gen_iters = torch.cat(K.pressure_cg_cuda.iterations).float()
-    log(f"phase datagen: {N_CAL + N_TEST} sims x 255 solver steps in {datagen_s:.2f} s "
+    log(f"phase datagen: {N_TRAIN + N_CAL + N_TEST} sims x 255 solver steps in {datagen_s:.2f} s "
         f"(batches of {GEN_BATCH}); "
         f"K1 launches {K.pressure_cg_cuda.launches - launches0}, iterations per chunk "
         f"mean {float(gen_iters.mean()):.1f} max {int(gen_iters.max())} (accuracy 1e-6)")
     cal = smoke.SmokeDataset.load(path, "cal")
     test = smoke.SmokeDataset.load(path, "test")
+    train = smoke.SmokeDataset.load(path, "train")
 
     ccfg = smoke.SmokeConformalConfig(cal_batch_size=N_CAL, num_cal_batch=1,
                                       n_test_samples=N_TEST, test_batch_size=N_TEST)
@@ -225,11 +260,10 @@ def phase_serving(K, smoke):
         raise AssertionError("the serving path never launched K1")
     if not (math.isfinite(q) and all(math.isfinite(v) for v in metrics.values())):
         raise AssertionError(f"non-finite result: Q {q}, metrics {metrics}")
-    return test, launches, dict(datagen_s=datagen_s, calibrate_s=calibrate_s,
-                                sampling_s=sampling_s, rollout_s=rollout_s,
-                                ms_per_guided_step=1e3 * sampling_s / steps,
-                                peak_gb=peak_gb, cal_peak_gb=cal_peak_gb,
-                                iter_share_at_max=at_max)
+    return (train, cal, test), launches, dict(
+        datagen_s=datagen_s, calibrate_s=calibrate_s, sampling_s=sampling_s,
+        rollout_s=rollout_s, ms_per_guided_step=1e3 * sampling_s / steps, peak_gb=peak_gb,
+        cal_peak_gb=cal_peak_gb, iter_share_at_max=at_max)
 
 
 def phase_small_input_agreement(K, smoke, test):
@@ -266,12 +300,294 @@ def phase_small_input_agreement(K, smoke, test):
             raise AssertionError(f"card and CPU disagree on {name}: {got} vs {ref}")
 
 
+def conv_bound_ms(batch: int, h: int, cin: int, cout: int, dtype) -> tuple:
+    """Least time for one stride-1 SAME 3x3x3 conv of (batch, FRAMES, h, h,
+    cin): x, the weight and the output each moved once over HBM bandwidth,
+    against its flops at the dense tensor-core rate of its input type (TF32
+    for float32). Returns (ms, "bytes" | "operations")."""
+    voxels = batch * FRAMES * h * h
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * (voxels * (cin + cout) + 27 * cin * cout)
+    flops = 2 * voxels * 27 * cin * cout
+    peak = TF32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_conv_kernel_vs_plain(C):
+    """K2 against its plain version at UNet3D's 10 conv shapes (B = 16,
+    F = 32): forward in float32 (and bfloat16 at two shapes), dx and dW
+    through the autograd Function; times of the kernel, the plain version,
+    dx's kernel call and one F.conv3d (cuDNN, default TF32 flags)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    for h, cin, cout, per_forward in K2_SHAPES:
+        shape = (K2_BATCH, FRAMES, h, h, cin)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda") / (27 * cin) ** 0.5
+        wf = C.flatten_weight(w)
+        out, plain = C.conv3d_fused(x, wf), C.conv3d_fused_plain(x, wf)
+        torch.cuda.synchronize()
+        diff, scale = float((out - plain).abs().max()), float(plain.abs().max())
+        del out, plain
+        kernel_ms = cuda_ms(lambda: C.conv3d_fused(x, wf), reps=3)
+        plain_ms = cuda_ms(lambda: C.conv3d_fused_plain(x, wf), reps=1)
+        xn = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the channels-last tensor
+        library_ms = cuda_ms(lambda: F.conv3d(xn, w, padding=1), reps=3)
+        g = torch.randn((*shape[:-1], cout), generator=gen, device="cuda")
+        wt = C.flatten_weight(C.flip_transpose(w))
+        dx_kernel_ms = cuda_ms(lambda: C.conv3d_fused(g, wt), reps=3)
+
+        # dx and dW: the Function against autograd of the plain version, with
+        # cuDNN's weight gradient in full float32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+            C.conv3d_fused_fn(xk, wk).backward(g)
+            xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+            C.conv3d_fused_plain(xp, C.flatten_weight(wp)).backward(g)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        dx_diff, dx_scale = float((xk.grad - xp.grad).abs().max()), float(xp.grad.abs().max())
+        dw_diff, dw_scale = float((wk.grad - wp.grad).abs().max()), float(wp.grad.abs().max())
+        del xk, wk, xp, wp, g
+
+        bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.float32)
+        case = dict(h=h, cin=cin, cout=cout, batch=K2_BATCH, frames=FRAMES, dtype="float32",
+                    launches_per_forward=per_forward, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, dx_kernel_ms=dx_kernel_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_diff=diff, max_abs=scale, dx_max_diff=dx_diff,
+                    dx_max_abs=dx_scale, dw_max_diff=dw_diff, dw_max_abs=dw_scale,
+                    tflops=2 * K2_BATCH * FRAMES * h * h * 27 * cin * cout / kernel_ms / 1e9)
+        log("K2 " + json.dumps(case))
+        # float32 sums of K = 27 * Cin <= 13,824 products in another order
+        if not (diff <= 1e-4 * scale and dx_diff <= 1e-4 * dx_scale):
+            raise AssertionError(f"K2 differs from its plain version: {case}")
+        # dW sums over B*F*H*W = 2.1M voxels in float32 on both sides
+        if not dw_diff <= 1e-4 * dw_scale:
+            raise AssertionError(f"K2's weight gradient differs: {case}")
+        cases.append(case)
+
+        if (h, cin, cout) in K2_BF16:
+            xb, wb = x.bfloat16(), wf.bfloat16()
+            out = C.conv3d_fused(xb, wb)
+            ref = C.conv3d_fused_plain(xb, wb)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(out.float()).all())
+            diff = float((out.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.bfloat16)
+            case = dict(h=h, cin=cin, cout=cout, batch=K2_BATCH, frames=FRAMES,
+                        dtype="bfloat16", kernel_ms=cuda_ms(lambda: C.conv3d_fused(xb, wb), 3),
+                        plain_ms=cuda_ms(lambda: C.conv3d_fused_plain(xb, wb), 1),
+                        library_ms=cuda_ms(lambda: F.conv3d(xb.permute(0, 4, 1, 2, 3),
+                                                            w.bfloat16(), padding=1), 3),
+                        bound_ms=bound_ms, bound_by=bound_by, max_diff=diff, max_abs=scale)
+            log("K2 " + json.dumps(case))
+            # both round one float32 sum to bfloat16 (8 bits): 1e-2 of max
+            if not (out.dtype == torch.bfloat16 and finite and diff <= 1e-2 * scale):
+                raise AssertionError(f"K2 bfloat16 differs from its plain version: {case}")
+            cases.append(case)
+            del xb, wb, out, ref
+        del x, w, wf, xn, wt
+        torch.cuda.empty_cache()
+    return cases
+
+
+def count_fused_convs(model) -> int:
+    from safediffcon_torch.models.unet3d import FusedConv3x3x3
+
+    return sum(isinstance(m, FusedConv3x3x3) for m in model.modules())
+
+
+def phase_pretrain(C, smoke, train):
+    """Pretraining at the reference width with every 3x3x3 conv on K2."""
+    from safediffcon_torch.tasks.smoke.pipeline import build_model, init_params
+
+    cfg = smoke.SmokePretrainConfig(conv_impl="pallas")
+    n_convs = count_fused_convs(build_model(cfg.dim, cfg.dim_mults, conv_impl="pallas",
+                                            device="meta"))
+    if n_convs != sum(n for *_, n in K2_SHAPES):
+        raise AssertionError(f"UNet3D has {n_convs} fused convs, K2_SHAPES lists "
+                             f"{sum(n for *_, n in K2_SHAPES)}")
+    log(f"pretrain: {cfg}; {len(train)} train sims; depth cut to {PRETRAIN_STEPS} steps "
+        f"(reference {cfg.train_num_steps})")
+    smoke.pretrain(cfg, train, num_steps=1, device="cuda")  # warm-up, not counted
+    init = init_params(build_model(cfg.dim, cfg.dim_mults, device="cuda"), seed=cfg.seed)
+    init = {k: v.detach() for k, v in init.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts zeroed just before, read just after
+    C.conv3d_fused_cuda.launches = 0
+    C.conv3d_fused_cuda.events = []
+    losses = []
+    t0 = time.perf_counter()
+    state = smoke.pretrain(cfg, train, num_steps=PRETRAIN_STEPS, device="cuda", losses=losses)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = C.conv3d_fused_cuda.launches
+    k2_s = sum(a.elapsed_time(b) for a, b in C.conv3d_fused_cuda.events) / 1e3
+    C.conv3d_fused_cuda.events = None
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [float(v) for v in losses]
+    ema_moved = max(float((state.ema_params[k] - init[k]).abs().max()) for k in init)
+    weights_moved = max(float((p.detach() - init[k]).abs().max())
+                        for k, p in state.model.named_parameters())
+    log(f"phase pretrain: {PRETRAIN_STEPS} steps in {seconds:.2f} s = "
+        f"{seconds / PRETRAIN_STEPS:.3f} s per step at batch {cfg.batch_size}; K2 {launches} "
+        f"launches, {k2_s:.2f} s of kernel time ({100 * k2_s / seconds:.1f} % of the steps); "
+        f"peak device memory {peak_gb:.2f} GB")
+    log(f"pretrain losses {json.dumps(losses)}; max |EMA - init| {ema_moved:.3e}, "
+        f"max |weights - init| {weights_moved:.3e}")
+    # per step: each conv's forward, its recomputation, its dx (3 x 30 = 90)
+    if launches != 3 * n_convs * PRETRAIN_STEPS:
+        raise AssertionError(f"K2 launched {launches} times, expected {3 * n_convs} x "
+                             f"{PRETRAIN_STEPS}")
+    if not all(math.isfinite(v) for v in losses) or len(losses) != PRETRAIN_STEPS:
+        raise AssertionError(f"pretrain losses {losses}")
+    if not (state.step == PRETRAIN_STEPS and ema_moved > 0 and weights_moved > 0):
+        raise AssertionError("pretrain did not move the weights and the EMA")
+    ema = {k: v.clone() for k, v in state.ema_params.items()}
+    return ema, launches, dict(pretrain_s=seconds, s_per_step=seconds / PRETRAIN_STEPS,
+                               k2_s=k2_s, k2_share=k2_s / seconds, pretrain_peak_gb=peak_gb,
+                               losses=losses)
+
+
+def phase_finetune(K, smoke, data, params):
+    """One posttrain epoch and one InfFT epoch through run_inference from
+    the pretrained EMA weights, on FT_SIMS cal and test sims with DDIM 100;
+    then one more InfFT step at Q = 1. InfFT's loss with finetune_config
+    (w_safe 1) is w_safe * mean(relu(final safe rate + Q - bound)^2): it is 0,
+    with a zero gradient, while every predicted safe rate lies below
+    bound - Q-hat, as with barely trained weights; at Q = 1 the relu is
+    active for any prediction above -0.9, so that step must move the
+    weights."""
+    from safediffcon_torch.tasks.smoke import make_finetune_steps, run_inference
+
+    train, cal, test = data
+    cal = smoke.SmokeDataset(cal.data[:FT_SIMS], cal.raw[:FT_SIMS])
+    test = smoke.SmokeDataset(test.data[:FT_SIMS], test.raw[:FT_SIMS])
+    cut = dict(cal_batch_size=FT_SIMS, num_cal_batch=1, n_test_samples=FT_SIMS,
+               test_batch_size=FT_SIMS)
+    runs = {
+        "posttrain": dataclasses.replace(smoke.posttrain_config(), finetune_epoch=1,
+                                         finetune_steps=POSTTRAIN_STEPS),
+        "infft": dataclasses.replace(smoke.finetune_config(), finetune_epoch=1),
+    }
+    times = {}
+    for name, cfg in runs.items():
+        cfg = dataclasses.replace(cfg, conformal=dataclasses.replace(cfg.conformal, **cut))
+        pipe = smoke.SmokePipeline(cfg.conformal, device="cuda")
+        cal_s = []
+        calibrate = pipe.calibrate
+
+        def timed_calibrate(*a, **kw):
+            t = time.perf_counter()
+            q = calibrate(*a, **kw)
+            torch.cuda.synchronize()
+            cal_s.append(time.perf_counter() - t)
+            return q
+
+        pipe.calibrate = timed_calibrate
+        pipe.phase_seconds = {}
+        K.pressure_cg_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, _, hist = run_inference(cfg, pipe, params, train, cal, test)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        evaluate_s = pipe.phase_seconds["sampling"] + pipe.phase_seconds["rollout"]
+        changed = max(float((new[k] - params[k]).abs().max()) for k in params)
+        times[name] = dict(epochs=len(hist), total_s=total,
+                           finetune_s=total - sum(cal_s) - evaluate_s, calibrate_s=sum(cal_s),
+                           evaluate_s=evaluate_s, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           k1_launches=K.pressure_cg_cuda.launches,
+                           quantiles=[r["quantile"] for r in hist],
+                           losses=[r["loss"] for r in hist], max_weight_change=changed)
+        log(f"phase {name}: {json.dumps(times[name])}; {cfg.finetune_steps} step(s) per epoch "
+            f"at batch {cfg.finetune_batch_size if name == 'posttrain' else FT_SIMS}, DDIM "
+            f"{cfg.conformal.ddim_sampling_steps}")
+        for rec in hist:
+            log(f"{name} epoch {rec['epoch']} metrics " + json.dumps(rec["eval"], sort_keys=True))
+            values = [rec["quantile"], rec["loss"], *rec["eval"].values()]
+            if not all(math.isfinite(v) for v in values):
+                raise AssertionError(f"{name}: non-finite result {rec}")
+        if len(hist) != cfg.finetune_epoch or K.pressure_cg_cuda.launches == 0:
+            raise AssertionError(f"{name}: {len(hist)} of {cfg.finetune_epoch} epochs ran, "
+                                 f"{K.pressure_cg_cuda.launches} K1 launches")
+        if name == "posttrain" and not changed > 0:
+            raise AssertionError("posttrain left the weights unchanged")
+        if name == "infft":
+            tx, _, backward_step = make_finetune_steps(cfg, pipe)
+            before = {k: v.clone() for k, v in pipe.model.state_dict().items()}
+            batch = torch.as_tensor(test.data, device="cuda")
+            t0 = time.perf_counter()
+            loss = float(backward_step(tx.init(list(pipe.model.parameters())), batch,
+                                       torch.tensor(1.0, device="cuda"),
+                                       generator=torch.Generator(device="cuda").manual_seed(7)))
+            step_s = time.perf_counter() - t0
+            moved = max(float((v - before[k]).abs().max())
+                        for k, v in pipe.model.state_dict().items())
+            times["infft_step_at_q1"] = dict(seconds=step_s, loss=loss, max_weight_change=moved)
+            log(f"InfFT step at Q = 1: {json.dumps(times['infft_step_at_q1'])}")
+            if not (math.isfinite(loss) and loss > 0 and moved > 0):
+                raise AssertionError(f"the InfFT step at Q = 1 did not train: loss {loss}, "
+                                     f"weights moved {moved}")
+        del pipe, new
+        torch.cuda.empty_cache()
+    return times
+
+
+def phase_small_pretrain_agreement(C, smoke, train):
+    """Two pretrain steps of a small UNet3D(conv_impl="pallas") on the card
+    (K2) and on the CPU (its plain version) from the same weights and draws,
+    float32 without TF32: the losses must agree."""
+    from safediffcon_torch.tasks.smoke.pipeline import build_model, init_params
+
+    cfg = smoke.SmokePretrainConfig(dim=16, dim_mults=(1, 2), timesteps=6, batch_size=2,
+                                    conv_impl="pallas")
+    raw = train.raw[:4, ::8, ::4, ::4]  # 4 frames of 16^2
+    small = smoke.SmokeDataset(data=raw / smoke.RESCALER, raw=raw)
+    params = init_params(build_model(16, (1, 2), device="cpu"), seed=5).state_dict()
+    gen = torch.Generator().manual_seed(6)
+    draws = [(torch.randint(0, cfg.timesteps, (2,), generator=gen),
+              torch.randn((2, *raw.shape[1:]), generator=gen)) for _ in range(2)]
+    losses = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    n_convs = count_fused_convs(build_model(16, (1, 2), conv_impl="pallas", device="cpu"))
+    before = C.conv3d_fused_cuda.launches
+    try:
+        for device in ("cuda", "cpu"):
+            noise = iter([(t.to(device), n.to(device)) for t, n in draws])
+            out = []
+            smoke.pretrain(cfg, small, num_steps=2, params=params, device=device, noise=noise,
+                           losses=out)
+            losses[device] = [float(v) for v in out]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log(f"small pretrain: card {losses['cuda']}, cpu {losses['cpu']}")
+    # per step: each conv's forward, its recomputation, its dx
+    if C.conv3d_fused_cuda.launches - before != 2 * 3 * n_convs:
+        raise AssertionError("the small pretrain on the card did not run on K2")
+    for got, ref in zip(losses["cuda"], losses["cpu"]):
+        # float32 on both, sums in another order, after one Adam step
+        if not abs(got - ref) <= 1e-4 * abs(ref):
+            raise AssertionError(f"card and CPU pretrain losses disagree: {losses}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     from safediffcon_torch.ops import build
+    from safediffcon_torch.ops import conv3d_mxu as C
     from safediffcon_torch.ops import pressure_cg as K
     from safediffcon_torch.solvers import smoke as S
     import safediffcon_torch.tasks.smoke as smoke
@@ -284,15 +600,23 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    lib = build.build("pressure_cg")
-    log(f"phase build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    libs = build.build_all(["pressure_cg", "conv3d_mxu"])
+    log(f"phase build: {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     masks, cases, main_case = phase_kernel_vs_plain(K, S)
     phase_gradient(K, S, masks)
-    test, launches, times = phase_serving(K, smoke)
-    phase_small_input_agreement(K, smoke, test)
+    data, launches, times = phase_serving(K, smoke)
+    phase_small_input_agreement(K, smoke, data[2])
     log(f"phase times {json.dumps(times, sort_keys=True)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    conv_cases = phase_conv_kernel_vs_plain(C)
+    phase_small_pretrain_agreement(C, smoke, data[0])
+    ema, conv_launches, train_times = phase_pretrain(C, smoke, data[0])
+    ft_times = phase_finetune(K, smoke, data, ema)
+    log(f"training phase times {json.dumps(dict(train_times, **ft_times), sort_keys=True)}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [dict(
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",
@@ -303,6 +627,18 @@ def main() -> int:
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
         shape=dict(batch=N_TEST, cells=[CELLS, CELLS], accuracy=1e-8, max_iter=500, check_every=1),
         cases=cases)]
+    conv_main = next(c for c in conv_cases if (c["h"], c["cin"], c["cout"], c["dtype"])
+                     == (64, 64, 64, "float32"))
+    kernels.append(dict(
+        name="conv3d_fused", route="cuda", source="safediffcon_torch/csrc/conv3d_mxu.cu",
+        replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
+        launches=conv_launches,
+        max_abs_err=max(c["max_diff"] for c in conv_cases if c["dtype"] == "float32"),
+        ms=conv_main["kernel_ms"], plain_ms=conv_main["plain_ms"],
+        bound_ms=conv_main["bound_ms"], bound_by=conv_main["bound_by"],
+        library_ms=conv_main["library_ms"],
+        shape=dict(batch=K2_BATCH, frames=FRAMES, h=64, w=64, cin=64, cout=64, dtype="float32"),
+        cases=conv_cases))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,14 @@
 """Conditioning protocol: writing known values into samples each step.
 
-Port of `safediffcon_tpu/core/conditioning.py`. The sampler needs only
-`apply(x)`, which returns x with the conditions written in, as a new tensor;
-`loss_target`/`mask_output` come with the training slice.
+Port of `safediffcon_tpu/core/conditioning.py`. A conditioner provides:
+
+    apply(x)                 -> x with the conditions written in (a new tensor)
+    loss_target(noise)       -> the regression target with conditioned cells zeroed
+    mask_output(out, target) -> the model output with padded cells replaced by
+                                the target (no loss on padding)
+
+and may provide `apply_train(x, x_start)`, which the training loss uses
+instead of `apply` to take the conditions from the clean sample.
 """
 from __future__ import annotations
 
@@ -12,3 +18,9 @@ class IdentityConditioner:
 
     def apply(self, x):
         return x
+
+    def loss_target(self, noise):
+        return noise
+
+    def mask_output(self, model_out, target):
+        return model_out

@@ -1,4 +1,5 @@
-"""Weight bridge: a flax UNet3D parameter tree -> the port's `state_dict`.
+"""Weight bridge between a flax UNet3D parameter tree and the port's
+`state_dict`, both ways (`flax_to_state_dict`, `state_dict_to_flax`).
 
 The flax tree names each submodule by class and creation order at the UNet3D
 scope (`ResnetBlock3D_4`, `_PreNormResidual3D_7`, `Conv_1`, ...; the attention
@@ -11,8 +12,11 @@ replays that creation order over the torch module tree. Leaves convert as:
   GroupNorm scale, Embed embedding           -> weight
   bias, ChanLayerNorm g                      -> unchanged
 
-The input is nested dicts of numpy arrays (or anything `np.asarray` takes),
-with or without the top-level "params" key.
+The flax tree is nested dicts of numpy arrays (or anything `np.asarray`
+takes), with or without the top-level "params" key. Trees of either
+`conv_impl` have the same names and layout (flax names `FusedConv3x3x3`
+"Conv_0", as it names `nn.Conv`), and so do the port's modules, so one
+bridge serves both.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from safediffcon_torch.models.unet3d import UNet3D
+from safediffcon_torch.models.unet3d import GroupNormCL, UNet3D
 
 # inner flax path (below the scope) -> torch sub-path, by scope kind
 _INNER = {
@@ -132,3 +136,39 @@ def load_flax_params(model: UNet3D, params: Mapping) -> UNet3D:
     the model must be covered, with its shape) and return the model."""
     model.load_state_dict(flax_to_state_dict(model, params), strict=True)
     return model
+
+
+def state_dict_to_flax(model: UNet3D, state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of `flax_to_state_dict`: {"params": nested dicts of
+    float32 numpy arrays} for a state_dict of `model` (the port's weights
+    handed back to the JAX package)."""
+    by_module = {}
+    for scope, (prefix, kind) in unet3d_scope_map(model).items():
+        for inner, sub in _INNER[kind].items():
+            path = (scope, *inner.split("/")) if inner else (scope,)
+            by_module[".".join(p for p in (prefix, sub) if p)] = path
+    tree: Dict = {}
+    for key, value in state_dict.items():
+        mod_name, _, name = key.rpartition(".")
+        if mod_name not in by_module:
+            raise KeyError(f"{key!r} has no counterpart in the flax UNet3D")
+        module = model.get_submodule(mod_name)
+        arr = value.detach().cpu().float().numpy()
+        if name == "weight":
+            if isinstance(module, nn.Embedding):
+                name = "embedding"
+            elif isinstance(module, GroupNormCL):
+                name = "scale"
+            elif arr.ndim == 2:
+                name, arr = "kernel", arr.T
+            elif arr.ndim == 5:
+                name, arr = "kernel", arr.transpose(2, 3, 4, 1, 0)
+            else:
+                raise ValueError(f"unexpected weight rank {arr.ndim} for {key!r}")
+        elif name not in ("bias", "g"):
+            raise ValueError(f"unexpected parameter {key!r}")
+        node = tree
+        for part in by_module[mod_name]:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    return {"params": tree}

@@ -9,8 +9,14 @@ result back.
 
 `attn_impl="packed"` is a TPU matrix-unit layout whose result equals
 per-head attention (`safediffcon_tpu/models/unet3d.py:66-79`); the port
-accepts either flag and computes per-head attention. The serving path takes
-no gradients through the network, so there is no rematerialization.
+accepts either flag and computes per-head attention.
+
+`conv_impl="pallas"` runs every 3x3x3 conv of the residual blocks on kernel
+K2 (`ops/conv3d_mxu.py`), with the same parameters as the framework conv, so
+a state_dict loads into either. `use_remat` with `remat_policy="full"`
+recomputes each residual block and pre-norm attention block in the backward
+pass (`torch.utils.checkpoint`), as `nn.remat` does in JAX; it acts only
+while autograd records.
 """
 from __future__ import annotations
 
@@ -21,10 +27,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from safediffcon_torch.models.layers import ChanLayerNorm, TimeMLP
+from safediffcon_torch.ops.conv3d_mxu import conv3d_fused_fn
 
 ATTN_IMPLS = ("heads", "packed")
+CONV_IMPLS = ("xla", "pallas")
 
 
 def _rel_pos_buckets(n: int, num_buckets: int = 32, max_distance: int = 128) -> np.ndarray:
@@ -224,10 +233,27 @@ class MidSpatialAttention(nn.Module):
         return self.to_out(out).reshape(b, ff, hh, ww, c)
 
 
-class Block3D(nn.Module):
-    def __init__(self, dim_in: int, dim_out: int, groups: int = 8):
+class FusedConv3x3x3(nn.Module):
+    """Stride-1 SAME 3x3x3 conv on channels-last tensors through kernel K2
+    (`FusedConv3x3x3` of the JAX module). Its parameters are a Conv3d's:
+    weight (Cout, Cin, 3, 3, 3) and bias (Cout,)."""
+
+    def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.conv = Conv3dCL(dim_in, dim_out, kernel_size=3, padding=1)
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in, 3, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(dim_out))
+
+    def forward(self, x):
+        return conv3d_fused_fn(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+class Block3D(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8, conv_impl: str = "xla"):
+        super().__init__()
+        if conv_impl == "pallas":
+            self.conv = FusedConv3x3x3(dim_in, dim_out)
+        else:
+            self.conv = Conv3dCL(dim_in, dim_out, kernel_size=3, padding=1)
         self.norm = GroupNormCL(groups, dim_out)
 
     def forward(self, x, scale_shift=None):
@@ -242,11 +268,12 @@ class ResnetBlock3D(nn.Module):
     """Two conv blocks with FiLM time conditioning + residual; `time_dim=None`
     builds the block without its time projection."""
 
-    def __init__(self, dim_in: int, dim_out: int, time_dim: Optional[int], groups: int = 8):
+    def __init__(self, dim_in: int, dim_out: int, time_dim: Optional[int], groups: int = 8,
+                 conv_impl: str = "xla"):
         super().__init__()
         self.mlp = nn.Linear(time_dim, dim_out * 2) if time_dim else None
-        self.block1 = Block3D(dim_in, dim_out, groups)
-        self.block2 = Block3D(dim_out, dim_out, groups)
+        self.block1 = Block3D(dim_in, dim_out, groups, conv_impl)
+        self.block2 = Block3D(dim_out, dim_out, groups, conv_impl)
         self.res_conv = Conv3dCL(dim_in, dim_out, kernel_size=1) if dim_in != dim_out else None
 
     def forward(self, x, time_emb=None):
@@ -275,7 +302,10 @@ class PreNormResidual(nn.Module):
 
 
 class UNet3D(nn.Module):
-    """UNet3D forward on (B, F, H, W, C) float32 input and (B,) timesteps."""
+    """UNet3D forward on (B, F, H, W, C) float32 input and (B,) timesteps.
+
+    compute_dtype "float32" only, and remat_policy "full" only: bfloat16
+    compute and the "save_heavy" policy are not ported yet."""
 
     def __init__(
         self,
@@ -285,18 +315,26 @@ class UNet3D(nn.Module):
         attn_heads: int = 4,
         attn_dim_head: int = 32,
         resnet_groups: int = 8,
+        compute_dtype: Optional[str] = None,
+        use_remat: bool = True,
+        remat_policy: str = "full",
         conv_impl: str = "xla",
         attn_impl: str = "packed",
     ):
         super().__init__()
-        if conv_impl == "pallas":
-            raise NotImplementedError(
-                "conv_impl='pallas' needs the fused 3x3x3 conv kernel, which is not "
-                "ported yet; use conv_impl='xla' (the framework conv)")
-        if conv_impl != "xla":
+        if conv_impl not in CONV_IMPLS:
             raise ValueError(f"unknown conv_impl {conv_impl!r}")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if remat_policy == "save_heavy":
+            raise NotImplementedError("remat_policy 'save_heavy' is not ported yet")
+        if remat_policy != "full":
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
+        if compute_dtype == "bfloat16":
+            raise NotImplementedError("compute_dtype 'bfloat16' is not ported yet")
+        if compute_dtype not in (None, "float32"):
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        self.use_remat = use_remat
 
         def temporal(d):
             return PreNormResidual(d, TemporalAttention(d, attn_heads, attn_dim_head))
@@ -314,13 +352,16 @@ class UNet3D(nn.Module):
         in_out = list(zip(dims[:-1], dims[1:]))
         num_res = len(in_out)
 
+        def resnet(d_in, d_out, t_dim=time_dim):
+            return ResnetBlock3D(d_in, d_out, t_dim, resnet_groups, conv_impl)
+
         # each level: [resnet, resnet, spatial attn, temporal attn, resample]
         self.downs = nn.ModuleList()
         for i, (dim_in, dim_out) in enumerate(in_out):
             is_last = i >= num_res - 1
             self.downs.append(nn.ModuleList([
-                ResnetBlock3D(dim_in, dim_out, time_dim, resnet_groups),
-                ResnetBlock3D(dim_out, dim_out, time_dim, resnet_groups),
+                resnet(dim_in, dim_out),
+                resnet(dim_out, dim_out),
                 spatial(dim_out),
                 temporal(dim_out),
                 # spatial-only downsample, k(1,4,4) s(1,2,2)
@@ -330,18 +371,18 @@ class UNet3D(nn.Module):
             ]))
 
         mid_dim = dims[-1]
-        self.mid_block1 = ResnetBlock3D(mid_dim, mid_dim, time_dim, resnet_groups)
+        self.mid_block1 = resnet(mid_dim, mid_dim)
         self.mid_spatial_attn = PreNormResidual(
             mid_dim, MidSpatialAttention(mid_dim, attn_heads, attn_dim_head))
         self.mid_temporal_attn = temporal(mid_dim)
-        self.mid_block2 = ResnetBlock3D(mid_dim, mid_dim, time_dim, resnet_groups)
+        self.mid_block2 = resnet(mid_dim, mid_dim)
 
         self.ups = nn.ModuleList()
         for i, (dim_in, dim_out) in enumerate(reversed(in_out)):
             is_last = i >= num_res - 1
             self.ups.append(nn.ModuleList([
-                ResnetBlock3D(dim_out * 2, dim_in, time_dim, resnet_groups),
-                ResnetBlock3D(dim_in, dim_in, time_dim, resnet_groups),
+                resnet(dim_out * 2, dim_in),
+                resnet(dim_in, dim_in),
                 spatial(dim_in),
                 temporal(dim_in),
                 # spatial-only transposed-conv upsample, k(1,4,4) s(1,2,2)
@@ -349,7 +390,7 @@ class UNet3D(nn.Module):
                     dim_in, dim_in, kernel_size=(1, 4, 4), stride=(1, 2, 2)),
             ]))
 
-        self.final_block = ResnetBlock3D(dim * 2, dim, None, resnet_groups)
+        self.final_block = resnet(dim * 2, dim, None)
         self.final_conv = Conv3dCL(dim, channels, kernel_size=1)
 
     def forward(self, x, t):
@@ -360,32 +401,42 @@ class UNet3D(nn.Module):
         pos_bias = self.time_rel_pos_bias(buckets).permute(2, 0, 1)  # (H, F, F)
         time_emb = self.time_mlp(t)
 
+        if self.use_remat and torch.is_grad_enabled():
+            # each residual / pre-norm block keeps only its inputs; its
+            # activations are recomputed in the backward pass
+            def run(block, *args, **kw):
+                return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
+                                  **kw)
+        else:
+            def run(block, *args, **kw):
+                return block(*args, **kw)
+
         x = self.init_conv(x)
-        x = self.init_temporal_attn(x, pos_bias=pos_bias)
+        x = run(self.init_temporal_attn, x, pos_bias=pos_bias)
         r = x
 
         h = []
         for res1, res2, spatial_attn, temporal_attn, downsample in self.downs:
-            x = res1(x, time_emb)
-            x = res2(x, time_emb)
-            x = spatial_attn(x)
-            x = temporal_attn(x, pos_bias=pos_bias)
+            x = run(res1, x, time_emb)
+            x = run(res2, x, time_emb)
+            x = run(spatial_attn, x)
+            x = run(temporal_attn, x, pos_bias=pos_bias)
             h.append(x)
             x = downsample(x)
 
-        x = self.mid_block1(x, time_emb)
-        x = self.mid_spatial_attn(x)
-        x = self.mid_temporal_attn(x, pos_bias=pos_bias)
-        x = self.mid_block2(x, time_emb)
+        x = run(self.mid_block1, x, time_emb)
+        x = run(self.mid_spatial_attn, x)
+        x = run(self.mid_temporal_attn, x, pos_bias=pos_bias)
+        x = run(self.mid_block2, x, time_emb)
 
         for res1, res2, spatial_attn, temporal_attn, upsample in self.ups:
             x = torch.cat([x, h.pop()], dim=-1)
-            x = res1(x, time_emb)
-            x = res2(x, time_emb)
-            x = spatial_attn(x)
-            x = temporal_attn(x, pos_bias=pos_bias)
+            x = run(res1, x, time_emb)
+            x = run(res2, x, time_emb)
+            x = run(spatial_attn, x)
+            x = run(temporal_attn, x, pos_bias=pos_bias)
             x = upsample(x)
 
         x = torch.cat([x, r], dim=-1)
-        x = self.final_block(x)
+        x = run(self.final_block, x)
         return self.final_conv(x).to(torch.float32)

@@ -1,4 +1,4 @@
-"""2D smoke control task plugin (serving path)."""
+"""2D smoke control task plugin: pretraining, posttrain / InfFT, serving."""
 from safediffcon_torch.tasks.smoke.task import (
     FRAMES,
     RESCALER,
@@ -14,4 +14,9 @@ from safediffcon_torch.tasks.smoke.config import (
     posttrain_config,
 )
 from safediffcon_torch.tasks.smoke.data import SmokeDataset, generate_smoke_dataset
-from safediffcon_torch.tasks.smoke.pipeline import SmokePipeline
+from safediffcon_torch.tasks.smoke.pipeline import (
+    SmokePipeline,
+    make_finetune_steps,
+    pretrain,
+    run_inference,
+)

@@ -1,7 +1,8 @@
-"""2D smoke dataset: generation through the solver, and npz splits.
+"""2D smoke dataset: generation through the solver, npz splits, and the
+reference's per-simulation npy directories.
 
-Port of `generate_smoke_dataset` and `SmokeDataset.load` of
-`safediffcon_tpu/tasks/smoke/data.py` (reference:
+Port of `generate_smoke_dataset`, `SmokeDataset.load` and
+`SmokeDataset.load_sim_dirs` of `safediffcon_tpu/tasks/smoke/data.py` (reference:
 2d/apps/a_gen_dataset_128.py:100-345,491-744; record format
 2d/ddpm/data_2d.py:43-113): random smoke blobs steered by a 4-phase waypoint
 velocity program through the maze, recorded as 32 frames of 64^2
@@ -152,6 +153,29 @@ def generate_smoke_dataset(
     np.savez_compressed(path, **{f"{k}_data": v for k, v in splits.items()})
 
 
+def _read_reference_sim(base: str, sim_id: int, frames: int = FRAMES) -> np.ndarray:
+    """One reference sim dir -> (frames, 64, 64, 7) physical-unit record.
+
+    Field npys are (H, W, C, T+1); scalar absorption fractions are bucket 1
+    of Smoke.npy and region 0 of Smoke_safe.npy, each normalized by the
+    row sum and tiled over space (reference: 2d/ddpm/data_2d.py:48-62).
+    """
+    sim = os.path.join(base, f"sim_{sim_id:06d}")
+    d = np.load(os.path.join(sim, "Density.npy")).astype(np.float32)
+    v = np.load(os.path.join(sim, "Velocity.npy")).astype(np.float32)
+    c = np.load(os.path.join(sim, "Control.npy")).astype(np.float32)
+    s_ori = np.load(os.path.join(sim, "Smoke.npy")).astype(np.float32)
+    s_safe = np.load(os.path.join(sim, "Smoke_safe.npy")).astype(np.float32)
+
+    # (H, W, 5, T+1) -> (frames, H, W, 5), channel order d, vx, vy, cx, cy
+    fields = np.concatenate([d, v, c], axis=2).transpose(3, 0, 1, 2)[:frames]
+    s = (s_ori[:, 1] / s_ori.sum(-1))[:frames]
+    sf = (s_safe[:, 0] / s_safe.sum(-1))[:frames]
+    h, w = fields.shape[1:3]
+    tiled = np.broadcast_to(np.stack([s, sf], axis=-1)[:, None, None, :], (frames, h, w, 2))
+    return np.concatenate([fields, tiled], axis=-1)
+
+
 @dataclasses.dataclass
 class SmokeDataset:
     """In-memory split: data (N, F, 64, 64, 7) numpy.
@@ -169,6 +193,34 @@ class SmokeDataset:
             raw = z[f"{split}_data"]
         if subset is not None:
             raw = raw[:subset]
+        return cls(data=(raw / RESCALER).astype(np.float32, copy=False), raw=raw)
+
+    @classmethod
+    def load_sim_dirs(cls, root: str, split: str, n_cal: int = 200,
+                      subset: Optional[int] = None, frames: int = FRAMES) -> "SmokeDataset":
+        """Read the reference's per-simulation npy-dir layout
+        (reference: 2d/ddpm/data_2d.py:43-113): `{root}/{train,test}/
+        sim_%06d/{Density,Velocity,Control}.npy` field stacks plus
+        `Smoke.npy` / `Smoke_safe.npy` absorption tallies. Train is the train
+        dir without its last `n_cal` sims, cal those `n_cal` sims, test the
+        test dir (the reference's 19800 / 200 / 50 at full scale)."""
+        base = os.path.join(root, "test" if split == "test" else "train")
+        ids = sorted(
+            int(name[4:]) for name in os.listdir(base)
+            if name.startswith("sim_") and os.path.isdir(os.path.join(base, name))
+        )
+        if split == "train":
+            if len(ids) <= n_cal:
+                raise ValueError(
+                    f"train dir {base} holds {len(ids)} sims but the last n_cal={n_cal} are "
+                    f"the calibration split — train and cal must stay disjoint "
+                    f"(reference: 2d/ddpm/data_2d.py:31-37)")
+            ids = ids[:-n_cal]
+        elif split == "cal":
+            ids = ids[-n_cal:]
+        if subset is not None:
+            ids = ids[:subset]
+        raw = np.stack([_read_reference_sim(base, sim_id, frames) for sim_id in ids])
         return cls(data=(raw / RESCALER).astype(np.float32, copy=False), raw=raw)
 
     def __len__(self) -> int:

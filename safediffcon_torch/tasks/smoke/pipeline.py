@@ -1,55 +1,79 @@
-"""2D smoke serving pipeline: calibration, guided sampling, solver evaluation.
+"""2D smoke pipelines: pretraining, then calibration, guided sampling and
+solver evaluation, with post-training or InfFT epochs between them.
 
-Port of `build_model`, `init_params` and `SmokePipeline` (`calibrate`,
-`evaluate`, `_sample_test`, `_evaluate`) of
-`safediffcon_tpu/tasks/smoke/pipeline.py` (reference: 2d/inference_2d.py).
-Pretraining, post-training and InfFT are the training slice.
+Port of `safediffcon_tpu/tasks/smoke/pipeline.py` (reference:
+2d/ddpm/diffusion_2d.py:462-643 Trainer, 2d/inference_2d.py): `build_model`,
+`init_params`, `SmokePipeline` (`calibrate`, `evaluate`, `reweights`),
+`multistep_lr`, `pretrain`, `make_finetune_steps` and `run_inference`.
+`run_inference_resilient` (TPU worker-fault recovery) is not ported.
 
-The model's weights live in `SmokePipeline.model` (load flax weights with
-`models.convert.load_flax_params`, or seed them with `init_params`). Random
-draws come from an explicit `torch.Generator`; `noise=` hands in each sampler
-call's (init_noise, step_noise) instead, which is how the parity tests replay
-the JAX key chain.
+The model's weights live in a torch module (load flax weights with
+`models.convert.load_flax_params`, or seed them with `init_params`); training
+updates them in place. Random draws come from explicit `torch.Generator`s;
+`noise=` hands in the draws instead (each sampler call's (init_noise,
+step_noise), each training micro-batch's (t, noise)), which is how the parity
+tests replay the JAX key chain.
 """
 from __future__ import annotations
 
 import contextlib
+import logging
 import math
 import time
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from safediffcon_torch.core.conformal import normalize_weights, weighted_quantile
-from safediffcon_torch.core.diffusion import DiffusionConfig
+from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
 from safediffcon_torch.core.sampling import ddim_sample
 from safediffcon_torch.core.schedules import make_schedule
-from safediffcon_torch.models.unet3d import ConvTransposeCL, UNet3D
+from safediffcon_torch.core.train import (
+    TrainState,
+    accumulated_grads,
+    make_optimizer,
+    run_train_loop,
+)
+from safediffcon_torch.models.unet3d import ConvTransposeCL, FusedConv3x3x3, UNet3D
 from safediffcon_torch.solvers import smoke as S
-from safediffcon_torch.tasks.smoke.config import SmokeConformalConfig
+from safediffcon_torch.tasks.smoke.config import (
+    SmokeConformalConfig,
+    SmokeInferenceConfig,
+    SmokePretrainConfig,
+)
 from safediffcon_torch.tasks.smoke.data import SmokeDataset
 from safediffcon_torch.tasks.smoke.metrics import evaluate_samples, solver_rollout
 from safediffcon_torch.tasks.smoke.task import (
     CX,
     CY,
+    RESCALER,
+    SAFE,
+    SMOKE,
     SmokeConditioner,
     SmokeTaskConfig,
+    backward_loss,
     conformal_score,
     guidance_grad_fn,
     rescaler,
     shift_weights,
     tile_rate_channels,
+    train_conditioner,
 )
+
+log = logging.getLogger(__name__)
 
 # One sampler call's noise: (init_noise, [noise of each stochastic step]).
 Noise = Tuple[torch.Tensor, list]
+# One training micro-batch's draws: (timesteps (B,), noise like the batch).
+TrainNoise = Tuple[torch.Tensor, torch.Tensor]
 
 
-def build_model(dim=64, dim_mults=(1, 2, 4), conv_impl="xla", attn_impl="packed",
-                device="cuda") -> UNet3D:
-    return UNet3D(dim=dim, dim_mults=dim_mults, channels=7, conv_impl=conv_impl,
+def build_model(dim=64, dim_mults=(1, 2, 4), compute_dtype=None, remat_policy="full",
+                conv_impl="xla", attn_impl="packed", device="cuda") -> UNet3D:
+    return UNet3D(dim=dim, dim_mults=dim_mults, channels=7, compute_dtype=compute_dtype,
+                  remat_policy=remat_policy, conv_impl=conv_impl,
                   attn_impl=attn_impl).to(device)
 
 
@@ -69,7 +93,7 @@ def init_params(model: UNet3D, seed: int = 0) -> UNet3D:
     from a CPU generator, so a seed gives the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Conv3d, ConvTransposeCL)):
+        if isinstance(module, (nn.Linear, nn.Conv3d, ConvTransposeCL, FusedConv3x3x3)):
             w = module.weight
             _lecun_normal_(w, w[0].numel(), gen)
             if module.bias is not None:
@@ -216,6 +240,27 @@ class SmokePipeline:
         weights = normalize_weights(torch.cat(weights))
         return weighted_quantile(weights * scores, self.ccfg.alpha, "one_minus_alpha")
 
+    def reweights(self, data: SmokeDataset, Q) -> np.ndarray:
+        """Per-sample train-shift weights exp(-ratio * guidance(x, Q)),
+        normalized. The guidance reduces each record to two statistics (mean
+        smoke rate over all frames, spatial-mean final-frame safe rate),
+        computed once per dataset and cached on it."""
+        stats = getattr(data, "_weight_stats", None)
+        if stats is None:
+            x = data.data
+            smoke_mean = (x[..., SMOKE].mean(axis=(1, 2, 3), dtype=np.float32)
+                          * RESCALER[SMOKE])
+            safe_final = (x[:, -1, :, :, SAFE].mean(axis=(1, 2), dtype=np.float32)
+                          * RESCALER[SAFE])
+            stats = (smoke_mean, safe_final)
+            data._weight_stats = stats
+        smoke_mean, safe_final = stats
+        tc = self.task_cfg
+        g = -(1.0 - tc.w_safe) * smoke_mean + tc.w_safe * np.maximum(
+            safe_final + float(Q) - tc.safe_bound, 0.0)
+        w = torch.exp(-tc.standard_fixed_ratio * torch.as_tensor(g, dtype=torch.float32))
+        return normalize_weights(w).numpy()
+
     def evaluate(self, test: SmokeDataset, Q, generator: Optional[torch.Generator] = None,
                  guided: Optional[bool] = None,
                  noise: Optional[Iterator[Noise]] = None) -> Dict[str, float]:
@@ -234,3 +279,247 @@ class SmokePipeline:
             for name, v in m.items():
                 totals[name] = totals.get(name, 0.0) + float(v) * k
         return {name: v / n for name, v in totals.items()}
+
+
+# ---------------------------------------------------------------------------
+# Pretraining (reference: 2d/ddpm/diffusion_2d.py:462-643 Trainer)
+# ---------------------------------------------------------------------------
+
+def multistep_lr(base_lr: float, milestones, gamma: float):
+    """torch MultiStepLR closed form (reference: diffusion_2d.py:520): the
+    learning rate of the update count `count` (taken before its increment,
+    as optax does) is base_lr * gamma^(number of milestones <= count)."""
+    ms = np.asarray(sorted(milestones))
+
+    def schedule(count: int) -> float:
+        k = np.float32(np.searchsorted(ms, count, side="right"))
+        return float(np.float32(base_lr) * np.float32(gamma) ** k)  # float32, as in JAX
+
+    return schedule
+
+
+def pretrain(
+    cfg: SmokePretrainConfig,
+    train_data: SmokeDataset,
+    num_steps: Optional[int] = None,
+    log_every: int = 500,
+    checkpoint_dir: Optional[str] = None,
+    params: Optional[Mapping[str, torch.Tensor]] = None,
+    resume_dir: Optional[str] = None,
+    steps_per_call: int = 1,
+    device_pool: int = 0,
+    pool_refresh_every: int = 0,
+    deadline: Optional[float] = None,
+    device="cuda",
+    noise: Optional[Iterator[TrainNoise]] = None,
+    losses: Optional[list] = None,
+) -> TrainState:
+    """Train the smoke UNet3D with the denoising loss; returns the
+    TrainState (its `model` holds the trained weights, `ema_params` the EMA).
+
+    `params` (a state_dict) starts from given weights, else `init_params`
+    seeds them from cfg.seed. `resume_dir` restores step, weights, Adam
+    moments and EMA from its latest checkpoint. Timesteps and noise come from
+    a generator seeded with cfg.seed, or from `noise`, which yields each
+    micro-batch's (t, noise) in order. `losses`: see `run_train_loop`."""
+    num_steps = num_steps or cfg.train_num_steps
+    model = build_model(cfg.dim, cfg.dim_mults, cfg.compute_dtype, cfg.remat_policy,
+                        cfg.conv_impl, cfg.attn_impl, device=device)
+    if params is None:
+        init_params(model, seed=cfg.seed)
+    else:
+        model.load_state_dict(params)
+    sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective, device=device)
+    dcfg = DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective,
+                           beta_schedule=cfg.beta_schedule)
+    cond = train_conditioner()
+
+    lr = multistep_lr(cfg.lr, cfg.lr_milestones, cfg.lr_gamma)
+    tx = make_optimizer("adam", lr, betas=cfg.adam_betas, max_grad_norm=cfg.max_grad_norm)
+    state = TrainState.create(model, tx, cfg.ema_decay, cfg.ema_update_every)
+    start_step = 0
+    if resume_dir is not None:
+        from safediffcon_torch.utils.checkpoint import latest_step, load_checkpoint
+
+        last = latest_step(resume_dir)
+        if last is not None:
+            state.load_state_dict(load_checkpoint(resume_dir, last))
+            start_step = state.step
+            log.info("resumed from %s step %d", resume_dir, start_step)
+
+    accum = max(cfg.gradient_accumulate_every, 1)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    params_list = list(model.parameters())
+
+    def loss_fn(i, batch):
+        t, n = next(noise) if noise is not None else draw_t_noise(dcfg, batch, generator)
+        return p_losses(model, sched, dcfg, batch, t, n, cond).mean()
+
+    def step_fn(state, batch):
+        # batch: (accum * batch_size, ...) -> (accum, batch_size, ...)
+        batches = batch.reshape(accum, -1, *batch.shape[1:])
+        loss, grads = accumulated_grads(loss_fn, params_list, batches)
+        state.apply_gradients(grads)
+        return loss
+
+    return run_train_loop(
+        step_fn, state, train_data.data,
+        batch_take=cfg.batch_size * accum, num_steps=num_steps, start_step=start_step,
+        seed=cfg.seed, steps_per_call=steps_per_call, log_every=log_every,
+        checkpoint_every=cfg.checkpoint_every, checkpoint_dir=checkpoint_dir, logger=log,
+        log_prefix="smoke pretrain", device_pool=device_pool,
+        pool_refresh_every=pool_refresh_every, deadline=deadline, losses=losses,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Unified inference pipeline (posttrain or backward finetune)
+# ---------------------------------------------------------------------------
+
+def make_finetune_steps(cfg: SmokeInferenceConfig, pipeline: SmokePipeline):
+    """The fine-tuning steps `run_inference` takes, on `pipeline.model`'s
+    weights in place. Returns `(tx, weighted_step, backward_step)`:
+
+      weighted_step(opt_state, batch, w, generator=None, noise=None) -> loss
+          post-training: the denoising loss weighted per sample by w;
+          noise = (t, noise) of the batch, else drawn from `generator`.
+      backward_step(opt_state, test_batch, Q, generator=None, noise=None) -> loss
+          InfFT: a guided sample without gradients, then a resample
+          conditioned on its control with gradients through the final step
+          only, then the backward loss (reference: 2d/inference_2d.py:197-237,
+          267-284); noise = the two sampler calls' (init_noise, step_noise).
+
+    Adam(finetune_lr, betas (0.9, 0.99)), no clipping, no EMA (reference:
+    2d/inference_2d.py:79). JAX's `weighted_step_pool` (device_pool) is not
+    ported."""
+    ccfg = cfg.conformal
+    tc = pipeline.task_cfg
+    sched = pipeline.sched
+    dcfg_train = DiffusionConfig(timesteps=ccfg.timesteps, beta_schedule=ccfg.beta_schedule)
+    cond_train = train_conditioner()
+    tx = make_optimizer("adam", cfg.finetune_lr, betas=(0.9, 0.99), max_grad_norm=0.0)
+    params = list(pipeline.model.parameters())
+
+    def weighted_step(opt_state, batch, w, generator=None, noise=None):
+        t, n = noise if noise is not None else draw_t_noise(dcfg_train, batch, generator)
+        per = p_losses(pipeline.apply_fn, sched, dcfg_train, batch, t, n, cond_train)
+        loss = (w * per).mean()
+        tx.step(params, torch.autograd.grad(loss, params), opt_state)
+        return loss.detach()
+
+    def backward_step(opt_state, test_batch, Q, generator=None, noise=None):
+        draws = iter(noise) if noise is not None else None
+        kw = pipeline._sampler_kw
+        init = test_batch[:, 0, :, :, 0]
+        g = guidance_grad_fn(Q, tc) if ccfg.use_guidance else None
+        with torch.no_grad():
+            first = ddim_sample(pipeline.apply_fn, sched, pipeline.diff_cfg, test_batch.shape,
+                                cond=SmokeConditioner(init=init), guidance_grad=g,
+                                **kw(draws, generator))
+        control = first[..., CX : CY + 1]
+        out = ddim_sample(pipeline.apply_fn, sched, pipeline.diff_cfg, test_batch.shape,
+                          cond=SmokeConditioner(init=init, control=control),
+                          final_step_grad=True, **kw(draws, generator))
+        out = torch.cat([out[..., :CX], control, out[..., CY + 1 :]], dim=-1)
+        loss = backward_loss(out * rescaler(out), Q, tc)
+        tx.step(params, torch.autograd.grad(loss, params), opt_state)
+        return loss.detach()
+
+    return tx, weighted_step, backward_step
+
+
+def run_inference(
+    cfg: SmokeInferenceConfig,
+    pipeline: SmokePipeline,
+    params: Optional[Mapping[str, torch.Tensor]],
+    train_data: Optional[SmokeDataset],
+    cal_data: SmokeDataset,
+    test_data: SmokeDataset,
+    on_epoch=None,
+    deadline: Optional[float] = None,
+    state_dir: Optional[str] = None,
+):
+    """Reference run() loop (2d/inference_2d.py:286-368): per epoch
+    fine-tune (posttrain, or InfFT with `backward_finetune`) -> recalibrate
+    Q-hat -> evaluate. Returns (state_dict, Q, epoch records).
+
+    `params` (a state_dict, or None for the model's current weights) is
+    loaded into `pipeline.model`, which the epochs train in place.
+    `on_epoch(record)` fires after each epoch; `deadline` (time.time()
+    seconds) stops starting new epochs. `state_dir` persists (weights, Adam
+    moments, Q-hat) and the records after every epoch and resumes from the
+    latest saved epoch, bit-identically to an uninterrupted run."""
+    from safediffcon_torch.utils.checkpoint import (
+        load_phase_history, load_phase_state, save_phase_history, save_phase_state,
+    )
+
+    if cfg.device_pool:
+        raise NotImplementedError("device_pool is not ported; leave it at 0")
+    ccfg = cfg.conformal
+    model = pipeline.model
+    if params is not None:
+        model.load_state_dict(params)
+    tx, weighted_step, backward_step = make_finetune_steps(cfg, pipeline)
+    opt_state = tx.init(list(model.parameters()))
+    device = pipeline.device
+    Q = torch.zeros((), device=device)
+    start_epoch = 0
+    history = []
+    if state_dir is not None:
+        restored = load_phase_state(state_dir)
+        if restored is not None:
+            sd, opt_sd, q, last_epoch = restored
+            model.load_state_dict(sd)
+            opt_state.load_state_dict(opt_sd)
+            Q = torch.tensor(q, dtype=torch.float32, device=device)
+            start_epoch = last_epoch + 1
+            history = load_phase_history(state_dir, max_epoch=last_epoch,
+                                         config_repr=repr(cfg))
+            log.info("smoke finetune: resumed phase state after epoch %d from %s",
+                     last_epoch, state_dir)
+    if on_epoch is not None:
+        for rec in history:  # restored records, so external result files converge
+            on_epoch(rec)
+
+    for epoch in range(start_epoch, cfg.finetune_epoch):
+        if deadline is not None and time.time() > deadline:
+            log.info("smoke finetune: deadline reached before epoch %d, returning %d "
+                     "completed epochs", epoch, len(history))
+            break
+        # the epoch's draws depend on (seed, epoch) only, so a resumed run
+        # draws what an uninterrupted one does (JAX: fold_in(key, epoch))
+        gen = torch.Generator(device=device).manual_seed(cfg.seed * 1_000_003 + epoch)
+        losses = []
+        if cfg.backward_finetune:
+            for lo in range(0, len(test_data), ccfg.test_batch_size):
+                batch = torch.as_tensor(test_data.data[lo : lo + ccfg.test_batch_size],
+                                        device=device)
+                for _ in range(cfg.finetune_steps):
+                    losses.append(backward_step(opt_state, batch, Q, generator=gen))
+        else:
+            w_train = pipeline.reweights(train_data, Q)
+            n = len(train_data)
+            pos = 0
+            for _ in range(cfg.finetune_steps):
+                sel = np.arange(pos, pos + cfg.finetune_batch_size) % n
+                pos = (pos + cfg.finetune_batch_size) % n
+                batch = torch.as_tensor(train_data.data[sel], device=device)
+                w = torch.as_tensor(w_train[sel], device=device)
+                losses.append(weighted_step(opt_state, batch, w, generator=gen))
+
+        losses = [float(v) for v in losses]  # one sync per epoch
+        Q = pipeline.calibrate(cal_data, Q, generator=gen)
+        log.info("smoke epoch %d calibrated Q %.5f", epoch, float(Q))
+        metrics = pipeline.evaluate(test_data, Q, generator=gen)
+        loss = float(np.mean(losses)) if losses else None
+        log.info("smoke epoch %d Q %.5f loss %s metrics %s", epoch, float(Q), loss, metrics)
+        history.append({"epoch": epoch, "quantile": float(Q), "loss": loss, "eval": metrics})
+        # persist state and history before the callback: a crash between them
+        # then re-fires the callback on resume instead of losing the record
+        if state_dir is not None:
+            save_phase_state(state_dir, model.state_dict(), opt_state, Q, epoch)
+            save_phase_history(state_dir, history, config_repr=repr(cfg))
+        if on_epoch is not None:
+            on_epoch(history[-1])
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return params, Q, history

@@ -1,13 +1,14 @@
 """2D smoke control task: layout, conditioning, guidance, conformal stats.
 
-Port of the serving half of `safediffcon_tpu/tasks/smoke/task.py`. Layout is
+Port of `safediffcon_tpu/tasks/smoke/task.py`. Layout is
 channels-last: x has shape (B, F=32, 64, 64, 7) with channels (density, vx,
 vy, cx, cy, smoke_rate, smoke_safe_rate); the two rate channels are scalars
 tiled over space (reference: 2d/ddpm/data_2d.py:9-113).
 
 Conditioning: the initial density (frame 0, channel 0) is always imposed;
-calibration sampling also conditions on the control channels 3:5 over all
-frames (reference: 2d/ddpm/diffusion_2d.py:330-340,396-404).
+calibration and backward sampling also condition on the control channels
+3:5 over all frames; training takes frame 0's density from the clean sample
+(reference: 2d/ddpm/diffusion_2d.py:330-340,396-404,437-441).
 """
 from __future__ import annotations
 
@@ -59,6 +60,25 @@ class SmokeConditioner:
             x[:, :, :, :, CX : CY + 1] = self.control
         return x
 
+    def apply_train(self, x: torch.Tensor, x_start: torch.Tensor) -> torch.Tensor:
+        """Training-time conditioning: frame-0 density from the clean sample
+        (reference: 2d/ddpm/diffusion_2d.py:437-441)."""
+        x = x.clone()
+        x[:, 0, :, :, DENS] = x_start[:, 0, :, :, DENS]
+        return x
+
+    def loss_target(self, noise: torch.Tensor) -> torch.Tensor:
+        noise = noise.clone()
+        noise[:, 0, :, :, DENS] = 0.0
+        return noise
+
+    def mask_output(self, model_out: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return model_out  # no pad masking in the 2d task
+
+
+def train_conditioner() -> SmokeConditioner:
+    return SmokeConditioner()
+
 
 def guidance_values(x: torch.Tensor, Q, cfg: SmokeTaskConfig) -> torch.Tensor:
     """-(1-w_safe) * mean smoke_rate + w_safe * relu(final safe_rate + Q -
@@ -101,6 +121,15 @@ def conformal_score(pred: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     s_pred = pred[:, -1, :, :, SAFE].mean(dim=(-1, -2)) * r
     s_tgt = state[:, -1, 0, 0, SAFE] * r
     return (s_pred - s_tgt).abs()
+
+
+def backward_loss(pred_scaled: torch.Tensor, Q, cfg: SmokeTaskConfig) -> torch.Tensor:
+    """InfFT loss on UNSCALED samples: -(1-w_safe) * mean success + w_safe *
+    MSE(relu(final safe + Q - bound), 0) (reference: 2d/inference_2d.py:267-284)."""
+    success = pred_scaled[..., SMOKE].mean(dim=(-1, -2, -3))
+    safe = torch.clamp_min(
+        pred_scaled[:, -1, :, :, SAFE].mean(dim=(-1, -2)) + Q - cfg.safe_bound, 0.0)
+    return -(1.0 - cfg.w_safe) * success.mean() + cfg.w_safe * (safe ** 2).mean()
 
 
 def tile_rate_channels(pred_scaled: torch.Tensor) -> torch.Tensor:

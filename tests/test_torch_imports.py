@@ -1,8 +1,10 @@
 """The port stands alone: no module of `safediffcon_torch/`, and not
 `chip_smoke.py`, imports JAX, flax, optax or the JAX package. Checked on the
 source (every import statement, at any depth), so a lazy import inside a
-function is caught too."""
+function is caught too. Every module also imports where there is no card,
+nvcc or triton: kernels build at their first launch, never at import."""
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -33,3 +35,17 @@ def test_port_sources_exist():
 def test_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in (ROOT / "safediffcon_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_imports_without_a_card(name):
+    from safediffcon_torch.ops import build
+
+    before = dict(build._LOADED)
+    importlib.import_module(name)
+    assert build._LOADED == before  # no kernel was built or loaded

@@ -7,9 +7,10 @@ non-zero before printing any result, and it has no CPU path. Any phase that
 fails ends the run with a non-zero exit.
 
   1. device: the card's name and power limit, torch version, TF32 flags;
-  2. build: kernels K1 (safediffcon_torch/csrc/pressure_cg.cu) and K2
-     (safediffcon_torch/csrc/conv3d_mxu.cu) into build/kernels/, one nvcc
-     each, started together;
+  2. build: kernels K1 (safediffcon_torch/csrc/pressure_cg.cu) and K2, its
+     tensor-core form (csrc/conv3d_wgmma.cu) and its SIMT form
+     (csrc/conv3d_simt.cu), into build/kernels/, one nvcc each, started
+     together;
   3. K1 against its plain PyTorch version on the card at the serving shapes
      (B = 8, 10 and 50 samples of 127^2, warm start, accuracy 1e-6 and 1e-8,
      max_iter 500, convergence checks every 1 and every 32 iterations),
@@ -27,17 +28,20 @@ fails ends the run with a non-zero exit.
      hold against the JAX package) with the same weights and noise, in
      float32 without TF32: the metrics must agree;
   6. K2 against its plain PyTorch version on the card at the 10 (H, Cin,
-     Cout) of UNet3D's 3x3x3 convs, B = 16, F = 32: the forward in float32
-     and (two shapes) bfloat16, dx through the autograd Function and dW
-     against autograd of the plain version (TF32 off), with the kernel's,
-     the plain version's and one F.conv3d call's times and the bound;
-  7. a small pretrain on the card (K2) and on the CPU (its plain version,
-     which the CPU tests hold against the JAX package) with the same
-     weights and draws, TF32 off: the losses must agree;
+     Cout) of UNet3D's 3x3x3 convs, B = 16, F = 32: the forward and dx
+     (through the autograd Function) in 3xTF32 (TF32 off, within 1e-4) and
+     in TF32 (TF32 on, within twice cuDNN's own TF32 error + 1e-4 and 5e-3
+     of max), dW against autograd of the plain version (TF32 off), bfloat16
+     at two shapes, the SIMT kernel at one; the kernel's, the plain
+     version's and F.conv3d's times (TF32, float32, bfloat16) and bounds;
+  7. a small pretrain on the card (K2 in 3xTF32) and on the CPU (its plain
+     version, which the CPU tests hold against the JAX package) with the
+     same weights and draws, TF32 off: the losses must agree;
   8. pretraining at the reference width on K2 (SmokePretrainConfig with
-     conv_impl "pallas": batch 16, remat "full", float32) for
-     PRETRAIN_STEPS steps after one warm-up step; K2's launch count is
-     zeroed just before and must read 90 per step just after;
+     conv_impl "pallas": batch 16, remat "full", float32, default flags, so
+     K2 in TF32) for PRETRAIN_STEPS steps after one warm-up step; K2's
+     launch counts are zeroed just before and must read 90 per step on the
+     tensor-core kernel and 0 on the SIMT kernel just after;
   9. one posttrain epoch and one InfFT epoch through run_inference from
      the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 100 (the
      SmokePipeline model, framework conv; K1 in evaluate), then one InfFT
@@ -78,6 +82,8 @@ K2_SHAPES = [(64, 64, 64, 8), (64, 128, 64, 2), (32, 64, 128, 1), (32, 128, 128,
              (16, 512, 128, 1), (16, 128, 128, 3)]
 K2_BATCH, FRAMES = 16, 32
 K2_BF16 = [(64, 64, 64), (16, 512, 128)]
+K2_SIMT = (32, 64, 64)  # the shape at which the SIMT kernel is checked
+K2_REPS = 10  # timed calls of K2 and F.conv3d per case (the plain version: 1)
 PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 FT_SIMS = 8  # cal and test sims of the posttrain / InfFT epochs
 POSTTRAIN_STEPS = 3
@@ -280,16 +286,12 @@ def phase_small_input_agreement(K, smoke, test):
     init = torch.randn(raw.shape, generator=gen)
     steps = [torch.randn(raw.shape, generator=gen) for _ in range(2)]
     results = {}
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_flag(False):
         for device in ("cuda", "cpu"):
             pipe = smoke.SmokePipeline(conf, device=device, **kw)
             init_params(pipe.model, seed=0)
             noise = iter([(init.to(device), [s.to(device) for s in steps])])
             results[device] = pipe.evaluate(small, 0.05, noise=noise)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     log("small input: card " + json.dumps(results["cuda"], sort_keys=True))
     log("small input: cpu  " + json.dumps(results["cpu"], sort_keys=True))
     for name, ref in results["cpu"].items():
@@ -300,100 +302,169 @@ def phase_small_input_agreement(K, smoke, test):
             raise AssertionError(f"card and CPU disagree on {name}: {got} vs {ref}")
 
 
-def conv_bound_ms(batch: int, h: int, cin: int, cout: int, dtype) -> tuple:
+def conv_bound_ms(batch: int, h: int, cin: int, cout: int, dtype, passes: int = 1) -> tuple:
     """Least time for one stride-1 SAME 3x3x3 conv of (batch, FRAMES, h, h,
     cin): x, the weight and the output each moved once over HBM bandwidth,
-    against its flops at the dense tensor-core rate of its input type (TF32
-    for float32). Returns (ms, "bytes" | "operations")."""
+    against its flops (times `passes`: 3 for 3xTF32) at the dense
+    tensor-core rate of its input type (TF32 for float32). Returns
+    (ms, "bytes" | "operations")."""
     voxels = batch * FRAMES * h * h
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = size * (voxels * (cin + cout) + 27 * cin * cout)
-    flops = 2 * voxels * 27 * cin * cout
+    flops = passes * 2 * voxels * 27 * cin * cout
     peak = TF32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+class tf32_flag:
+    """Sets torch.backends.cudnn.allow_tf32 (which also picks K2's float32
+    mode) for the block, and restores it."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = self.on
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def rel_err(got, ref) -> tuple:
+    """(max |got - ref|, max |ref|), in float32."""
+    return float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
+
+
 def phase_conv_kernel_vs_plain(C):
     """K2 against its plain version at UNet3D's 10 conv shapes (B = 16,
-    F = 32): forward in float32 (and bfloat16 at two shapes), dx and dW
-    through the autograd Function; times of the kernel, the plain version,
-    dx's kernel call and one F.conv3d (cuDNN, default TF32 flags)."""
+    F = 32), in each precision mode of the tensor-core kernel: float32 in
+    3xTF32 (TF32 off) and TF32 (TF32 on), forward and dx through the
+    autograd Function, dW against autograd of the plain version (TF32 off);
+    bfloat16 at two shapes. Times of each mode, the plain version, and one
+    F.conv3d call (cuDNN) in TF32, in float32 and in bfloat16. The SIMT
+    kernel against its plain version at one shape."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = []
-    tf32 = torch.backends.cudnn.allow_tf32
     for h, cin, cout, per_forward in K2_SHAPES:
         shape = (K2_BATCH, FRAMES, h, h, cin)
         x = torch.randn(shape, generator=gen, device="cuda")
         w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda") / (27 * cin) ** 0.5
-        wf = C.flatten_weight(w)
-        out, plain = C.conv3d_fused(x, wf), C.conv3d_fused_plain(x, wf)
-        torch.cuda.synchronize()
-        diff, scale = float((out - plain).abs().max()), float(plain.abs().max())
-        del out, plain
-        kernel_ms = cuda_ms(lambda: C.conv3d_fused(x, wf), reps=3)
-        plain_ms = cuda_ms(lambda: C.conv3d_fused_plain(x, wf), reps=1)
-        xn = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the channels-last tensor
-        library_ms = cuda_ms(lambda: F.conv3d(xn, w, padding=1), reps=3)
         g = torch.randn((*shape[:-1], cout), generator=gen, device="cuda")
+        wf = C.flatten_weight(w)
         wt = C.flatten_weight(C.flip_transpose(w))
-        dx_kernel_ms = cuda_ms(lambda: C.conv3d_fused(g, wt), reps=3)
+        if C.wgmma_tile(shape, torch.float32) is None:
+            raise AssertionError(f"the tensor-core K2 does not take the UNet3D shape {shape}")
+        xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)  # NCDHW views
+        w_dx = C.flip_transpose(w).contiguous()
 
-        # dx and dW: the Function against autograd of the plain version, with
-        # cuDNN's weight gradient in full float32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
-            C.conv3d_fused_fn(xk, wk).backward(g)
+        # references: the plain version in float32, dx and dW by its autograd
+        with tf32_flag(False):
+            plain = C.conv3d_fused_plain(x, wf)
             xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
             C.conv3d_fused_plain(xp, C.flatten_weight(wp)).backward(g)
-            torch.cuda.synchronize()
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32
-        dx_diff, dx_scale = float((xk.grad - xp.grad).abs().max()), float(xp.grad.abs().max())
-        dw_diff, dw_scale = float((wk.grad - wp.grad).abs().max()), float(wp.grad.abs().max())
-        del xk, wk, xp, wp, g
-
-        bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.float32)
+            plain_ms = cuda_ms(lambda: C.conv3d_fused_plain(x, wf), reps=1)
+            library_fp32_ms = cuda_ms(lambda: F.conv3d(xn, w, padding=1), reps=K2_REPS)
+        with tf32_flag(True):
+            library_ms = cuda_ms(lambda: F.conv3d(xn, w, padding=1), reps=K2_REPS)
+            lib_diff, _ = rel_err(F.conv3d(xn, w, padding=1).permute(0, 2, 3, 4, 1), plain)
+            lib_dx_diff, _ = rel_err(F.conv3d(gn, w_dx, padding=1).permute(0, 2, 3, 4, 1),
+                                     xp.grad)
         case = dict(h=h, cin=cin, cout=cout, batch=K2_BATCH, frames=FRAMES, dtype="float32",
-                    launches_per_forward=per_forward, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                    library_ms=library_ms, dx_kernel_ms=dx_kernel_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, max_diff=diff, max_abs=scale, dx_max_diff=dx_diff,
-                    dx_max_abs=dx_scale, dw_max_diff=dw_diff, dw_max_abs=dw_scale,
-                    tflops=2 * K2_BATCH * FRAMES * h * h * 27 * cin * cout / kernel_ms / 1e9)
+                    launches_per_forward=per_forward, plain_ms=plain_ms, library_ms=library_ms,
+                    library_fp32_ms=library_fp32_ms, library_err=lib_diff,
+                    library_dx_err=lib_dx_diff)
+        flops = 2 * K2_BATCH * FRAMES * h * h * 27 * cin * cout
+        for mode, on, passes in (("3xtf32", False, 3), ("tf32", True, 1)):
+            with tf32_flag(on):
+                before = C.conv3d_fused_cuda.launches
+                out = C.conv3d_fused(x, wf)
+                xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+                C.conv3d_fused_fn(xk, wk).backward(g)
+                torch.cuda.synchronize()
+                launched = C.conv3d_fused_cuda.launches - before
+                ms = cuda_ms(lambda: C.conv3d_fused(x, wf), reps=K2_REPS)
+                dx_ms = cuda_ms(lambda: C.conv3d_fused(g, wt), reps=K2_REPS)
+            diff, scale = rel_err(out, plain)
+            dx_diff, dx_scale = rel_err(xk.grad, xp.grad)
+            bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.float32, passes)
+            case[mode] = dict(kernel_ms=ms, dx_kernel_ms=dx_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, tflops=flops / ms / 1e9, max_diff=diff,
+                              dx_max_diff=dx_diff, launches=launched)
+            case.update(max_abs=scale, dx_max_abs=dx_scale)
+            # the call, the Function's forward and its dx
+            if launched != 3:
+                raise AssertionError(f"K2 {mode} ran {launched} of 3 calls on the tensor cores")
+            if mode == "3xtf32":
+                # float32-level sums of K = 27 * Cin <= 13,824 products in another order
+                if not (diff <= 1e-4 * scale and dx_diff <= 1e-4 * dx_scale):
+                    raise AssertionError(f"K2 3xTF32 differs from its plain version: {case}")
+                # dW: cuDNN's weight gradient in float32 on both sides, 2.1M voxels
+                dw_diff, dw_scale = rel_err(wk.grad, wp.grad)
+                case.update(dw_max_diff=dw_diff, dw_max_abs=dw_scale)
+                if not dw_diff <= 1e-4 * dw_scale:
+                    raise AssertionError(f"K2's weight gradient differs: {case}")
+            else:
+                # one TF32 pass: operands rounded to 10 mantissa bits, like cuDNN's
+                for d, lib, sc in ((diff, lib_diff, scale), (dx_diff, lib_dx_diff, dx_scale)):
+                    if not (d <= 2 * lib + 1e-4 * sc and d <= 5e-3 * sc):
+                        raise AssertionError(f"K2 TF32 error {d} against cuDNN's {lib}: {case}")
+            del out, xk, wk
+        # the main path's mode (pretrain at the default flags) is TF32
+        case.update({k: case["tf32"][k] for k in
+                     ("kernel_ms", "dx_kernel_ms", "bound_ms", "bound_by", "tflops", "max_diff",
+                      "dx_max_diff")})
         log("K2 " + json.dumps(case))
-        # float32 sums of K = 27 * Cin <= 13,824 products in another order
-        if not (diff <= 1e-4 * scale and dx_diff <= 1e-4 * dx_scale):
-            raise AssertionError(f"K2 differs from its plain version: {case}")
-        # dW sums over B*F*H*W = 2.1M voxels in float32 on both sides
-        if not dw_diff <= 1e-4 * dw_scale:
-            raise AssertionError(f"K2's weight gradient differs: {case}")
         cases.append(case)
+        del xp, wp
 
         if (h, cin, cout) in K2_BF16:
             xb, wb = x.bfloat16(), wf.bfloat16()
+            before = C.conv3d_fused_cuda.launches
             out = C.conv3d_fused(xb, wb)
             ref = C.conv3d_fused_plain(xb, wb)
             torch.cuda.synchronize()
+            launched = C.conv3d_fused_cuda.launches - before
             finite = bool(torch.isfinite(out.float()).all())
-            diff = float((out.float() - ref.float()).abs().max())
-            scale = float(ref.float().abs().max())
+            diff, scale = rel_err(out, ref)
             bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.bfloat16)
+            ms = cuda_ms(lambda: C.conv3d_fused(xb, wb), K2_REPS)
             case = dict(h=h, cin=cin, cout=cout, batch=K2_BATCH, frames=FRAMES,
-                        dtype="bfloat16", kernel_ms=cuda_ms(lambda: C.conv3d_fused(xb, wb), 3),
+                        dtype="bfloat16", mode="bf16", kernel_ms=ms,
                         plain_ms=cuda_ms(lambda: C.conv3d_fused_plain(xb, wb), 1),
                         library_ms=cuda_ms(lambda: F.conv3d(xb.permute(0, 4, 1, 2, 3),
-                                                            w.bfloat16(), padding=1), 3),
-                        bound_ms=bound_ms, bound_by=bound_by, max_diff=diff, max_abs=scale)
+                                                            w.bfloat16(), padding=1), K2_REPS),
+                        bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
+                        max_diff=diff, max_abs=scale)
             log("K2 " + json.dumps(case))
             # both round one float32 sum to bfloat16 (8 bits): 1e-2 of max
-            if not (out.dtype == torch.bfloat16 and finite and diff <= 1e-2 * scale):
+            if not (out.dtype == torch.bfloat16 and finite and diff <= 1e-2 * scale
+                    and launched == 1):
                 raise AssertionError(f"K2 bfloat16 differs from its plain version: {case}")
             cases.append(case)
             del xb, wb, out, ref
-        del x, w, wf, xn, wt
+
+        if (h, cin, cout) == K2_SIMT:
+            before = C.conv3d_fused_simt_cuda.launches
+            out = C.conv3d_fused_simt_cuda(x, wf)
+            torch.cuda.synchronize()
+            launched = C.conv3d_fused_simt_cuda.launches - before
+            diff, scale = rel_err(out, plain)
+            bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.float32)
+            ms = cuda_ms(lambda: C.conv3d_fused_simt_cuda(x, wf), K2_REPS)
+            simt = dict(h=h, cin=cin, cout=cout, batch=K2_BATCH, frames=FRAMES, dtype="float32",
+                        kernel_ms=ms, plain_ms=plain_ms, library_ms=library_fp32_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
+                        max_diff=diff, max_abs=scale)
+            log("K2 SIMT " + json.dumps(simt))
+            # float32 FMAs, sums in another order: 1e-4 of max
+            if not (diff <= 1e-4 * scale and launched == 1):
+                raise AssertionError(f"the SIMT K2 differs from its plain version: {simt}")
+            del out
+        del x, w, g, wf, wt, xn, gn, w_dx, plain
         torch.cuda.empty_cache()
-    return cases
+    return cases, simt
 
 
 def count_fused_convs(model) -> int:
@@ -423,13 +494,16 @@ def phase_pretrain(C, smoke, train):
 
     # the main path: counts zeroed just before, read just after
     C.conv3d_fused_cuda.launches = 0
+    C.conv3d_fused_simt_cuda.launches = 0
     C.conv3d_fused_cuda.events = []
+    mode = C.kernel_mode(torch.float32)
     losses = []
     t0 = time.perf_counter()
     state = smoke.pretrain(cfg, train, num_steps=PRETRAIN_STEPS, device="cuda", losses=losses)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = C.conv3d_fused_cuda.launches
+    simt_launches = C.conv3d_fused_simt_cuda.launches
     k2_s = sum(a.elapsed_time(b) for a, b in C.conv3d_fused_cuda.events) / 1e3
     C.conv3d_fused_cuda.events = None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -440,14 +514,15 @@ def phase_pretrain(C, smoke, train):
                         for k, p in state.model.named_parameters())
     log(f"phase pretrain: {PRETRAIN_STEPS} steps in {seconds:.2f} s = "
         f"{seconds / PRETRAIN_STEPS:.3f} s per step at batch {cfg.batch_size}; K2 {launches} "
-        f"launches, {k2_s:.2f} s of kernel time ({100 * k2_s / seconds:.1f} % of the steps); "
-        f"peak device memory {peak_gb:.2f} GB")
+        f"launches on the tensor cores in {mode}, {simt_launches} SIMT, {k2_s:.2f} s of kernel "
+        f"time ({100 * k2_s / seconds:.1f} % of the steps); peak device memory {peak_gb:.2f} GB")
     log(f"pretrain losses {json.dumps(losses)}; max |EMA - init| {ema_moved:.3e}, "
         f"max |weights - init| {weights_moved:.3e}")
     # per step: each conv's forward, its recomputation, its dx (3 x 30 = 90)
-    if launches != 3 * n_convs * PRETRAIN_STEPS:
-        raise AssertionError(f"K2 launched {launches} times, expected {3 * n_convs} x "
-                             f"{PRETRAIN_STEPS}")
+    if launches != 3 * n_convs * PRETRAIN_STEPS or simt_launches != 0:
+        raise AssertionError(f"K2 launched {launches} times on the tensor cores and "
+                             f"{simt_launches} on the SIMT kernel, expected {3 * n_convs} x "
+                             f"{PRETRAIN_STEPS} and 0")
     if not all(math.isfinite(v) for v in losses) or len(losses) != PRETRAIN_STEPS:
         raise AssertionError(f"pretrain losses {losses}")
     if not (state.step == PRETRAIN_STEPS and ema_moved > 0 and weights_moved > 0):
@@ -455,7 +530,7 @@ def phase_pretrain(C, smoke, train):
     ema = {k: v.clone() for k, v in state.ema_params.items()}
     return ema, launches, dict(pretrain_s=seconds, s_per_step=seconds / PRETRAIN_STEPS,
                                k2_s=k2_s, k2_share=k2_s / seconds, pretrain_peak_gb=peak_gb,
-                               losses=losses)
+                               k2_mode=mode, simt_launches=simt_launches, losses=losses)
 
 
 def phase_finetune(K, smoke, data, params):
@@ -558,23 +633,21 @@ def phase_small_pretrain_agreement(C, smoke, train):
     draws = [(torch.randint(0, cfg.timesteps, (2,), generator=gen),
               torch.randn((2, *raw.shape[1:]), generator=gen)) for _ in range(2)]
     losses = {}
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
     n_convs = count_fused_convs(build_model(16, (1, 2), conv_impl="pallas", device="cpu"))
     before = C.conv3d_fused_cuda.launches
-    try:
+    simt_before = C.conv3d_fused_simt_cuda.launches
+    with tf32_flag(False):
         for device in ("cuda", "cpu"):
             noise = iter([(t.to(device), n.to(device)) for t, n in draws])
             out = []
             smoke.pretrain(cfg, small, num_steps=2, params=params, device=device, noise=noise,
                            losses=out)
             losses[device] = [float(v) for v in out]
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     log(f"small pretrain: card {losses['cuda']}, cpu {losses['cpu']}")
-    # per step: each conv's forward, its recomputation, its dx
-    if C.conv3d_fused_cuda.launches - before != 2 * 3 * n_convs:
-        raise AssertionError("the small pretrain on the card did not run on K2")
+    # per step: each conv's forward, its recomputation, its dx, all in 3xTF32
+    if (C.conv3d_fused_cuda.launches - before != 2 * 3 * n_convs
+            or C.conv3d_fused_simt_cuda.launches != simt_before):
+        raise AssertionError("the small pretrain on the card did not run on the tensor-core K2")
     for got, ref in zip(losses["cuda"], losses["cpu"]):
         # float32 on both, sums in another order, after one Adam step
         if not abs(got - ref) <= 1e-4 * abs(ref):
@@ -600,7 +673,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    libs = build.build_all(["pressure_cg", "conv3d_mxu"])
+    libs = build.build_all(["pressure_cg", "conv3d_wgmma", "conv3d_simt"])
     log(f"phase build: {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -611,7 +684,7 @@ def main() -> int:
     log(f"phase times {json.dumps(times, sort_keys=True)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    conv_cases = phase_conv_kernel_vs_plain(C)
+    conv_cases, simt_case = phase_conv_kernel_vs_plain(C)
     phase_small_pretrain_agreement(C, smoke, data[0])
     ema, conv_launches, train_times = phase_pretrain(C, smoke, data[0])
     ft_times = phase_finetune(K, smoke, data, ema)
@@ -629,16 +702,38 @@ def main() -> int:
         cases=cases)]
     conv_main = next(c for c in conv_cases if (c["h"], c["cin"], c["cout"], c["dtype"])
                      == (64, 64, 64, "float32"))
+    bf16_main = next(c for c in conv_cases if (c["h"], c["cin"], c["cout"], c["dtype"])
+                     == (64, 64, 64, "bfloat16"))
+    f32_cases = [c for c in conv_cases if c["dtype"] == "float32"]
+    modes = {m: dict(ms=conv_main[m]["kernel_ms"], bound_ms=conv_main[m]["bound_ms"],
+                     bound_by=conv_main[m]["bound_by"], tflops=conv_main[m]["tflops"],
+                     max_rel_err=max(c[m]["max_diff"] / c["max_abs"] for c in f32_cases))
+             for m in ("tf32", "3xtf32")}
+    modes["bf16"] = dict(ms=bf16_main["kernel_ms"], bound_ms=bf16_main["bound_ms"],
+                         bound_by=bf16_main["bound_by"], tflops=bf16_main["tflops"],
+                         library_ms=bf16_main["library_ms"],
+                         max_rel_err=max(c["max_diff"] / c["max_abs"] for c in conv_cases
+                                         if c["dtype"] == "bfloat16"))
+    modes["3xtf32"]["library_fp32_ms"] = conv_main["library_fp32_ms"]
     kernels.append(dict(
-        name="conv3d_fused", route="cuda", source="safediffcon_torch/csrc/conv3d_mxu.cu",
+        name="conv3d_fused", route="cuda", source="safediffcon_torch/csrc/conv3d_wgmma.cu",
         replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
-        launches=conv_launches,
-        max_abs_err=max(c["max_diff"] for c in conv_cases if c["dtype"] == "float32"),
+        launches=conv_launches, main_path_mode=train_times["k2_mode"],
+        max_abs_err=max(c["max_diff"] for c in f32_cases),
         ms=conv_main["kernel_ms"], plain_ms=conv_main["plain_ms"],
         bound_ms=conv_main["bound_ms"], bound_by=conv_main["bound_by"],
-        library_ms=conv_main["library_ms"],
+        library_ms=conv_main["library_ms"], library_fp32_ms=conv_main["library_fp32_ms"],
         shape=dict(batch=K2_BATCH, frames=FRAMES, h=64, w=64, cin=64, cout=64, dtype="float32"),
-        cases=conv_cases))
+        modes=modes, cases=conv_cases))
+    kernels.append(dict(
+        name="conv3d_fused_simt", route="cuda", source="safediffcon_torch/csrc/conv3d_simt.cu",
+        replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
+        launches=train_times["simt_launches"], max_abs_err=simt_case["max_diff"],
+        ms=simt_case["kernel_ms"], plain_ms=simt_case["plain_ms"],
+        bound_ms=simt_case["bound_ms"], bound_by=simt_case["bound_by"],
+        library_ms=simt_case["library_ms"],
+        shape=dict(batch=K2_BATCH, frames=FRAMES, h=K2_SIMT[0], w=K2_SIMT[0], cin=K2_SIMT[1],
+                   cout=K2_SIMT[2], dtype="float32")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

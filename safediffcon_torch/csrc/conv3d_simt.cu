@@ -1,4 +1,10 @@
-// Kernel K2: fused stride-1 SAME 3x3x3 convolution on channels-last input.
+// Kernel K2, SIMT form: fused stride-1 SAME 3x3x3 convolution on
+// channels-last input with float32 FMAs on the CUDA cores. The tensor-core
+// kernel (conv3d_wgmma.cu) runs every shape of the UNet3D; the wrapper
+// (ops/conv3d_mxu.py::wgmma_tile) sends here, by a test of the shape alone,
+// what that kernel does not take: W > 128 or not a divisor of 128, H or F
+// that do not split into its 128-voxel tiles, or Cin * element size not a
+// multiple of 16 bytes.
 //
 // Replaces the Pallas TPU kernel of safediffcon_tpu/ops/conv3d_mxu.py:
 // `_make_kernel` + `_conv3d_fused_fwd` (one im2col matmul per frame with
@@ -32,7 +38,7 @@
 // product would not hold the f32 results to the tolerance the port keeps
 // against the plain version. Register tiling (8 x 4 or 8 x 8 outputs per
 // thread from two or three 16-byte shared loads per k) keeps the FMA pipes
-// fed; wgmma with TMA-fed shared-memory rings is the next design.
+// fed.
 //
 // Interface: plain C, launched on the caller's stream; returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.

@@ -15,15 +15,19 @@ fails ends the run with a non-zero exit.
      (B = 8, 10 and 50 samples of 127^2, warm start, accuracy 1e-6 and 1e-8,
      max_iter 500, convergence checks every 1 and every 32 iterations),
      the residual |A p - div|, and the gradient (a solve of the cotangent);
+     K1's cluster layout, how many of its clusters fit on the card at once,
+     and us per iteration;
   4. the serving path at the reference model's full width (UNet3D dim 64,
      mults (1, 2, 4), 7 channels, 32 frames of 64^2, seeded weights):
      generate 16 train, 50 cal and 50 test sims with the port's solver (256
-     frames at 128^2, CG 1e-6), then SmokePipeline.calibrate and guided
+     frames at 128^2, CG 1e-6; its phases timed, K1 by CUDA events), then
+     SmokePipeline.calibrate and guided
      evaluate with
      the SmokeConformalConfig defaults (DDIM 100, eta 1, solver 1e-8 / 500,
      backend "auto" = K1) and the pipeline's default chunks, so each runs
      one batch of 50 and reports its peak device memory. K1's launch count
-     is zeroed just before calibrate and read just after evaluate;
+     is zeroed just before calibrate and read just after evaluate, and must
+     be 255 per evaluated batch;
   5. a small input run on the card and on the CPU (whose path the CPU tests
      hold against the JAX package) with the same weights and noise, in
      float32 without TF32: the metrics must agree;
@@ -75,6 +79,11 @@ CELLS = 127
 N_CAL, N_TEST = 50, 50  # sims per split (reference: 200 cal, 50 test)
 N_TRAIN = 16  # one pretrain batch (reference: 19,800 train sims)
 GEN_BATCH = 50
+K1_REPS = 20  # timed K1 calls per case
+# K1 launches per evaluated batch: one pressure solve per step of the
+# 256-frame rollout, 32 record frames x time_scale 8 less the last
+# (solvers/smoke.py::evaluate_control)
+SOLVER_STEPS = 255
 # K2 at UNet3D dim 64, mults (1, 2, 4), 32 frames of 64^2: (H = W, Cin, Cout)
 # of each 3x3x3 conv and its launches per forward (models/unet3d.py)
 K2_SHAPES = [(64, 64, 64, 8), (64, 128, 64, 2), (32, 64, 128, 1), (32, 128, 128, 3),
@@ -126,10 +135,18 @@ def cg_bound_ms(batch: int, iters: list) -> tuple:
 
 def phase_kernel_vs_plain(K, S):
     """K1 against its plain version at the serving shapes; returns the case
-    records and the main-path case (B=50 as evaluate runs it, 1e-8, check
-    every iteration)."""
+    records, the main-path case (B=50 as evaluate runs it, 1e-8, check
+    every iteration) and the cluster layout."""
     masks = S.build_masks("cuda")
     planes = masks.planes
+    lay = K.cluster_layout(CELLS)
+    cluster = dict(size=lay.cluster, rows=lay.rows, smem_bytes=lay.smem_bytes,
+                   max_active_clusters=K.max_active_clusters(CELLS),
+                   chunks_at_main_batch=-(-N_TEST // K.CHUNK))
+    log(f"K1 layout: clusters of {lay.cluster} blocks x {lay.rows} rows (last band "
+        f"{lay.bands(CELLS)[-1][1]}), {lay.smem_bytes} B of shared memory per block, "
+        f"{cluster['max_active_clusters']} clusters fit at once, B = {N_TEST} needs "
+        f"{cluster['chunks_at_main_batch']}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for batch in (8, 10, N_TEST):
@@ -142,40 +159,48 @@ def phase_kernel_vs_plain(K, S):
         guess, _ = K.pressure_cg_plain(div_prev, torch.zeros_like(div), planes, 1e-6, 500)
         for accuracy in (1e-6, 1e-8):
             for check_every in (1, K.BLOCK_K):
-                args = (div, guess, planes, accuracy, 500, check_every)
-                xk, ik = K.pressure_cg_cuda(*args)
-                xp, ip = K.pressure_cg_plain(*args)
-                torch.cuda.synchronize()
-                diff = float((xk - xp).abs().max())
-                scale = float(xp.abs().max())
-                res_k = float((K.apply_A_planes(planes, xk) - div).abs().max())
-                res_p = float((K.apply_A_planes(planes, xp) - div).abs().max())
-                kernel_ms = cuda_ms(lambda: K.pressure_cg_cuda(*args), reps=5)
-                plain_ms = cuda_ms(lambda: K.pressure_cg_plain(*args), reps=2)
-                iters, plain_iters = ik.tolist(), ip.tolist()
-                bound_ms, bound_by = cg_bound_ms(batch, iters)
-                case = dict(variant="v1" if check_every == 1 else "v2", check_every=check_every,
-                            batch=batch, accuracy=accuracy, max_iter=500, kernel_ms=kernel_ms,
-                            plain_ms=plain_ms, iterations=iters, plain_iterations=plain_iters,
-                            max_diff=diff, max_abs_x=scale, residual=res_k,
-                            plain_residual=res_p, bound_ms=bound_ms, bound_by=bound_by)
+                case = check_k1(K, planes, (div, guess, planes, accuracy, 500, check_every))
+                case.update(variant="v1" if check_every == 1 else "v2", batch=batch)
                 log("K1 " + json.dumps(case))
-                # Both run the same recurrence; their float32 dot products sum
-                # in other orders, so the iterates differ by rounding that CG
-                # does not amplify past the solve's own accuracy: 1e-4 of
-                # max|x| (the CPU tests see 1e-6 of it against Pallas).
-                if not diff <= 1e-4 * scale:
-                    raise AssertionError(f"K1 differs from its plain version: {diff} > 1e-4 * {scale}")
-                # float32 recursive-residual termination leaves a small true
-                # residual (tests/test_ops_pallas.py bounds it by 1e-3)
-                if not (res_k < 1e-3 and res_k <= 2 * res_p + 1e-5):
-                    raise AssertionError(f"K1 residual {res_k} (plain {res_p})")
-                if max(abs(a - b) for a, b in zip(iters, plain_iters)) > max(check_every, 5):
-                    raise AssertionError(f"K1 iterations {iters} vs plain {plain_iters}")
                 cases.append(case)
-    main = next(c for c in cases if c["batch"] == N_TEST and c["accuracy"] == 1e-8
-                and c["check_every"] == 1)
-    return masks, cases, main
+                if (batch, accuracy, check_every) == (N_TEST, 1e-8, 1):
+                    main = case
+    return masks, cases, main, cluster
+
+
+def check_k1(K, planes, args) -> dict:
+    """One K1 case against its plain version: error, residuals, iterations,
+    times, bound."""
+    div, _, _, accuracy, max_iter, check_every = args
+    xk, ik = K.pressure_cg_cuda(*args)
+    xp, ip = K.pressure_cg_plain(*args)
+    torch.cuda.synchronize()
+    diff = float((xk - xp).abs().max())
+    scale = float(xp.abs().max())
+    res_k = float((K.apply_A_planes(planes, xk) - div).abs().max())
+    res_p = float((K.apply_A_planes(planes, xp) - div).abs().max())
+    kernel_ms = cuda_ms(lambda: K.pressure_cg_cuda(*args), reps=K1_REPS)
+    plain_ms = cuda_ms(lambda: K.pressure_cg_plain(*args), reps=2)
+    iters, plain_iters = ik.tolist(), ip.tolist()
+    bound_ms, bound_by = cg_bound_ms(div.shape[0], iters)
+    case = dict(check_every=check_every, accuracy=accuracy, max_iter=max_iter,
+                kernel_ms=kernel_ms, us_per_iter=1e3 * kernel_ms / max(max(iters), 1),
+                plain_ms=plain_ms, iterations=iters, plain_iterations=plain_iters,
+                max_diff=diff, max_abs_x=scale, residual=res_k, plain_residual=res_p,
+                bound_ms=bound_ms, bound_by=bound_by)
+    # Both run the same recurrence; their float32 dot products sum in other
+    # orders, so the iterates differ by rounding that CG does not amplify
+    # past the solve's own accuracy: 1e-4 of max|x| (the CPU tests see 1e-6
+    # of it against Pallas).
+    if not diff <= 1e-4 * scale:
+        raise AssertionError(f"K1 differs from its plain version: {diff} > 1e-4 * {scale}")
+    # float32 recursive-residual termination leaves a small true residual
+    # (tests/test_ops_pallas.py bounds it by 1e-3)
+    if not (res_k < 1e-3 and res_k <= 2 * res_p + 1e-5):
+        raise AssertionError(f"K1 residual {res_k} (plain {res_p})")
+    if max(abs(a - b) for a, b in zip(iters, plain_iters)) > max(check_every, 5):
+        raise AssertionError(f"K1 iterations {iters} vs plain {plain_iters}")
+    return case
 
 
 def phase_gradient(K, S, masks):
@@ -203,15 +228,21 @@ def phase_serving(K, smoke):
     out_dir = ROOT / "build" / "chip_smoke"
     path = str(out_dir / "smoke.npz")
     K.pressure_cg_cuda.iterations = []
+    K.pressure_cg_cuda.events = []
     launches0 = K.pressure_cg_cuda.launches
+    datagen_phases = {}
     t0 = time.perf_counter()
     smoke.generate_smoke_dataset(path, n_train=N_TRAIN, n_cal=N_CAL, n_test=N_TEST, seed=0,
-                                 gen_batch=GEN_BATCH, accuracy=1e-6, max_iter=500, device="cuda")
+                                 gen_batch=GEN_BATCH, accuracy=1e-6, max_iter=500, device="cuda",
+                                 phase_seconds=datagen_phases)
     torch.cuda.synchronize()
     datagen_s = time.perf_counter() - t0
     gen_iters = torch.cat(K.pressure_cg_cuda.iterations).float()
+    datagen_phases["k1_events"] = sum(a.elapsed_time(b) for a, b in K.pressure_cg_cuda.events) / 1e3
+    K.pressure_cg_cuda.events = None
     log(f"phase datagen: {N_TRAIN + N_CAL + N_TEST} sims x 255 solver steps in {datagen_s:.2f} s "
-        f"(batches of {GEN_BATCH}); "
+        f"(batches of {GEN_BATCH}); seconds per phase {json.dumps(datagen_phases)} (K1 by CUDA "
+        f"events, inside the rollout); "
         f"K1 launches {K.pressure_cg_cuda.launches - launches0}, iterations per chunk "
         f"mean {float(gen_iters.mean()):.1f} max {int(gen_iters.max())} (accuracy 1e-6)")
     cal = smoke.SmokeDataset.load(path, "cal")
@@ -262,12 +293,13 @@ def phase_serving(K, smoke):
         f"{float(iters.float().mean()):.1f}, share at max_iter 500: {at_max:.3f} "
         f"(accuracy {pipe.solver_kw['accuracy']})")
     log("metrics " + json.dumps(metrics, sort_keys=True))
-    if launches == 0:
-        raise AssertionError("the serving path never launched K1")
+    expected = SOLVER_STEPS * -(-N_TEST // pipe.eval_chunk)
+    if launches != expected:
+        raise AssertionError(f"the serving path launched K1 {launches} times, expected {expected}")
     if not (math.isfinite(q) and all(math.isfinite(v) for v in metrics.values())):
         raise AssertionError(f"non-finite result: Q {q}, metrics {metrics}")
     return (train, cal, test), launches, dict(
-        datagen_s=datagen_s, calibrate_s=calibrate_s, sampling_s=sampling_s,
+        datagen_s=datagen_s, datagen_phases=datagen_phases, calibrate_s=calibrate_s, sampling_s=sampling_s,
         rollout_s=rollout_s, ms_per_guided_step=1e3 * sampling_s / steps, peak_gb=peak_gb,
         cal_peak_gb=cal_peak_gb, iter_share_at_max=at_max)
 
@@ -677,7 +709,7 @@ def main() -> int:
     log(f"phase build: {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    masks, cases, main_case = phase_kernel_vs_plain(K, S)
+    masks, cases, main_case, k1_cluster = phase_kernel_vs_plain(K, S)
     phase_gradient(K, S, masks)
     data, launches, times = phase_serving(K, smoke)
     phase_small_input_agreement(K, smoke, data[2])
@@ -698,6 +730,7 @@ def main() -> int:
         launches=launches, max_abs_err=max(c["max_diff"] for c in cases),
         ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
+        us_per_iter=main_case["us_per_iter"], cluster=k1_cluster,
         shape=dict(batch=N_TEST, cells=[CELLS, CELLS], accuracy=1e-8, max_iter=500, check_every=1),
         cases=cases)]
     conv_main = next(c for c in conv_cases if (c["h"], c["cin"], c["cout"], c["dtype"])

@@ -1,5 +1,6 @@
 // PTX building blocks for Hopper (sm_90a) kernels: shared-memory addresses,
-// mbarriers, TMA tile loads, proxy fences, named barriers and warpgroup
+// mbarriers, stores into another block's shared memory in a thread-block
+// cluster, TMA tile loads, proxy fences, named barriers and warpgroup
 // matrix multiplies (wgmma) with both operands in shared memory.
 //
 // Every wgmma here reads A (64 x K) and B (N x K) K-major from tiles laid
@@ -53,6 +54,42 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// the same, with acquire at cluster scope: for data that other blocks of
+// the cluster stored with st_async_v4
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- distributed shared memory (thread-block clusters) ---------------------
+
+// the shared::cluster address of this block's shared-memory address `addr`
+// in the block of cluster rank `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// stores 16 bytes at `addr` (shared::cluster, 16-byte aligned) and counts
+// them on the mbarrier `bar` of the same block (mbarrier complete_tx)
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, float c, float d,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
 }
 
 // ---- TMA tile loads (tiled mode: out-of-range coordinates read as zero) ----

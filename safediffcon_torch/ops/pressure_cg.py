@@ -5,7 +5,11 @@ v1, and `_make_block_kernel`/`_cg_pallas_v2`, v2). One CUDA kernel,
 `csrc/pressure_cg.cu`, covers both variants: `check_every=1` tests
 convergence every iteration as v1 does, `check_every=32` every 32 as v2
 does. Dot products and the test are shared within chunks of CHUNK=8
-samples, and both modes use v2's safe divide.
+samples, and both modes use v2's safe divide. The kernel runs each chunk
+on one thread-block cluster, a band of grid rows per block, with the CG
+state in registers and shared memory for the whole solve;
+`cluster_layout` computes its launch layout and is None for a shape it
+cannot take.
 
 `pressure_cg` dispatches on the device of its inputs: CUDA tensors launch
 the kernel (or raise), CPU tensors run `pressure_cg_plain`, the same
@@ -17,15 +21,18 @@ with zero gradient for the warm start (pressure_cg.py:254-264).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from safediffcon_torch.ops import build
 
-CHUNK = 8  # samples sharing one block, its dot products and its convergence test
+CHUNK = 8  # samples sharing one cluster, its dot products and its convergence test
 BLOCK_K = 32  # v2's iterations between convergence tests
+COLS = 128  # threads across one grid row of a band: the kernel takes n <= 128
+ROWS = 8  # grid rows per block: 16 blocks (a non-portable cluster) cover n = 127
+MAX_CLUSTER = 16  # slots per cluster sum in the kernel's shared memory
 _KERNEL = "pressure_cg"
 
 
@@ -97,29 +104,81 @@ def pressure_cg_plain(div, guess, planes, accuracy: float, max_iter: int,
     return x.reshape(chunks * CHUNK, n, n)[:b], iters
 
 
+class ClusterLayout(NamedTuple):
+    """How K1 spreads one chunk of CHUNK samples over a thread-block cluster."""
+    cluster: int  # blocks per chunk, each on its own SM
+    rows: int  # grid rows per block (a band); the last band may hold fewer
+    smem_bytes: int  # dynamic shared memory per block
+
+    def bands(self, n: int) -> List[Tuple[int, int]]:
+        """(first row, rows) of each block's band of the n x n grid, by rank."""
+        return [(k * self.rows, min(self.rows, n - k * self.rows)) for k in range(self.cluster)]
+
+
+def cluster_layout(n: int) -> Optional[ClusterLayout]:
+    """K1's launch layout for samples of n x n, or None for a grid the
+    kernel cannot take: a band row is 128 threads (n <= 128) and a block 8
+    band rows, so a cluster has at most 16 blocks (Hopper's non-portable
+    maximum). The shared memory holds m of the band for the chunk's 8
+    samples, two sets of 16 ranks' 4-float slots, the rows just below and
+    above the band, 32 warps' 3 partials and 3 mbarriers: the carve-up of
+    csrc/pressure_cg.cu, whose launch refuses less."""
+    if not 1 <= n <= COLS:
+        return None
+    smem_bytes = 4 * (CHUNK * ROWS * COLS + 2 * 4 * MAX_CLUSTER + 2 * COLS * CHUNK + 3 * 32) + 3 * 8
+    return ClusterLayout(-(-n // ROWS), ROWS, smem_bytes)
+
+
+def max_active_clusters(n: int) -> int:
+    """How many clusters of K1's layout for n fit on the card at once
+    (cudaOccupancyMaxActiveClusters); chunks beyond it run in later waves."""
+    lay = cluster_layout(n)
+    if lay is None:
+        raise ValueError(f"K1 takes no {n} x {n} grid")
+    fn = build.load(_KERNEL).pressure_cg_max_active_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(n, lay.cluster, lay.smem_bytes, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {err}")
+    return out.value
+
+
 def pressure_cg_cuda(div, guess, planes, accuracy: float, max_iter: int,
                      check_every: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1 on the current stream: returns (x, iterations per chunk).
-    Counts its launches in `pressure_cg_cuda.launches`; when
+    """Launch K1 on the current stream with `cluster_layout`'s layout:
+    returns (x, iterations per chunk). Raises for a grid the kernel cannot
+    take. Counts its launches in `pressure_cg_cuda.launches`; when
     `pressure_cg_cuda.iterations` is a list, appends each launch's
-    iteration counts to it (device tensors, no sync)."""
+    iteration counts to it (device tensors, no sync); when
+    `pressure_cg_cuda.events` is a list, appends a (start, end) pair of
+    timing CUDA events around each launch (no sync)."""
     b, n, _ = div.shape
+    lay = cluster_layout(n)
+    if lay is None:
+        raise ValueError(f"K1 takes n <= {COLS}, got {b} samples of {n} x {n}")
     fn = build.load(_KERNEL).pressure_cg_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     x = torch.empty_like(div)
-    m = torch.empty_like(div)
-    am = torch.empty_like(div)
-    r = torch.empty_like(div)
     iters = torch.empty(-(-b // CHUNK), dtype=torch.int32, device=div.device)
-    stream = torch.cuda.current_stream(div.device).cuda_stream
-    err = fn(div.data_ptr(), guess.data_ptr(), planes.data_ptr(), x.data_ptr(),
-             m.data_ptr(), am.data_ptr(), r.data_ptr(), iters.data_ptr(),
-             b, n, float(accuracy), int(max_iter), int(check_every), stream)
+    stream = torch.cuda.current_stream(div.device)
+    events = pressure_cg_cuda.events
+    if events is not None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+    err = fn(div.data_ptr(), guess.data_ptr(), planes.data_ptr(), x.data_ptr(), iters.data_ptr(),
+             b, n, float(accuracy), int(max_iter), int(check_every), lay.cluster, lay.smem_bytes,
+             stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"pressure_cg kernel launch failed with CUDA error {err}")
     pressure_cg_cuda.launches += 1
+    if events is not None:
+        end.record(stream)
+        events.append((start, end))
     if pressure_cg_cuda.iterations is not None:
         pressure_cg_cuda.iterations.append(iters)
     return x, iters
@@ -127,6 +186,7 @@ def pressure_cg_cuda(div, guess, planes, accuracy: float, max_iter: int,
 
 pressure_cg_cuda.launches = 0
 pressure_cg_cuda.iterations = None
+pressure_cg_cuda.events = None
 
 
 def pressure_cg(div, guess, planes, accuracy: float, max_iter: int,

@@ -16,11 +16,12 @@ which gives other numbers than JAX's key.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -78,6 +79,7 @@ def generate_smoke_dataset(
     max_iter: int = 500,
     backend: str = "auto",
     device="cuda",
+    phase_seconds: Optional[Dict[str, float]] = None,
 ) -> None:
     """Generate all splits with the batched rollout on `device` and save one
     npz. backend "auto" is kernel K1 (`solvers.smoke.resolve_backend`).
@@ -85,7 +87,24 @@ def generate_smoke_dataset(
     frames with the interior
     zeroed (reference: get_envolve, 2d/apps/a_gen_dataset_128.py:287-313).
     The JAX version's mass-conservation filter comes with the training
-    slice, whose datasets use it."""
+    slice, whose datasets use it.
+
+    When `phase_seconds` is a dict, adds the seconds of each phase to it,
+    summed over batches, each phase ending in a sync: "inputs" (waypoints,
+    control noise), "rollout" (the solver), "records" (subsampling, the
+    copy to the host, the record layout) and "save" (the npz)."""
+
+    @contextlib.contextmanager
+    def phase(name: str):
+        if phase_seconds is None:
+            yield
+            return
+        t = time.perf_counter()
+        yield
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        phase_seconds[name] = phase_seconds.get(name, 0.0) + time.perf_counter() - t
+
     masks = S.build_masks(device)
     time_scale = max(n_frames // record_frames, 1)
     n_rec = n_frames // time_scale
@@ -100,57 +119,61 @@ def generate_smoke_dataset(
     done = 0
     while done < total:
         b = min(gen_batch, total - done)
-        dens0 = np.zeros((b, S.CELLS, S.CELLS), np.float32)
-        vxs = np.zeros((b, n_frames), np.float32)
-        vys = np.zeros((b, n_frames), np.float32)
-        for i in range(b):
-            xs, ys = _waypoints(rng)
-            dens0[i, ys[0] : ys[0] + 10, xs[0] : xs[0] + 10] = 1.0
-            vxs[i], vys[i] = _velocity_program(rng, xs, ys, n_frames)
+        with phase("inputs"):
+            dens0 = np.zeros((b, S.CELLS, S.CELLS), np.float32)
+            vxs = np.zeros((b, n_frames), np.float32)
+            vys = np.zeros((b, n_frames), np.float32)
+            for i in range(b):
+                xs, ys = _waypoints(rng)
+                dens0[i, ys[0] : ys[0] + 10, xs[0] : xs[0] + 10] = 1.0
+                vxs[i], vys[i] = _velocity_program(rng, xs, ys, n_frames)
 
-        v0 = torch.zeros((b, S.N, S.N, 2), device=device)
-        v0[..., 1] = 0.8
-        vx_t = torch.as_tensor(vxs, device=device)
-        vy_t = torch.as_tensor(vys, device=device)
-        noise = torch.randn((b, n_frames - 1, S.N, S.N, 2), generator=gen, device=device)
-        ctrl = torch.stack([
-            vx_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 0]),
-            vy_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 1]),
-        ], dim=-1)
-        del noise
-        rec = S.smoke_rollout(masks, torch.as_tensor(dens0, device=device), v0, ctrl,
-                              accuracy, max_iter, backend=backend)
-        ctrl_full = torch.cat([torch.zeros_like(ctrl[:, :1]), ctrl], dim=1)
-        # subsample on the device; only the (b, n_rec, size, size) record crosses
-        dsub = rec.density[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
-        vel = rec.velocity[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
-        c_rec = ctrl_full[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
-        smoke = rec.smoke_rate[:, ::time_scale].cpu().numpy()
-        safe = rec.smoke_safe_rate[:, ::time_scale].cpu().numpy()
-        del rec, ctrl, ctrl_full
+            v0 = torch.zeros((b, S.N, S.N, 2), device=device)
+            v0[..., 1] = 0.8
+            vx_t = torch.as_tensor(vxs, device=device)
+            vy_t = torch.as_tensor(vys, device=device)
+            noise = torch.randn((b, n_frames - 1, S.N, S.N, 2), generator=gen, device=device)
+            ctrl = torch.stack([
+                vx_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 0]),
+                vy_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 1]),
+            ], dim=-1)
+            del noise
+        with phase("rollout"):
+            rec = S.smoke_rollout(masks, torch.as_tensor(dens0, device=device), v0, ctrl,
+                                  accuracy, max_iter, backend=backend)
+        with phase("records"):
+            ctrl_full = torch.cat([torch.zeros_like(ctrl[:, :1]), ctrl], dim=1)
+            # subsample on the device; only the (b, n_rec, size, size) record crosses
+            dsub = rec.density[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+            vel = rec.velocity[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+            c_rec = ctrl_full[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+            smoke = rec.smoke_rate[:, ::time_scale].cpu().numpy()
+            safe = rec.smoke_safe_rate[:, ::time_scale].cpu().numpy()
+            del rec, ctrl, ctrl_full
 
-        c_rec[:, :, lo:hi, lo:hi, :] = 0.0  # indirect control band
-        out = np.zeros((b, n_rec, size, size, 7), np.float32)
-        out[:, :, : dsub.shape[2], : dsub.shape[3], 0] = dsub
-        out[..., 1] = vel[..., 0]
-        out[..., 2] = vel[..., 1]
-        out[..., 3] = c_rec[..., 0]
-        out[..., 4] = c_rec[..., 1]
-        out[..., 5] = smoke[:, :, None, None]
-        out[..., 6] = safe[:, :, None, None]
+            c_rec[:, :, lo:hi, lo:hi, :] = 0.0  # indirect control band
+            out = np.zeros((b, n_rec, size, size, 7), np.float32)
+            out[:, :, : dsub.shape[2], : dsub.shape[3], 0] = dsub
+            out[..., 1] = vel[..., 0]
+            out[..., 2] = vel[..., 1]
+            out[..., 3] = c_rec[..., 0]
+            out[..., 4] = c_rec[..., 1]
+            out[..., 5] = smoke[:, :, None, None]
+            out[..., 6] = safe[:, :, None, None]
         recs.append(out)
         done += b
         log.info("smoke datagen %d/%d sims (%.2f s/sim)", done, total,
                  (time.time() - t0) / max(done, 1))
 
-    data = np.concatenate(recs)
-    splits = {
-        "train": data[:n_train],
-        "cal": data[n_train : n_train + n_cal],
-        "test": data[n_train + n_cal :],
-    }
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(path, **{f"{k}_data": v for k, v in splits.items()})
+    with phase("save"):
+        data = np.concatenate(recs)
+        splits = {
+            "train": data[:n_train],
+            "cal": data[n_train : n_train + n_cal],
+            "test": data[n_train + n_cal :],
+        }
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez_compressed(path, **{f"{k}_data": v for k, v in splits.items()})
 
 
 def _read_reference_sim(base: str, sim_id: int, frames: int = FRAMES) -> np.ndarray:

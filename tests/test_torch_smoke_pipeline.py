@@ -54,6 +54,20 @@ def test_dataset_generation(tiny_data):
     np.testing.assert_allclose(d.data * torch_data.RESCALER, d.raw, rtol=1e-6)
 
 
+def test_dataset_generation_phase_seconds(tiny_data, tmp_path):
+    """Timing the generator's phases leaves its output as it was."""
+    path = str(tmp_path / "timed.npz")
+    phases = {}
+    generate_smoke_dataset(path, n_train=1, n_cal=4, n_test=2,
+                           n_frames=RECORD_FRAMES * TIME_SCALE, record_frames=RECORD_FRAMES,
+                           space_scale=SPACE_SCALE, gen_batch=7, accuracy=1e-4, max_iter=80,
+                           device="cpu", phase_seconds=phases)
+    assert sorted(phases) == ["inputs", "records", "rollout", "save"]
+    assert all(v > 0 for v in phases.values())
+    for split in ("train", "cal", "test"):
+        np.testing.assert_array_equal(SmokeDataset.load(path, split).raw, tiny_data[split].raw)
+
+
 def test_waypoint_programs_match_jax():
     """The blobs and velocity programs come from the same numpy draws."""
     ra, rb = np.random.default_rng(3), np.random.default_rng(3)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's smoke serving and training paths on one CUDA card.
+"""Drive the PyTorch port's smoke and Burgers paths on one CUDA card.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`. It
 needs one CUDA card and the CUDA toolkit (nvcc); without a card it exits
@@ -51,6 +51,38 @@ fails ends the run with a non-zero exit.
      SmokePipeline model, framework conv; K1 in evaluate), then one InfFT
      step at Q = 1, where its loss has a gradient.
 
+The Burgers 1D task (no kernel of the TPU package lies on its path; K1 and
+K2 must not launch while it runs), at the reference "turbo" UNet2D (dim 128,
+mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
+
+  B1. the FD solver (10 chunks of 1,000 explicit-Euler steps at 128 cells)
+      on the card and on the CPU from the same u0 and f, B = 50: within
+      1e-5 of max|u|; ms per rollout at B = 50 and at datagen's batch;
+      kernel launches per Euler step (torch.profiler);
+  B2. datagen: 2,048 train, 1,000 cal and 50 test sims in one solve batch;
+  B3. a tiny UNet2D (dim 16) on the card and on the CPU with the same
+      weights and draws, TF32 off: calibrate, evaluate, one InfFT step and
+      one post-training step must agree;
+  B4. serving with the BurgersConformalConfig defaults (DDIM 200, eta 1,
+      w_score 500, u_bound 0.8, alpha 0.98): calibrate on the 1,000 cal sims
+      (4 x 250 in chunks of 50), guided evaluate on the 50 test sims, both
+      float32 at the default flags; then guided sampling of the same 50 in
+      bfloat16 compute; ms per guided step, the solver's share of evaluate,
+      peak memory, the step's bound from the forward's FLOPs
+      (FlopCounterMode) at the TF32 and bf16 peaks, and a torch.profiler
+      breakdown of the forward in each dtype (device busy share, kernels
+      per forward, the kernels that take the most time);
+  B5. pretraining with the BurgersPretrainConfig defaults (batch 16) for 10
+      steps after one warm-up step, the loop's set-up timed apart;
+  B6. from B5's EMA: posttrain, 2 epochs of 2 steps at batch 380, one
+      recalibration, then one evaluate; InfFT_iters 2 (one step at B = 50,
+      calibrate, evaluate); both calibrate on 250 cal sims.
+
+Depth cuts of the Burgers phases against the reference: 2,048 train sims
+(40,000), 10 pretrain steps (200,000), posttrain 2 epochs x 2 steps (5 x
+3,200), InfFT 2 iterations (3), fine-tuning calibration on 250 cal sims
+(1,000). Widths, DDIM steps, batch sizes and the solver are the reference's.
+
 Its last three lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -62,6 +94,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -96,6 +129,13 @@ K2_REPS = 10  # timed calls of K2 and F.conv3d per case (the plain version: 1)
 PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 FT_SIMS = 8  # cal and test sims of the posttrain / InfFT epochs
 POSTTRAIN_STEPS = 3
+# Burgers: the reference "turbo" UNet2D; sims per split (reference 40,000
+# train, 1,000 cal, 50 test; the train split cut to what B5-B6 read)
+B_MODEL = dict(dim=128, dim_mults=(1, 2, 4, 8))
+B_N_TRAIN, B_N_CAL, B_N_TEST = 2048, 1000, 50
+B_SOLVER_BATCH = 50
+B_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
+B_FT_CAL = 250  # cal sims of the fine-tuning phases (reference 1,000)
 
 
 def log(msg: str) -> None:
@@ -686,6 +726,386 @@ def phase_small_pretrain_agreement(C, smoke, train):
             raise AssertionError(f"card and CPU pretrain losses disagree: {losses}")
 
 
+# ---------------------------------------------------------------------------
+# Burgers 1D (phases B1-B6): UNet2D, the FD solver, guided DDIM, training
+# ---------------------------------------------------------------------------
+
+def burgers_tolerance_rates(n_samples: int) -> dict:
+    """One cell's worth of each violation rate of an (n, 11, 128) rollout."""
+    return {"point_exceed_ratio (R_p)": 1 / (n_samples * 11 * 128),
+            "time_exceed_ratio (R_t)": 1 / (n_samples * 11),
+            "sample_exceed_ratio (R_s)": 1 / n_samples}
+
+
+def phase_burgers_solver(burgers):
+    """B1: the solver on the card and on the CPU from the same u0 and f (the
+    datagen distributions, B = 50 at 128 cells, 10 chunks of 1,000 steps);
+    ms per rollout at B = 50 and at datagen's batch; kernel launches per
+    Euler step (torch.profiler over a 100-step rollout)."""
+    from safediffcon_torch.solvers.burgers import burgers_solve
+    from safediffcon_torch.tasks.burgers import data as bdata
+
+    rng = np.random.default_rng(10)
+    u0 = torch.as_tensor(bdata._two_gaussian_u0(rng, B_SOLVER_BATCH, 128), dtype=torch.float32)
+    f = torch.as_tensor(bdata._varying_f(rng, B_SOLVER_BATCH, 128, 10), dtype=torch.float32)
+    card = burgers_solve(u0.cuda(), f.cuda())
+    cpu = burgers_solve(u0, f)
+    err, scale = rel_err(card.cpu(), cpu)
+    rollout_ms = cuda_ms(lambda: burgers_solve(u0.cuda(), f.cuda()), reps=2)
+    n_gen = B_N_TRAIN + B_N_CAL + B_N_TEST
+    big_u0 = u0.cuda().repeat(-(-n_gen // B_SOLVER_BATCH), 1)[:n_gen]
+    big_f = f.cuda().repeat(-(-n_gen // B_SOLVER_BATCH), 1, 1)[:n_gen]
+    big_ms = cuda_ms(lambda: burgers_solve(big_u0, big_f), reps=1)
+    steps = 100
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        burgers_solve(u0.cuda(), f.cuda(), T=steps * 1e-4, num_t=10)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = dict(batch=B_SOLVER_BATCH, cells=128, euler_steps=10_000, max_diff=err, max_abs=scale,
+               ms_per_rollout=rollout_ms, datagen_batch=n_gen, ms_per_rollout_datagen=big_ms,
+               launches_per_step=kernels / steps if kernels else "not measured")
+    log("B1 solver " + json.dumps(out))
+    # the same float32 stencil in the same order on both devices
+    if not (torch.isfinite(card).all() and err <= 1e-5 * scale):
+        raise AssertionError(f"Burgers solver: card and CPU differ by {err} (max |u| {scale})")
+    return out
+
+
+def phase_burgers_datagen(burgers):
+    """B2: n_train + n_cal + n_test sims in one solve batch (seed 0)."""
+    path = str(ROOT / "build" / "chip_smoke" / "burgers.npz")
+    t0 = time.perf_counter()
+    burgers.generate_burgers_dataset(path, n_train=B_N_TRAIN, n_cal=B_N_CAL, n_test=B_N_TEST,
+                                     seed=0, solve_batch=4096, device="cuda")
+    seconds = time.perf_counter() - t0
+    data = {s: burgers.BurgersDataset.load(path, s) for s in ("train", "cal", "test")}
+    log(f"B2 datagen: {B_N_TRAIN} + {B_N_CAL} + {B_N_TEST} sims (reference 40,000 train "
+        f"sims, cut to what B5-B6 read) in {seconds:.2f} s, one solve batch")
+    for name, d in data.items():
+        if not (np.isfinite(d.data).all() and d.data.shape[1:] == (16, 128, 3)):
+            raise AssertionError(f"Burgers datagen: {name} split is not finite or misshapen")
+    return data, seconds
+
+
+BURGERS_SMALL_CONF = dict(cal_batch_size=4, num_cal_batch=2, n_cal_samples=8, n_test_samples=4,
+                         test_batch_size=4, ddim_sampling_steps=3, timesteps=100, w_score=5.0,
+                         alpha=0.7)
+
+
+def burgers_small_run(burgers, data, device, draws) -> dict:
+    """A tiny UNet2D (dim 16, seeded weights) on `device` with the given
+    draws: calibrate on 8 cal sims, evaluate 4 test sims; then, from weights
+    whose final x0 estimate of s lies below the clip (so that InfFT's max
+    loss reaches every weight), one InfFT step and one post-training step."""
+    from safediffcon_torch.core.train import make_optimizer
+    from safediffcon_torch.tasks.burgers.pipeline import (
+        infft_step, init_params, make_train_state, weighted_step,
+    )
+
+    sampler_noise, train_noise = draws
+
+    def moved(x):
+        return x.to(device)
+
+    test = burgers.BurgersDataset(data["test"].data[:4], data["test"].u_phys[:4],
+                                  data["test"].f_phys[:4])
+    pipe = burgers.BurgersPipeline(burgers.BurgersConformalConfig(**BURGERS_SMALL_CONF), dim=16,
+                                   dim_mults=(1, 2), device=device)
+    init_params(pipe.model, seed=0)
+    noise = iter([(moved(i), [moved(z) for z in st]) for i, st in sampler_noise])
+    q = float(pipe.calibrate(None, data["cal"].data[:8], 0.0, noise=noise))
+    m = pipe.evaluate(None, test, q, noise=noise)
+    with torch.no_grad():
+        pipe.model.final_conv.weight.mul_(0.01)
+        pipe.model.final_conv.bias[2] = 2.0
+    state = make_train_state(pipe, None, make_optimizer("adamw", 1e-3, betas=(0.9, 0.999)),
+                             0.995, 10)
+    batch = torch.as_tensor(test.data, device=device)
+    infft = float(infft_step(pipe, state, batch, 0.0, noise=next(noise)))
+    post = float(weighted_step(pipe, state, batch, torch.ones(4, device=device),
+                               noise=tuple(moved(x) for x in train_noise)))
+    weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    return dict(q=q, metrics=m, infft_loss=infft, posttrain_loss=post, weights=weights)
+
+
+def phase_burgers_small_agreement(burgers, data):
+    """B3: `burgers_small_run` on the card and on the CPU (whose path the CPU
+    tests hold against the JAX package) with the same draws, float32 without
+    TF32: Q-hat, the metrics, both losses and the weights after the two
+    steps must agree."""
+    gen = torch.Generator().manual_seed(3)
+    shape = (4, 16, 128, 3)
+
+    def sampler_draws():
+        return torch.randn(shape, generator=gen), [torch.randn(shape, generator=gen)
+                                                   for _ in range(2)]
+
+    draws = ([sampler_draws() for _ in range(4)],  # 2 calibrate, 1 evaluate, 1 InfFT
+             (torch.randint(0, 100, (4,), generator=gen), torch.randn(shape, generator=gen)))
+    with tf32_flag(False):
+        results = {device: burgers_small_run(burgers, data, device, draws)
+                   for device in ("cuda", "cpu")}
+    for device, r in results.items():
+        log(f"B3 small input ({device}): Q-hat {r['q']:.6f}, InfFT loss {r['infft_loss']:.6f}, "
+            f"posttrain loss {r['posttrain_loss']:.6f}, metrics "
+            + json.dumps(r["metrics"], sort_keys=True))
+    card, cpu = results["cuda"], results["cpu"]
+    unit = burgers_tolerance_rates(4)
+    # float32 on both sides, sums in other orders: Q and the losses 1e-4,
+    # J 1e-3; a rate may move by one cell across the bound
+    checks = [abs(card["q"] - cpu["q"]) <= 1e-4 * abs(cpu["q"]) + 1e-7,
+              abs(card["infft_loss"] - cpu["infft_loss"]) <= 1e-4 * abs(cpu["infft_loss"]),
+              abs(card["posttrain_loss"] - cpu["posttrain_loss"])
+              <= 1e-4 * abs(cpu["posttrain_loss"]),
+              cpu["infft_loss"] > 0]
+    for name, ref in cpu["metrics"].items():
+        tol = unit[name] + 1e-6 if name in unit else 1e-3 * abs(ref) + 1e-7
+        checks.append(abs(card["metrics"][name] - ref) <= tol)
+    # two AdamW steps of lr 1e-3 from equal weights: within 2 lr, as the CPU
+    # tests hold the port against optax
+    diff = max(float((card["weights"][k] - v).abs().max()) for k, v in cpu["weights"].items())
+    checks.append(diff < 2e-3)
+    log(f"B3 small input: max |card - cpu| of the weights after the two steps {diff:.3e}")
+    if not all(checks):
+        raise AssertionError(f"Burgers small input: card and CPU disagree ({checks})")
+
+
+def unet2d_forward_flops(model, batch: int) -> int:
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.zeros((batch, 16, 128, 3), device="cuda")
+    t = torch.zeros((batch,), dtype=torch.long, device="cuda")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(x, t)
+    return counter.get_total_flops()
+
+
+def profile_forward(model, batch: int, reps: int = 5) -> dict:
+    """torch.profiler over `reps` no-grad UNet2D forwards at `batch`: wall
+    and device (kernel) ms per forward, the device's busy share, kernels per
+    forward, and the kernels that take the most device time."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((batch, 16, 128, 3), generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        model(x, t)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model(x, t)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
+                kernels_per_forward=sum(e.count for e in kernels) / reps,
+                top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3 / reps,
+                          calls=e.count / reps) for e in top])
+
+
+def phase_burgers_serving(burgers, data):
+    """B4: calibrate on the reference's 1000 cal sims and guided evaluate on
+    50 test sims at full width in float32 (default flags), then the same
+    guided sampling in bfloat16 compute."""
+    from safediffcon_torch.tasks.burgers.pipeline import init_params
+
+    ccfg = burgers.BurgersConformalConfig()
+    pipe = burgers.BurgersPipeline(ccfg, device="cuda", **B_MODEL)
+    init_params(pipe.model, seed=0)
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    steps = ccfg.ddim_sampling_steps
+    log(f"B4 serving: UNet2D {B_MODEL}, {n_params} parameters, seeded weights; {ccfg}; "
+        f"calibrate {ccfg.num_cal_batch} x {ccfg.cal_batch_size} sims in chunks of "
+        f"{pipe.cal_chunk}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = float(pipe.calibrate(None, data["cal"].data, 0.0,
+                             generator=torch.Generator(device="cuda").manual_seed(1)))
+    calibrate_s = time.perf_counter() - t0
+    cal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    pipe.phase_seconds = {}
+    t0 = time.perf_counter()
+    metrics = pipe.evaluate(None, data["test"], q,
+                            generator=torch.Generator(device="cuda").manual_seed(2))
+    evaluate_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sampling_s, rollout_s = pipe.phase_seconds["sampling"], pipe.phase_seconds["rollout"]
+
+    pipe16 = burgers.BurgersPipeline(ccfg, device="cuda", compute_dtype="bfloat16", **B_MODEL)
+    pipe16.model.load_state_dict(pipe.model.state_dict())
+    state = torch.as_tensor(data["test"].data, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pred16 = pipe16._sample_test(None, state, q, generator=gen)
+    torch.cuda.synchronize()
+    bf16_s = time.perf_counter() - t0
+    bf16_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    flops = unet2d_forward_flops(pipe.model, B_N_TEST)
+    profiles = {"float32": profile_forward(pipe.model, B_N_TEST),
+                "bfloat16": profile_forward(pipe16.model, B_N_TEST)}
+    for name, prof in profiles.items():
+        log(f"B4 UNet2D forward at B = {B_N_TEST}, {name}: " + json.dumps(prof))
+    out = dict(
+        calibrate_s=calibrate_s, cal_sims=len(data["cal"].data),
+        ms_per_cal_step=1e3 * calibrate_s / (steps * -(-len(data["cal"].data) // pipe.cal_chunk)),
+        evaluate_s=evaluate_s, sampling_s=sampling_s, rollout_s=rollout_s,
+        solver_share=rollout_s / (sampling_s + rollout_s),
+        ms_per_guided_step_fp32=1e3 * sampling_s / steps,
+        guided_steps_per_s_fp32=steps / sampling_s,
+        ms_per_guided_step_bf16=1e3 * bf16_s / steps, guided_steps_per_s_bf16=steps / bf16_s,
+        peak_gb_calibrate=cal_peak_gb, peak_gb_evaluate=peak_gb, peak_gb_bf16=bf16_peak_gb,
+        forward_gflop=flops / 1e9,
+        step_bound_ms_tf32=1e3 * flops / TF32_FLOPS_PER_S,
+        step_bound_ms_bf16=1e3 * flops / BF16_FLOPS_PER_S,
+        forward_profile={k: {m: v[m] for m in ("wall_ms", "device_ms", "busy_share",
+                                                  "kernels_per_forward")}
+                         for k, v in profiles.items()},
+        q=q, flags=dict(cudnn_tf32=torch.backends.cudnn.allow_tf32,
+                        matmul_tf32=torch.backends.cuda.matmul.allow_tf32))
+    log("B4 serving " + json.dumps(out, sort_keys=True))
+    log("B4 metrics (float32) " + json.dumps(metrics, sort_keys=True))
+    values = [q, *metrics.values()]
+    if not (all(math.isfinite(v) for v in values) and bool(torch.isfinite(pred16).all())
+            and tuple(pred16.shape) == (B_N_TEST, 16, 128, 3)):
+        raise AssertionError(f"Burgers serving: non-finite result: Q {q}, metrics {metrics}")
+    return out
+
+
+def phase_burgers_pretrain(burgers, data):
+    """B5: BurgersPretrainConfig defaults for B_PRETRAIN_STEPS steps after one
+    warm-up step, from seeded weights (cfg.seed); the loop's set-up, timed
+    alone, is taken off the steps' time."""
+    from safediffcon_torch.tasks.burgers.pipeline import build_model, init_params
+
+    cfg = dataclasses.replace(burgers.BurgersPretrainConfig(), **B_MODEL)
+    train = data["train"]
+    init = init_params(build_model(cfg.dim, cfg.dim_mults, device="cuda"), seed=cfg.seed)
+    init = {k: v.detach() for k, v in init.state_dict().items()}
+    burgers.pretrain(cfg, train, num_steps=1, params=init, device="cuda")  # warm-up
+    # the set-up (model, optimizer and EMA state) alone: a deadline in the
+    # past stops the loop before its first step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    burgers.pretrain(cfg, train, num_steps=B_PRETRAIN_STEPS, params=init, device="cuda",
+                     deadline=0.0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    state = burgers.pretrain(cfg, train, num_steps=B_PRETRAIN_STEPS, params=init,
+                             device="cuda", losses=losses)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0 - setup_s
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    ema_moved = max(float((state.ema_params[k] - init[k]).abs().max()) for k in init)
+    out = dict(steps=B_PRETRAIN_STEPS, batch=cfg.batch_size, setup_s=setup_s,
+               seconds=seconds, s_per_step=seconds / B_PRETRAIN_STEPS, peak_gb=peak_gb,
+               losses=losses, ema_moved=ema_moved)
+    log(f"B5 pretrain: {cfg}; " + json.dumps(out))
+    if not (all(math.isfinite(v) for v in losses) and len(losses) == B_PRETRAIN_STEPS
+            and state.step == B_PRETRAIN_STEPS and ema_moved > 0):
+        raise AssertionError(f"Burgers pretrain: {out}")
+    return {k: v.clone() for k, v in state.ema_params.items()}, out
+
+
+def phase_burgers_finetune(burgers, data, params):
+    """B6: posttrain (2 epochs of 2 steps at batch 380, one recalibration),
+    then one evaluate; InfFT (InfFT_iters 2: one step at B = 50, calibrate,
+    evaluate); both from the pretrained EMA, calibrating on B_FT_CAL sims.
+    InfFT's loss MSE(relu(max s + Q - bound^2), 0) is 0 with no gradient
+    when every predicted max lies below bound^2 - Q; one more step at Q = 1
+    then runs."""
+    from safediffcon_torch.tasks.burgers.pipeline import infft_step, make_train_state
+    from safediffcon_torch.core.train import make_optimizer
+
+    cut = dict(cal_batch_size=B_FT_CAL, num_cal_batch=1)
+    cal, test, train = data["cal"], data["test"], data["train"]
+    out = {}
+    for name in ("posttrain", "infft"):
+        if name == "posttrain":
+            base = burgers.BurgersPostTrainConfig()
+            cfg = dataclasses.replace(base, finetune_epoch=2, finetune_steps=2,
+                                      conformal=dataclasses.replace(base.conformal, **cut))
+        else:
+            base = burgers.BurgersInfFTConfig()
+            cfg = dataclasses.replace(base, InfFT_iters=2,
+                                      conformal=dataclasses.replace(base.conformal, **cut))
+        pipe = burgers.BurgersPipeline(cfg.conformal, device="cuda", **B_MODEL)
+        cal_s, marks = [], [time.perf_counter()]
+        calibrate = pipe.calibrate
+
+        def timed_calibrate(*a, **kw):
+            t = time.perf_counter()
+            q = calibrate(*a, **kw)
+            torch.cuda.synchronize()
+            cal_s.append(time.perf_counter() - t)
+            return q
+
+        def on_epoch(rec):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        pipe.calibrate = timed_calibrate
+        pipe.phase_seconds = {}
+        torch.cuda.reset_peak_memory_stats()
+        if name == "posttrain":
+            state, q, hist = burgers.posttrain(cfg, pipe, params, train, cal, test,
+                                               on_epoch=on_epoch)
+            t0 = time.perf_counter()
+            final = pipe.evaluate(state.ema_params, test, q,
+                                  generator=torch.Generator(device="cuda").manual_seed(3))
+            evaluate_s = time.perf_counter() - t0
+        else:
+            state, q, hist = burgers.inference_finetune(cfg, pipe, params, cal, test,
+                                                        on_epoch=on_epoch)
+            final = hist[-1]["eval"]
+            evaluate_s = pipe.phase_seconds["sampling"] + pipe.phase_seconds["rollout"]
+        changed = max(float((p.detach() - params[k]).abs().max())
+                      for k, p in state.model.named_parameters())
+        rec = dict(epochs=[dict(epoch=r["epoch"], loss=r["loss"], quantile=r["quantile"],
+                                seconds=b - a) for r, a, b in zip(hist, marks, marks[1:])],
+                   calibrate_s=cal_s, evaluate_s=evaluate_s,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, max_weight_change=changed,
+                   metrics=final)
+        if name == "posttrain":
+            rec["batch"] = cfg.finetune_batch_size
+        log(f"B6 {name}: " + json.dumps(rec, sort_keys=True))
+        values = [q, *final.values(), *(r["loss"] for r in hist)]
+        if not (all(math.isfinite(float(v)) for v in values) and len(hist) == (
+                cfg.finetune_epoch if name == "posttrain" else cfg.InfFT_iters - 1)):
+            raise AssertionError(f"Burgers {name}: {rec}")
+        if name == "posttrain" and not changed > 0:
+            raise AssertionError("Burgers posttrain left the weights unchanged")
+        if name == "infft" and hist[0]["loss"] == 0.0:
+            tx = make_optimizer("adamw", cfg.finetune_lr, weight_decay=cfg.weight_decay,
+                                betas=(0.9, 0.999), max_grad_norm=cfg.max_grad_norm)
+            st = make_train_state(pipe, params, tx, cfg.ema_decay, cfg.ema_update_every)
+            batch = torch.as_tensor(test.data, device="cuda")
+            t0 = time.perf_counter()
+            loss = float(infft_step(pipe, st, batch, 1.0,
+                                    generator=torch.Generator(device="cuda").manual_seed(7)))
+            rec["step_at_q1"] = dict(seconds=time.perf_counter() - t0, loss=loss)
+            log(f"B6 InfFT step at Q = 1: {json.dumps(rec['step_at_q1'])}")
+            if not (math.isfinite(loss) and loss > 0):
+                raise AssertionError(f"Burgers InfFT step at Q = 1: loss {loss}")
+        out[name] = rec
+        del pipe, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -695,6 +1115,7 @@ def main() -> int:
     from safediffcon_torch.ops import conv3d_mxu as C
     from safediffcon_torch.ops import pressure_cg as K
     from safediffcon_torch.solvers import smoke as S
+    import safediffcon_torch.tasks.burgers as burgers
     import safediffcon_torch.tasks.smoke as smoke
 
     card = card_line()
@@ -722,6 +1143,24 @@ def main() -> int:
     ft_times = phase_finetune(K, smoke, data, ema)
     log(f"training phase times {json.dumps(dict(train_times, **ft_times), sort_keys=True)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
+
+    # Burgers: no kernel of the TPU package lies on its path; K1 and K2 must
+    # stay idle through it
+    K.pressure_cg_cuda.launches = C.conv3d_fused_cuda.launches = 0
+    C.conv3d_fused_simt_cuda.launches = 0
+    t_burgers = time.perf_counter()
+    b_times = dict(solver=phase_burgers_solver(burgers))
+    b_data, b_times["datagen_s"] = phase_burgers_datagen(burgers)
+    phase_burgers_small_agreement(burgers, b_data)
+    b_times["serving"] = phase_burgers_serving(burgers, b_data)
+    b_ema, b_times["pretrain"] = phase_burgers_pretrain(burgers, b_data)
+    b_times.update(phase_burgers_finetune(burgers, b_data, b_ema))
+    idle = (K.pressure_cg_cuda.launches, C.conv3d_fused_cuda.launches,
+            C.conv3d_fused_simt_cuda.launches)
+    log(f"Burgers phases B1-B6 in {time.perf_counter() - t_burgers:.1f} s; K1 / K2 / K2 SIMT "
+        f"launches during them {idle}; total {time.perf_counter() - t_start:.1f} s")
+    if any(idle):
+        raise AssertionError(f"a TPU-kernel counterpart ran on the Burgers path: {idle}")
 
     kernels = [dict(
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",

@@ -28,6 +28,12 @@ class DiffusionConfig:
     beta_schedule: str = "sigmoid"
     ddim_eta: float = 0.0
 
+    @property
+    def is_ddim(self) -> bool:
+        """Whether `core.sampling.sample` takes the DDIM sampler: fewer
+        sampling steps than diffusion steps."""
+        return self.sampling_timesteps is not None and self.sampling_timesteps < self.timesteps
+
 
 def q_sample(sched: DiffusionSchedule, x_start, t, noise):
     """Diffuse x_start to timestep t (reference: 1D/model/diffusion.py:629-636)."""

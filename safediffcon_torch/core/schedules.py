@@ -1,7 +1,9 @@
-"""Diffusion noise schedules and precomputed buffers.
+"""Diffusion noise schedules, precomputed buffers and guidance step sizes.
 
 Port of `safediffcon_tpu/core/schedules.py`: the tables are built once in
 float64 numpy, exactly as there, and stored as float32 tensors on a device.
+The guidance step-size schedulers (`get_J_scheduler`) map a sampler's
+integer timestep to a float32 step size read from the same kind of table.
 """
 from __future__ import annotations
 
@@ -35,6 +37,24 @@ class DiffusionSchedule(NamedTuple):
         return int(self.betas.shape[0])
 
 
+def linear_beta_schedule(timesteps: int) -> np.ndarray:
+    """Linear schedule scaled so that 1000-step behavior is preserved."""
+    scale = 1000 / timesteps
+    beta_start = scale * 0.0001
+    beta_end = scale * 0.02
+    return np.linspace(beta_start, beta_end, timesteps, dtype=np.float64)
+
+
+def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
+    """Cosine schedule (Nichol & Dhariwal); the Burgers task's default."""
+    steps = timesteps + 1
+    x = np.linspace(0, timesteps, steps, dtype=np.float64)
+    alphas_cumprod = np.cos(((x / timesteps) + s) / (1 + s) * np.pi * 0.5) ** 2
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = 1 - (alphas_cumprod[1:] / alphas_cumprod[:-1])
+    return np.clip(betas, 0, 0.999)
+
+
 def sigmoid_beta_schedule(
     timesteps: int, start: float = -3, end: float = 3, tau: float = 1
 ) -> np.ndarray:
@@ -51,9 +71,11 @@ def sigmoid_beta_schedule(
     return np.clip(betas, 0, 0.999)
 
 
-# the smoke task's schedule; "linear" and "cosine" come with the Burgers and
-# tokamak slices
-_BETA_SCHEDULES = {"sigmoid": sigmoid_beta_schedule}
+_BETA_SCHEDULES = {
+    "linear": linear_beta_schedule,
+    "cosine": cosine_beta_schedule,
+    "sigmoid": sigmoid_beta_schedule,
+}
 
 
 def make_schedule(
@@ -64,7 +86,7 @@ def make_schedule(
 ) -> DiffusionSchedule:
     """Build the full buffer set for a diffusion process on `device`."""
     if beta_schedule not in _BETA_SCHEDULES:
-        raise ValueError(f"beta schedule {beta_schedule!r} is not ported")
+        raise ValueError(f"unknown beta schedule {beta_schedule!r}")
     betas = _BETA_SCHEDULES[beta_schedule](timesteps)
 
     alphas = 1.0 - betas
@@ -117,3 +139,52 @@ def extract(buf: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     shape them (B, 1, ..., 1) for broadcasting against an ndim-tensor."""
     out = buf[t]
     return out.reshape(out.shape[0], *((1,) * (ndim - 1)))
+
+
+# Guidance step-size schedulers (reference: 1D/model/model_utils.py:91-180):
+# functions of the sampler's integer timestep that scale the guidance
+# gradient, each read from a float32 table as in JAX.
+
+def _table_scheduler(table: np.ndarray):
+    table = np.asarray(table, dtype=np.float32)
+
+    def scheduler(t: int) -> float:
+        return float(table[t])
+
+    return scheduler
+
+
+def cosine_beta_J_schedule(timesteps: int = 1000):
+    """beta(t) of the cosine schedule, used as an increasing step size."""
+    return _table_scheduler(cosine_beta_schedule(timesteps))
+
+
+def sigmoid_J_schedule(timesteps: int = 1000):
+    return _table_scheduler(sigmoid_beta_schedule(timesteps))
+
+
+def sigmoid_flip_J_schedule(timesteps: int = 1000):
+    return _table_scheduler(sigmoid_beta_schedule(timesteps)[::-1])
+
+
+def plain_cosine_J_schedule(s: float = 0.0, timesteps: int = 1000):
+    """Flipped plain cosine: t = 0 gets the smallest step (reference:
+    1D/model/model_utils.py:173-180 plain_cosine_schedule)."""
+    x = np.linspace(0, timesteps, timesteps + 1, dtype=np.float64)
+    return _table_scheduler(np.cos((x + s) / (timesteps + s))[::-1])
+
+
+def get_J_scheduler(name):
+    """Scheduler name -> callable t -> step size (1 for None / "constant")
+    (reference: 1D/model/model_utils.py:160-180 get_scheduler)."""
+    if name is None or name == "constant":
+        return lambda t: 1.0
+    factories = {
+        "cosine": cosine_beta_J_schedule,
+        "plain_cosine": plain_cosine_J_schedule,
+        "sigmoid": sigmoid_J_schedule,
+        "sigmoid_flip": sigmoid_flip_J_schedule,
+    }
+    if name not in factories:
+        raise ValueError(f"unknown J scheduler {name!r}")
+    return factories[name]()

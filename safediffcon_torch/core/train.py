@@ -1,14 +1,19 @@
-"""Optimizer, train state with EMA, gradient accumulation, and the shared
-pretrain loop.
+"""Optimizers, learning-rate schedules, train state with EMA, gradient
+accumulation, and the shared pretrain loop.
 
-Port of `safediffcon_tpu/core/train.py` (reference: 1D/model/trainer.py:21-210)
-for the smoke training path:
+Port of `safediffcon_tpu/core/train.py` (reference: 1D/model/trainer.py:21-210,
+1D/posttrain/post_train.py:52-104):
 
-  - `make_optimizer("adam", ...)`: optax's `adam` (b1, b2, eps 1e-8) after an
-    optional `clip_by_global_norm`, written to optax's formulas (the learning
-    rate schedule sees the update count before its increment; the clip scale
-    is max_norm / |g| with no epsilon, where `clip_grad_norm_` adds 1e-6).
-    It updates the parameters in place.
+  - `make_optimizer("adam" | "adamw", ...)`: optax's `adam` (b1, b2, eps
+    1e-8), or `adamw` (the same plus weight_decay * param, before the
+    learning rate), after an optional `clip_by_global_norm`, written to
+    optax's formulas (the learning rate schedule sees the update count
+    before its increment; bias corrections are float32 powers; the clip
+    scale is max_norm / |g| with no epsilon, where `clip_grad_norm_` adds
+    1e-6). It updates the parameters in place. "sgd" is not ported.
+  - `periodic_cosine_schedule`, `warmup_cosine_schedule`: the closed forms
+    of torch's CosineAnnealingLR and of the posttrain SequentialLR, in
+    float32 as JAX computes them.
   - `TrainState`: the step, the model (whose parameters are the trained
     weights), the optimizer state and an EMA of the weights (0.995, applied
     when the new step count is a multiple of 10).
@@ -30,6 +35,38 @@ import torch
 from torch import nn
 
 Schedule = Union[float, Callable[[int], float]]
+
+
+# ---------------------------------------------------------------------------
+# LR schedules
+# ---------------------------------------------------------------------------
+
+def periodic_cosine_schedule(base_lr: float, t_max: int, eta_min: float = 0.0):
+    """torch.optim.CosineAnnealingLR closed form, periodic past t_max
+    (reference: 1D/model/trainer.py:81), in float32 as JAX computes it."""
+    f = np.float32
+
+    def schedule(step: int) -> float:
+        cos = np.cos(f(np.pi) * f(step) / f(t_max))
+        return float(f(eta_min) + f(base_lr - eta_min) * (f(1) + cos) / f(2))
+
+    return schedule
+
+
+def warmup_cosine_schedule(base_lr: float, warmup_steps: int, cosine_t_max: int,
+                           eta_min: float = 1e-6):
+    """Linear warmup, then a cosine anneal whose step count restarts at the
+    warmup milestone: SequentialLR(LambdaLR(warmup), CosineAnnealingLR(T_max))
+    (reference: 1D/posttrain/post_train.py:72-81), in float32."""
+    f = np.float32
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return float(f(base_lr) * f(step) / f(max(warmup_steps, 1)))
+        cos = np.cos(f(np.pi) * f(step - warmup_steps) / f(cosine_t_max))
+        return float(f(eta_min) + f(base_lr - eta_min) * (f(1) + cos) / f(2))
+
+    return schedule
 
 
 # ---------------------------------------------------------------------------
@@ -56,13 +93,15 @@ class AdamState:
 
 class Adam:
     """optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, b1, b2)), or
-    adam alone when max_grad_norm is 0. `lr` is a float or a schedule of the
-    update count."""
+    adam alone when max_grad_norm is 0; with weight_decay > 0 optax's adamw,
+    whose update adds weight_decay * param to Adam's before the learning
+    rate. `lr` is a float or a schedule of the update count."""
 
     def __init__(self, lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 max_grad_norm: float = 0.0):
+                 max_grad_norm: float = 0.0, weight_decay: float = 0.0):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.max_grad_norm = max_grad_norm
+        self.weight_decay = weight_decay
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
         return AdamState(0, [torch.zeros_like(p) for p in params],
@@ -94,17 +133,20 @@ class Adam:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(state.mu, bc1)
         torch._foreach_div_(upd, denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(list(params), self.weight_decay))
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(list(params), upd)
 
 
-def make_optimizer(kind: str = "adam", lr: Schedule = 1e-5, betas=(0.9, 0.99),
-                   max_grad_norm: float = 1.0) -> Adam:
-    """The JAX factory's "adam"; "adamw" and "sgd" are not on the smoke
-    training path and are not ported yet."""
-    if kind == "adam":
-        return Adam(lr, b1=betas[0], b2=betas[1], max_grad_norm=max_grad_norm)
-    if kind in ("adamw", "sgd"):
+def make_optimizer(kind: str = "adam", lr: Schedule = 1e-5, weight_decay: float = 1e-4,
+                   betas=(0.9, 0.99), max_grad_norm: float = 1.0) -> Adam:
+    """The JAX factory's "adam" and "adamw" (weight_decay is used by "adamw"
+    only); "sgd" is on no ported path and is not ported yet."""
+    if kind in ("adam", "adamw"):
+        return Adam(lr, b1=betas[0], b2=betas[1], max_grad_norm=max_grad_norm,
+                    weight_decay=weight_decay if kind == "adamw" else 0.0)
+    if kind == "sgd":
         raise NotImplementedError(f"optimizer {kind!r} is not ported yet")
     raise ValueError(f"unknown optimizer {kind!r}")
 

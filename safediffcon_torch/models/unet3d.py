@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from safediffcon_torch.models.layers import ChanLayerNorm, TimeMLP
+from safediffcon_torch.models.layers import GroupNormCL, PreNormResidual, TimeMLP
 from safediffcon_torch.ops.conv3d_mxu import conv3d_fused_fn
 
 ATTN_IMPLS = ("heads", "packed")
@@ -117,24 +117,6 @@ class ConvTransposeCL(nn.Module):
         y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w, self.bias,
                                stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
-
-
-class GroupNormCL(nn.Module):
-    """flax `nn.GroupNorm` (epsilon 1e-5) over the trailing channel axis."""
-
-    def __init__(self, groups: int, dim: int, eps: float = 1e-5):
-        super().__init__()
-        self.groups = groups
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x):
-        b, c = x.shape[0], x.shape[-1]
-        g = x.reshape(b, -1, self.groups, c // self.groups)
-        var, mean = torch.var_mean(g, dim=(1, 3), keepdim=True, unbiased=False)
-        g = (g - mean) * torch.rsqrt(var + self.eps)
-        return g.reshape(x.shape) * self.weight + self.bias
 
 
 class TemporalAttention(nn.Module):
@@ -287,18 +269,6 @@ class ResnetBlock3D(nn.Module):
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x
-
-
-class PreNormResidual(nn.Module):
-    """x + fn(ChanLayerNorm(x)) (`_PreNormResidual3D`)."""
-
-    def __init__(self, dim: int, fn: nn.Module):
-        super().__init__()
-        self.norm = ChanLayerNorm(dim)
-        self.fn = fn
-
-    def forward(self, x, **kw):
-        return self.fn(self.norm(x), **kw) + x
 
 
 class UNet3D(nn.Module):

@@ -1,0 +1,560 @@
+"""End-to-end pipelines for the 1D Burgers task: pretraining, conformal
+calibration, post-training, inference-time fine-tuning (InfFT), evaluation.
+
+Port of `safediffcon_tpu/tasks/burgers/pipeline.py` (reference:
+1D/model/trainer.py:150-210, 1D/posttrain/post_train.py:25-470,
+1D/inference/inference_ft.py:26-433): `build_model`, `init_params`,
+`BurgersPipeline` (`calibrate`, `reweights`, `evaluate`), `pretrain`,
+`posttrain` and `inference_finetune`, with the steps they take
+(`weighted_step`, `infft_step`) exposed.
+
+Weights are passed as `params`, a state_dict of the UNet2D (the pipeline
+runs its model on them through `torch.func.functional_call`), or None for
+the pipeline model's own weights; load flax weights with
+`models.convert.load_flax_params` or `flax_to_state_dict`. Random draws come
+from explicit `torch.Generator`s; `noise=` hands in the draws instead, in the
+order the code consumes them (each sampler call's (init_noise,
+step_noise), each training step's (t, noise)), which is how the parity tests
+replay the JAX key chain.
+
+Not ported yet (they raise): two-model composed sampling (`two_model`), the
+w-only prior (`model_w`), `sampler="dpm"`, `steps_per_call > 1`, and the
+`*_resilient` wrappers of the JAX module (TPU worker-fault recovery).
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import logging
+import math
+import time
+from typing import Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from safediffcon_torch.core.conformal import normalize_weights, weighted_quantile
+from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
+from safediffcon_torch.core.sampling import ddim_sample, sample
+from safediffcon_torch.core.schedules import get_J_scheduler, make_schedule
+from safediffcon_torch.core.train import (
+    TrainState,
+    accumulated_grads,
+    make_optimizer,
+    periodic_cosine_schedule,
+    run_train_loop,
+    warmup_cosine_schedule,
+)
+from safediffcon_torch.models.layers import Conv2dCL, Linear, lecun_normal_
+from safediffcon_torch.models.unet2d import UNet2D
+from safediffcon_torch.tasks.burgers.config import (
+    BurgersConformalConfig,
+    BurgersInfFTConfig,
+    BurgersPostTrainConfig,
+    BurgersPretrainConfig,
+)
+from safediffcon_torch.tasks.burgers.data import BurgersDataset
+from safediffcon_torch.tasks.burgers.metrics import control_trajectories, evaluate_samples
+from safediffcon_torch.tasks.burgers.task import (
+    COND_IDX,
+    NT,
+    SCALER,
+    BurgersConditioner,
+    BurgersTaskConfig,
+    conformal_score,
+    guidance_grad_fn,
+    infft_loss,
+    shift_weights,
+    train_conditioner,
+)
+
+log = logging.getLogger(__name__)
+
+Params = Optional[Mapping[str, torch.Tensor]]
+# One sampler call's noise: (init_noise, [noise of each stochastic step]).
+Noise = Tuple[torch.Tensor, list]
+# One training step's draws: (timesteps (B,), noise like the batch).
+TrainNoise = Tuple[torch.Tensor, torch.Tensor]
+
+
+def build_model(dim=128, dim_mults=(1, 2, 4, 8), groups=1, compute_dtype=None,
+                device="cuda") -> UNet2D:
+    return UNet2D(dim=dim, dim_mults=dim_mults, channels=3, resnet_block_groups=groups,
+                  compute_dtype=compute_dtype).to(device)
+
+
+@torch.no_grad()
+def init_params(model: UNet2D, seed: int = 0) -> UNet2D:
+    """Seeded init with flax's defaults: lecun-normal kernels, zero biases,
+    unit norm scales. The draws come from a CPU generator, so a seed gives
+    the same weights on every device."""
+    gen = torch.Generator().manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, (Linear, Conv2dCL)):
+            w = module.weight
+            lecun_normal_(w, w[0].numel(), gen)
+            if module.bias is not None:
+                module.bias.zero_()
+    return model
+
+
+class BurgersPipeline:
+    """Calibration, guided sampling and solver evaluation for the Burgers
+    task; the state the fine-tuning phases share."""
+
+    def __init__(
+        self,
+        conf_cfg: BurgersConformalConfig,
+        dim: int = 128,
+        dim_mults=(1, 2, 4, 8),
+        groups: int = 1,
+        compute_dtype: Optional[str] = None,
+        # calibration sub-batch; scores and weights are per sample, so any
+        # chunking gives the same Q-hat
+        cal_chunk: Optional[int] = 50,
+        two_model: bool = False,
+        device="cuda",
+    ):
+        if conf_cfg.sampler != "ddim":
+            raise NotImplementedError(f"sampler {conf_cfg.sampler!r} is not ported yet")
+        if two_model:
+            raise NotImplementedError("two-model composed sampling is not ported yet")
+        self.ccfg = conf_cfg
+        self.device = torch.device(device)
+        self.cal_chunk = cal_chunk
+        self.task_cfg = BurgersTaskConfig(
+            u_bound=conf_cfg.u_bound,
+            use_max_safety=conf_cfg.use_max_safety,
+            w_score=conf_cfg.w_score,
+            alpha=conf_cfg.alpha,
+        )
+        self.model = build_model(dim, dim_mults, groups, compute_dtype, device=device).eval()
+        self.sched = make_schedule(conf_cfg.timesteps, "cosine", device=device)
+        self.diff_cfg = DiffusionConfig(
+            timesteps=conf_cfg.timesteps,
+            sampling_timesteps=conf_cfg.ddim_sampling_steps,
+            ddim_eta=conf_cfg.ddim_eta,
+            beta_schedule="cosine",
+        )
+        self.j_scheduler = get_J_scheduler(conf_cfg.J_scheduler)
+        # seconds per phase of `_evaluate` ("sampling", "rollout"), summed
+        # over calls, when set to a dict; each phase then ends in a sync
+        self.phase_seconds: Optional[Dict[str, float]] = None
+
+    def apply_fn(self, params: Params = None):
+        """The denoiser (x, t) -> output on `params` (None: the model's own)."""
+        if params is None:
+            return self.model
+        return lambda x, t: functional_call(self.model, params, (x, t))
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        if self.phase_seconds is None:
+            yield
+            return
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    def _sampler_kw(self, noise: Optional[Iterator], generator) -> dict:
+        if noise is None:
+            return dict(generator=generator)
+        init_noise, step_noise = next(noise)
+        return dict(init_noise=init_noise, step_noise=step_noise)
+
+    def _generator(self, generator):
+        return generator or torch.Generator(device=self.device).manual_seed(0)
+
+    # ---- conformal calibration -------------------------------------------
+
+    @torch.no_grad()
+    def _cal_batch(self, params: Params, state, Q, **sampler_kw):
+        """One calibration batch: sample conditioned on the ground-truth
+        control, return (scores, weights) (reference:
+        1D/posttrain/conformal.py:43-88)."""
+        tc = self.task_cfg
+        cond = BurgersConditioner(u0=state[:, 0, :, 0], uT=state[:, COND_IDX, :, 0],
+                                  w=state[:, :, :, 1])
+        out = sample(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
+                     cond=cond, **sampler_kw)
+        scores = conformal_score(out, state, tc.use_max_safety)
+        weights = shift_weights(state, Q, tc)
+        if self.ccfg.InfFT_Q is not None:
+            # composite InfFT weight: a second factor at the fixed InfFT_Q
+            # (reference: 1D/inference/conformal.py:67-73)
+            weights = weights * shift_weights(state, self.ccfg.InfFT_Q, tc)
+        return scores, weights
+
+    def calibrate(self, params: Params, cal_data: np.ndarray, Q,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[Iterator[Noise]] = None) -> torch.Tensor:
+        """Q-hat over `num_cal_batch` batches of `cal_batch_size` of the
+        calibration split, sampled in chunks of `cal_chunk` (reference:
+        1D/posttrain/post_train.py:353-365)."""
+        generator = self._generator(generator)
+        bs = self.ccfg.cal_batch_size
+        chunk = min(self.cal_chunk or bs, bs)
+        n = len(cal_data)
+        scores, weights = [], []
+        for i in range(self.ccfg.num_cal_batch):
+            for lo in range(0, bs, chunk):
+                base = i * bs + lo
+                if base >= n:  # cal set smaller than the configured batches
+                    break
+                state = torch.as_tensor(cal_data[base : min(base + chunk, n)],
+                                        device=self.device)
+                s, w = self._cal_batch(params, state, Q, **self._sampler_kw(noise, generator))
+                scores.append(s)
+                weights.append(w)
+        weights = normalize_weights(torch.cat(weights))
+        return weighted_quantile(weights * torch.cat(scores), self.ccfg.alpha)
+
+    # ---- reweights over a split ------------------------------------------
+
+    @torch.no_grad()
+    def reweights(self, data: np.ndarray, Q, batch_size: int = 2048) -> np.ndarray:
+        """Normalized per-sample shift weights exp(-guidance(x, Q)) of a split."""
+        ws = [shift_weights(torch.as_tensor(data[lo : lo + batch_size], device=self.device),
+                            Q, self.task_cfg)
+              for lo in range(0, len(data), batch_size)]
+        return normalize_weights(torch.cat(ws)).cpu().numpy()
+
+    # ---- sampling and evaluation -----------------------------------------
+
+    def _sample_test(self, params: Params, state, Q, guided: bool = True,
+                     final_step_grad: bool = False, **sampler_kw) -> torch.Tensor:
+        """Guided sampling conditioned on (u0, uT); returns the UNSCALED
+        prediction (reference: 1D/inference/inference_ft.py:316-347)."""
+        cond = BurgersConditioner(u0=state[:, 0, :, 0], uT=state[:, COND_IDX, :, 0])
+        g = guidance_grad_fn(Q, self.task_cfg) if guided else None
+        out = ddim_sample(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
+                          cond=cond, guidance_grad=g, j_scheduler=self.j_scheduler,
+                          final_step_grad=final_step_grad, **sampler_kw)
+        return out * SCALER
+
+    @torch.no_grad()
+    def _evaluate(self, params: Params, state, u_target, Q, guided=True,
+                  **sampler_kw) -> Dict[str, torch.Tensor]:
+        """Sample -> solver rollout -> metrics (reference:
+        1D/posttrain/post_train.py:313-351)."""
+        with self._phase("sampling"):
+            pred = self._sample_test(params, state, Q, guided=guided, **sampler_kw)
+        with self._phase("rollout"):
+            controlled = control_trajectories(pred, NT)
+        return evaluate_samples(pred, controlled, u_target, self.task_cfg.u_bound)
+
+    def evaluate(self, params: Params, test: BurgersDataset, Q,
+                 generator: Optional[torch.Generator] = None, guided: bool = True,
+                 noise: Optional[Iterator[Noise]] = None) -> Dict[str, float]:
+        """Metrics of guided sampling over the whole test split, one batch."""
+        state = torch.as_tensor(test.data, device=self.device)
+        u_target = torch.as_tensor(test.u_phys, device=self.device)
+        metrics = self._evaluate(params, state, u_target, Q, guided=guided,
+                                 **self._sampler_kw(noise, self._generator(generator)))
+        return {k: float(v) for k, v in metrics.items()}
+
+
+# ---------------------------------------------------------------------------
+# Pretraining
+# ---------------------------------------------------------------------------
+
+def pretrain(
+    cfg: BurgersPretrainConfig,
+    train_data: BurgersDataset,
+    num_steps: Optional[int] = None,
+    log_every: int = 500,
+    checkpoint_dir: Optional[str] = None,
+    params: Params = None,
+    resume_dir: Optional[str] = None,
+    steps_per_call: int = 1,
+    model_w: bool = False,
+    deadline: Optional[float] = None,
+    device="cuda",
+    noise: Optional[Iterator[TrainNoise]] = None,
+    losses: Optional[list] = None,
+) -> TrainState:
+    """Train the Burgers UNet2D with the denoising loss (reference:
+    1D/model/trainer.py:150-210): Adam, the periodic cosine learning rate,
+    global-norm clip, EMA. Returns the TrainState (its `model` holds the
+    trained weights, `ema_params` the EMA).
+
+    `params` (a state_dict) starts from given weights, else `init_params`
+    seeds them from cfg.seed. `resume_dir` restores step, weights, Adam
+    moments and EMA from its latest checkpoint. Timesteps and noise come from
+    a generator seeded with cfg.seed, or from `noise`, which yields each
+    micro-batch's (t, noise) in order. `losses`: see `run_train_loop`."""
+    if model_w:
+        raise NotImplementedError("the w-only prior model (model_w) is not ported yet")
+    num_steps = num_steps or cfg.train_num_steps
+    model = build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups, cfg.compute_dtype,
+                        device=device)
+    if params is None:
+        init_params(model, seed=cfg.seed)
+    else:
+        model.load_state_dict(params)
+    sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective, device=device)
+    dcfg = DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective,
+                           beta_schedule=cfg.beta_schedule)
+    cond = train_conditioner()
+
+    lr = periodic_cosine_schedule(cfg.lr, cfg.cosine_t_max)
+    tx = make_optimizer("adam", lr, betas=cfg.adam_betas, max_grad_norm=cfg.max_grad_norm)
+    state = TrainState.create(model, tx, cfg.ema_decay, cfg.ema_update_every)
+    start_step = 0
+    if resume_dir is not None:
+        from safediffcon_torch.utils.checkpoint import latest_step, load_checkpoint
+
+        last = latest_step(resume_dir)
+        if last is not None:
+            state.load_state_dict(load_checkpoint(resume_dir, last))
+            start_step = state.step
+            log.info("resumed from %s step %d", resume_dir, start_step)
+
+    accum = max(cfg.gradient_accumulate_every, 1)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    params_list = list(model.parameters())
+
+    def loss_fn(i, batch):
+        t, n = next(noise) if noise is not None else draw_t_noise(dcfg, batch, generator)
+        return p_losses(model, sched, dcfg, batch, t, n, cond).mean()
+
+    def step_fn(state, batch):
+        # batch: (accum * batch_size, ...) -> (accum, batch_size, ...)
+        batches = batch.reshape(accum, -1, *batch.shape[1:])
+        loss, grads = accumulated_grads(loss_fn, params_list, batches)
+        state.apply_gradients(grads)
+        return loss
+
+    return run_train_loop(
+        step_fn, state, train_data.data,
+        batch_take=cfg.batch_size * accum, num_steps=num_steps, start_step=start_step,
+        seed=cfg.seed, steps_per_call=steps_per_call, log_every=log_every,
+        checkpoint_every=cfg.checkpoint_every, checkpoint_dir=checkpoint_dir, logger=log,
+        log_prefix="burgers pretrain", deadline=deadline, losses=losses,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Fine-tuning steps shared by posttrain and InfFT
+# ---------------------------------------------------------------------------
+
+def make_train_state(pipeline: BurgersPipeline, params: Params, tx, ema_decay: float,
+                     ema_update_every: int) -> TrainState:
+    """A TrainState on a copy of the pipeline's model holding `params` (None:
+    the model's own weights); the pipeline's model is left as it is."""
+    net = copy.deepcopy(pipeline.model).train()
+    if params is not None:
+        net.load_state_dict(params)
+    return TrainState.create(net, tx, ema_decay, ema_update_every)
+
+
+def weighted_step(pipeline: BurgersPipeline, state: TrainState, batch: torch.Tensor,
+                  w: torch.Tensor, generator=None, noise: Optional[TrainNoise] = None):
+    """One post-training step: the denoising loss at full T, weighted per
+    sample by `w` (reference: 1D/posttrain/post_train.py:206-210); noise =
+    the batch's (t, noise), else drawn from `generator`. Returns the loss."""
+    dcfg = DiffusionConfig(timesteps=pipeline.ccfg.timesteps, beta_schedule="cosine")
+    t, n = noise if noise is not None else draw_t_noise(dcfg, batch, generator)
+    per = p_losses(state.model, pipeline.sched, dcfg, batch, t, n, train_conditioner())
+    loss = (w * per).mean()
+    state.apply_gradients(torch.autograd.grad(loss, list(state.model.parameters())))
+    return loss.detach()
+
+
+def infft_step(pipeline: BurgersPipeline, state: TrainState, test_batch: torch.Tensor, Q,
+               generator=None, noise: Optional[Noise] = None):
+    """One InfFT step: guided sampling with gradients through the final
+    denoise step only, then the safety objective backpropagated into the
+    weights (reference: 1D/inference/inference_ft.py:193-201,316-347); noise
+    = the sampler call's (init_noise, step_noise), else drawn from
+    `generator`. Returns the loss."""
+    kw = (dict(generator=generator) if noise is None
+          else dict(init_noise=noise[0], step_noise=noise[1]))
+    cond = BurgersConditioner(u0=test_batch[:, 0, :, 0], uT=test_batch[:, COND_IDX, :, 0])
+    out = ddim_sample(state.model, pipeline.sched, pipeline.diff_cfg, test_batch.shape,
+                      cond=cond, guidance_grad=guidance_grad_fn(Q, pipeline.task_cfg),
+                      j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
+    loss = infft_loss(out * SCALER, Q, pipeline.task_cfg)
+    state.apply_gradients(torch.autograd.grad(loss, list(state.model.parameters())))
+    return loss.detach()
+
+
+def _restore_phase(state_dir: Optional[str], state: TrainState, cfg, device):
+    """(Q, first epoch to run, history) after the latest saved epoch."""
+    from safediffcon_torch.utils.checkpoint import load_phase_history, load_phase_trainstate
+
+    Q = torch.zeros((), device=device)
+    if state_dir is None:
+        return Q, 0, []
+    restored = load_phase_trainstate(state_dir, state)
+    if restored is None:
+        return Q, 0, []
+    _, q, last_epoch = restored
+    log.info("resumed phase state after epoch %d from %s", last_epoch, state_dir)
+    history = load_phase_history(state_dir, max_epoch=last_epoch, config_repr=repr(cfg))
+    return torch.tensor(q, dtype=torch.float32, device=device), last_epoch + 1, history
+
+
+def _save_phase(state_dir: Optional[str], state: TrainState, Q, epoch: int, history, cfg):
+    if state_dir is None:
+        return
+    from safediffcon_torch.utils.checkpoint import save_checkpoint, save_phase_history
+
+    save_checkpoint(state_dir, state, step=epoch, Q=Q)
+    save_phase_history(state_dir, history, config_repr=repr(cfg))
+
+
+def _epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+    # the epoch's draws depend on (seed, epoch) only, so a resumed run draws
+    # what an uninterrupted one does (JAX: fold_in(key, epoch))
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + epoch)
+
+
+# ---------------------------------------------------------------------------
+# Post-training (conformal reweighted fine-tuning)
+# ---------------------------------------------------------------------------
+
+def posttrain(
+    cfg: BurgersPostTrainConfig,
+    pipeline: BurgersPipeline,
+    params: Params,
+    finetune_data: BurgersDataset,
+    cal_data: BurgersDataset,
+    test_data: BurgersDataset,
+    finetune_steps: Optional[int] = None,
+    eval_every_subset_epoch: bool = True,
+    state_dir: Optional[str] = None,
+    noise: Optional[Iterator] = None,
+    on_epoch=None,
+):
+    """Conformal post-training (reference: 1D/posttrain/post_train.py:262-311).
+    Returns (TrainState, Q, epoch records).
+
+    Per epoch: per-sample reweights exp(-guidance(x, Q)), `finetune_steps`
+    reweighted denoising-loss steps (AdamW, warmup + cosine, EMA) over
+    sequential windows of the split, an evaluation of the EMA weights
+    whenever the samples seen reach a multiple of `finetune_subset_size`,
+    and a Q-hat recalibration on every epoch but the last. `state_dir`
+    persists the TrainState and Q after every epoch and resumes after the
+    latest saved one, bit-identically to an uninterrupted run. `noise`
+    yields, in the order they are consumed, each step's (t, noise) and each
+    sampler call's (init_noise, step_noise). `on_epoch(record)` fires after
+    each epoch's record is saved."""
+    if cfg.steps_per_call != 1:
+        raise NotImplementedError("steps_per_call > 1 is not ported; leave it at 1")
+    ccfg = cfg.conformal
+    steps_per_epoch = finetune_steps or cfg.finetune_steps
+    device = pipeline.device
+
+    warmup = int(0.05 * steps_per_epoch)
+    lr = warmup_cosine_schedule(cfg.finetune_lr, warmup,
+                                cfg.finetune_subset_size * cfg.cosine_epoch)
+    tx = make_optimizer(cfg.optimizer, lr, weight_decay=cfg.weight_decay, betas=(0.9, 0.999),
+                        max_grad_norm=cfg.max_grad_norm)
+    state = make_train_state(pipeline, params, tx, cfg.ema_decay, cfg.ema_update_every)
+    Q, start_epoch, all_metrics = _restore_phase(state_dir, state, cfg, device)
+
+    n = len(finetune_data)
+    bsz = cfg.finetune_batch_size
+
+    def epoch_sels():
+        # sequential windows with the reference's reset-on-overflow walk
+        # (1D/posttrain/post_train.py batch cycling)
+        sels, pos = [], 0
+        for _ in range(steps_per_epoch):
+            if pos + bsz > n:
+                pos = 0
+            sels.append(np.arange(pos, pos + bsz) % n)
+            pos += bsz
+        return sels
+
+    # Eval fires when the cumulative sample count hits a multiple of the
+    # subset size: the reference's ((it+1)*batch) % subset == 0
+    # (1D/posttrain/post_train.py:288), as it % (subset / gcd(batch, subset)).
+    eval_period = (cfg.finetune_subset_size // math.gcd(bsz, cfg.finetune_subset_size)
+                   if eval_every_subset_epoch else steps_per_epoch)
+    for epoch in range(start_epoch, cfg.finetune_epoch):
+        gen = _epoch_generator(cfg.seed, epoch, device)
+        w_train = pipeline.reweights(finetune_data.data, Q)
+        losses, eval_history = [], []
+        for it, sel in enumerate(epoch_sels(), start=1):
+            batch = torch.as_tensor(finetune_data.data[sel], device=device)
+            w = torch.as_tensor(w_train[sel], device=device)
+            draws = next(noise) if noise is not None else None
+            losses.append(weighted_step(pipeline, state, batch, w, gen, draws))
+            if eval_every_subset_epoch and it % eval_period == 0:
+                m = pipeline.evaluate(state.ema_params, test_data, Q, generator=gen, noise=noise)
+                eval_history.append(m)
+                log.info("epoch %d it %d eval %s", epoch, it, m)
+        if epoch != cfg.finetune_epoch - 1:
+            Q = pipeline.calibrate(state.ema_params, cal_data.data, Q, generator=gen,
+                                   noise=noise)
+            log.info("epoch %d Q-hat %.5f", epoch, float(Q))
+        losses = [float(v) for v in losses]  # one sync per epoch
+        all_metrics.append({
+            "epoch": epoch,
+            "loss": float(np.mean(losses)) if losses else None,
+            "eval_history": eval_history,
+            "quantile": float(Q),
+        })
+        _save_phase(state_dir, state, Q, epoch, all_metrics, cfg)
+        if on_epoch is not None:
+            on_epoch(all_metrics[-1])
+    return state, Q, all_metrics
+
+
+# ---------------------------------------------------------------------------
+# Inference-time fine-tuning (InfFT)
+# ---------------------------------------------------------------------------
+
+def inference_finetune(
+    cfg: BurgersInfFTConfig,
+    pipeline: BurgersPipeline,
+    params: Params,
+    cal_data: BurgersDataset,
+    test_data: BurgersDataset,
+    state_dir: Optional[str] = None,
+    noise: Optional[Iterator] = None,
+    on_epoch=None,
+):
+    """InfFT (reference: 1D/inference/inference_ft.py:228-433). Returns
+    (TrainState, Q, epoch records).
+
+    Per epoch: one `infft_step` per test batch (guided sampling with the
+    final denoise step differentiable, then MSE(relu(s + Q - bound^2), 0)
+    into the weights), a Q-hat recalibration and an evaluation, both on the
+    EMA weights. It runs InfFT_iters - 1 epochs: the reference's loop skips
+    all work on its final index (run():415-418). `state_dir`, `noise` and
+    `on_epoch` as in `posttrain` (noise: each sampler call's draws in
+    order)."""
+    ccfg = cfg.conformal
+    device = pipeline.device
+    lr = periodic_cosine_schedule(
+        cfg.finetune_lr, max(int(cfg.InfFT_iters * cfg.cosine_ratio), 1), eta_min=1e-6)
+    tx = make_optimizer(cfg.optimizer, lr, weight_decay=cfg.weight_decay, betas=(0.9, 0.999),
+                        max_grad_norm=cfg.max_grad_norm)
+    state = make_train_state(pipeline, params, tx, cfg.ema_decay, cfg.ema_update_every)
+    Q, start_epoch, all_metrics = _restore_phase(state_dir, state, cfg, device)
+
+    for epoch in range(start_epoch, cfg.InfFT_iters - 1):
+        gen = _epoch_generator(cfg.seed, epoch, device)
+        losses = []
+        for lo in range(0, len(test_data), ccfg.test_batch_size):
+            batch = torch.as_tensor(test_data.data[lo : lo + ccfg.test_batch_size],
+                                    device=device)
+            draws = next(noise) if noise is not None else None
+            losses.append(infft_step(pipeline, state, batch, Q, gen, draws))
+        losses = [float(v) for v in losses]
+        Q = pipeline.calibrate(state.ema_params, cal_data.data, Q, generator=gen, noise=noise)
+        metrics = pipeline.evaluate(state.ema_params, test_data, Q, generator=gen, noise=noise)
+        log.info("InfFT epoch %d loss %.5f Q %.5f metrics %s",
+                 epoch, float(np.mean(losses)), float(Q), metrics)
+        all_metrics.append({"epoch": epoch, "loss": float(np.mean(losses)), "eval": metrics,
+                            "quantile": float(Q)})
+        _save_phase(state_dir, state, Q, epoch, all_metrics, cfg)
+        if on_epoch is not None:
+            on_epoch(all_metrics[-1])
+    return state, Q, all_metrics

@@ -36,6 +36,7 @@ from safediffcon_torch.core.train import (
     make_optimizer,
     run_train_loop,
 )
+from safediffcon_torch.models.layers import lecun_normal_
 from safediffcon_torch.models.unet3d import ConvTransposeCL, FusedConv3x3x3, UNet3D
 from safediffcon_torch.solvers import smoke as S
 from safediffcon_torch.tasks.smoke.config import (
@@ -77,15 +78,6 @@ def build_model(dim=64, dim_mults=(1, 2, 4), compute_dtype=None, remat_policy="f
                   attn_impl=attn_impl).to(device)
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    """flax's lecun_normal: a normal truncated to +-2 std, rescaled to
-    variance 1/fan_in; drawn by inverse CDF on the CPU generator."""
-    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
-    u = torch.rand(w.shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo
-    z = math.sqrt(2) * torch.erfinv(2 * u - 1)
-    w.copy_((z * math.sqrt(1.0 / fan_in) / 0.87962566103423978).to(w.dtype))
-
-
 @torch.no_grad()
 def init_params(model: UNet3D, seed: int = 0) -> UNet3D:
     """Seeded init with flax's defaults: lecun-normal kernels, zero biases,
@@ -95,7 +87,7 @@ def init_params(model: UNet3D, seed: int = 0) -> UNet3D:
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Conv3d, ConvTransposeCL, FusedConv3x3x3)):
             w = module.weight
-            _lecun_normal_(w, w[0].numel(), gen)
+            lecun_normal_(w, w[0].numel(), gen)
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, nn.Embedding):

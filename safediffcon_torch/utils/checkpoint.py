@@ -1,4 +1,4 @@
-"""Checkpoints of the smoke training and fine-tuning state, in the port's own
+"""Checkpoints of the training and fine-tuning state, in the port's own
 format: one `torch.save` file per milestone or epoch, written atomically.
 
 Port of `safediffcon_tpu/utils/checkpoint.py` (reference: torch.save
@@ -65,6 +65,20 @@ def load_checkpoint(directory: str, step: int) -> dict:
     """The payload of `save_checkpoint`, tensors on the CPU
     (`TrainState.load_state_dict` takes it)."""
     return _load(_ckpt_path(directory, step))
+
+
+def load_phase_trainstate(directory: str, state, epoch: Optional[int] = None):
+    """Restore the latest (or the given) epoch of a TrainState-based phase,
+    saved by `save_checkpoint(directory, state, step=epoch, Q=Q)`, into
+    `state` in place. Returns (state, Q, epoch), or None when the directory
+    holds no state."""
+    if epoch is None:
+        epoch = latest_step(directory)
+        if epoch is None:
+            return None
+    payload = load_checkpoint(directory, epoch)
+    state.load_state_dict(payload)
+    return state, payload["Q"], int(epoch)
 
 
 def latest_step(directory: str) -> Optional[int]:

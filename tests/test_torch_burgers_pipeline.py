@@ -1,0 +1,89 @@
+"""The Burgers serving path against the JAX package on a tiny config (UNet2D
+dim 16, a few sims at the task's 128 cells): `BurgersPipeline.calibrate` +
+guided `evaluate` (DDIM of UNet2D -> FD solver -> metrics) from the same
+weights, with the JAX key chain's draws replayed into the port; the exact
+`state_dir` resume of post-training; the options that are not ported."""
+import os
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from burgers_replay import (  # noqa: F401  (data, flax_params: fixtures)
+    CONF, NX, PIPE, calibrate_noise, check_metrics, data, flax_params, sampler_noise,
+    sd_from_flax,
+)
+from safediffcon_tpu.tasks.burgers import config as JC
+from safediffcon_tpu.tasks.burgers import data as JD
+from safediffcon_tpu.tasks.burgers import pipeline as JP
+from safediffcon_torch.tasks.burgers import (
+    BurgersConformalConfig,
+    BurgersPipeline,
+    BurgersPostTrainConfig,
+    BurgersPretrainConfig,
+    posttrain,
+    pretrain,
+)
+from safediffcon_torch.tasks.burgers.pipeline import init_params
+
+torch.set_num_threads(1)
+
+
+def test_calibrate_and_evaluate_match_jax(data, flax_params):
+    cal, test = data["cal"], data["test"]
+    jp = JP.BurgersPipeline(JC.BurgersConformalConfig(**CONF), **PIPE)
+    q_ref = jp.calibrate(flax_params, cal.data, 0.0, jax.random.PRNGKey(1))
+    m_ref = jp.evaluate(flax_params, JD.BurgersDataset(test.data, test.u_phys, test.f_phys),
+                        q_ref, jax.random.PRNGKey(2))
+
+    tp = BurgersPipeline(BurgersConformalConfig(**CONF), device="cpu", **PIPE)
+    params = sd_from_flax(flax_params)
+    shape = (CONF["cal_batch_size"], 16, NX, 3)
+    q = tp.calibrate(params, cal.data, 0.0,
+                     noise=iter(calibrate_noise(jax.random.PRNGKey(1), 2, shape)))
+    m = tp.evaluate(params, test, q,
+                    noise=iter([sampler_noise(jax.random.PRNGKey(2), test.data.shape)]))
+    # float32 UNet2D + sampler: ~1e-6 relative
+    np.testing.assert_allclose(float(q), float(q_ref), rtol=1e-4)
+    check_metrics(m, m_ref)
+    # the comparisons bite: a nonzero quantile, J and a violation rate in (0, 1)
+    assert float(q) > 0 and m["control_mse_mean (J)"] > 0
+    assert 0 < m["point_exceed_ratio (R_p)"] < 1
+
+
+def test_posttrain_state_dir_resume_is_exact(data, tmp_path):
+    """A run resumed after a lost epoch equals an uninterrupted one: the
+    TrainState and Q persist per epoch, and each epoch's draws depend on
+    (seed, epoch) only."""
+    cfg = BurgersPostTrainConfig(conformal=BurgersConformalConfig(**CONF), finetune_epoch=2,
+                                 finetune_steps=2, finetune_batch_size=4,
+                                 finetune_subset_size=8)
+    tp = BurgersPipeline(cfg.conformal, device="cpu", **PIPE)
+    init_params(tp.model, seed=3)
+    train, cal, test = data["train"], data["cal"], data["test"]
+    d = str(tmp_path / "pt_state")
+    sa, qa, ha = posttrain(cfg, tp, None, train, cal, test, state_dir=d)
+    assert sorted(os.listdir(d)) == ["ckpt-0.pt", "ckpt-1.pt", "history.json"]
+    os.remove(os.path.join(d, "ckpt-1.pt"))  # epoch 1 was lost
+    sb, qb, hb = posttrain(cfg, tp, None, train, cal, test, state_dir=d)
+    assert [h["epoch"] for h in hb] == [0, 1] and hb == ha
+    assert float(qa) == float(qb) and sa.step == sb.step == 4
+    for name, v in sa.ema_params.items():
+        assert torch.equal(v, sb.ema_params[name]), name
+    for name, v in sa.model.state_dict().items():
+        assert torch.equal(v, sb.model.state_dict()[name]), name
+
+
+def test_unported_options_raise(data):
+    with pytest.raises(NotImplementedError):
+        BurgersPipeline(BurgersConformalConfig(**CONF, sampler="dpm"), device="cpu", **PIPE)
+    with pytest.raises(NotImplementedError):
+        BurgersPipeline(BurgersConformalConfig(**CONF), two_model=True, device="cpu", **PIPE)
+    with pytest.raises(NotImplementedError):
+        pretrain(BurgersPretrainConfig(**PIPE), data["train"], num_steps=1, model_w=True,
+                 device="cpu")
+    tp = BurgersPipeline(BurgersConformalConfig(**CONF), device="cpu", **PIPE)
+    with pytest.raises(NotImplementedError):
+        posttrain(BurgersPostTrainConfig(steps_per_call=4), tp, None, data["train"],
+                  data["cal"], data["test"])

@@ -31,7 +31,7 @@ def test_schedule_tables_equal(timesteps):
 
 def test_unported_schedule_raises():
     with pytest.raises(ValueError):
-        TS.make_schedule(10, "cosine", device="cpu")
+        TS.make_schedule(10, "quadratic", device="cpu")
 
 
 @pytest.mark.parametrize("timesteps,steps", [(1000, 100), (6, 3), (1000, 200), (10, 10)])

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's smoke and Burgers paths on one CUDA card.
+"""Drive the PyTorch port's smoke, Burgers and tokamak paths on one CUDA card.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`. It
 needs one CUDA card and the CUDA toolkit (nvcc); without a card it exits
@@ -35,9 +35,12 @@ fails ends the run with a non-zero exit.
      Cout) of UNet3D's 3x3x3 convs, B = 16, F = 32: the forward and dx
      (through the autograd Function) in 3xTF32 (TF32 off, within 1e-4) and
      in TF32 (TF32 on, within twice cuDNN's own TF32 error + 1e-4 and 5e-3
-     of max), dW against autograd of the plain version (TF32 off), bfloat16
-     at two shapes, the SIMT kernel at one; the kernel's, the plain
-     version's and F.conv3d's times (TF32, float32, bfloat16) and bounds;
+     of max), dW against autograd of the plain version (TF32 off); in
+     bfloat16 (phase 10b's mode) at the same 10 shapes the forward, dx and
+     dW through the autograd Function against the plain version and its
+     autograd on the same bf16 inputs, within 1e-2 of max; the SIMT kernel
+     at one shape; the kernel's, the plain version's and F.conv3d's times
+     (TF32, float32, bfloat16) and bounds;
   7. a small pretrain on the card (K2 in 3xTF32) and on the CPU (its plain
      version, which the CPU tests hold against the JAX package) with the
      same weights and draws, TF32 off: the losses must agree;
@@ -49,7 +52,21 @@ fails ends the run with a non-zero exit.
   9. one posttrain epoch and one InfFT epoch through run_inference from
      the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 100 (the
      SmokePipeline model, framework conv; K1 in evaluate), then one InfFT
-     step at Q = 1, where its loss has a gradient.
+     step at Q = 1, where its loss has a gradient;
+ 10. UNet3D in bfloat16 compute and with remat "save_heavy":
+     10a. two pretrain steps of a small bf16 UNet3D(conv_impl="pallas") on
+          the card (K2 in bf16) and on the CPU from the same weights and
+          draws: the losses within 1.5e-3, each step's gradients within
+          1e-1 (relative L2), the weight updates pointing the
+          same way (cosine > 0.9);
+     10b. the smoke pretrain at the reference width in bf16 on K2 (batch
+          16, remat "full") for 1 + SMOKE_STEPS steps, timed after the
+          first; K2's counts are zeroed just before and must read 90
+          tensor-core launches per step, all in bf16 mode, and 0 SIMT;
+          s per step, K2's share by CUDA events, peak memory;
+     10c. the same in float32 (TF32) and in bf16 with "save_heavy";
+     10d. SMOKE_STEPS guided DDIM steps of SmokePipeline at B = 50 in float32
+          and in bf16 compute: ms per step and peak memory.
 
 The Burgers 1D task (no kernel of the TPU package lies on its path; K1 and
 K2 must not launch while it runs), at the reference "turbo" UNet2D (dim 128,
@@ -80,8 +97,44 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
 
 Depth cuts of the Burgers phases against the reference: 2,048 train sims
 (40,000), 10 pretrain steps (200,000), posttrain 2 epochs x 2 steps (5 x
-3,200), InfFT 2 iterations (3), fine-tuning calibration on 250 cal sims
-(1,000). Widths, DDIM steps, batch sizes and the solver are the reference's.
+3,200), InfFT 2 iterations (3), B4's and the fine-tuning calibration on
+250 cal sims (1,000; B4's cut keeps the whole script inside its budget).
+Widths, DDIM steps, batch sizes and the solver are the reference's.
+
+The tokamak task (no kernel of the TPU package lies on its path; K1 and K2
+counts are zeroed before T1 and must read 0 after T6), at the reference
+"turbo" UNet1D (dim 128, mults (1, 2, 4, 8), 12 channels, 57,341,452
+parameters, seeded weights):
+
+  T1. the KSTAR surrogate on the card and on the CPU: the three reference
+      golden rollouts (tests/golden/kstar_reference_rollouts.npz) within
+      1e-4 relative; ms per rollout at B = 50 and at datagen's batch, open
+      and closed loop; kernel launches per solver step (torch.profiler);
+  T2. datagen: 2,048 train, 1,000 cal and 50 test closed-loop trajectories
+      in one batch, the rollout and the npz save timed apart;
+  T3. a tiny UNet1D (dim 16) on the card and on the CPU with the same
+      weights and draws, TF32 off: calibrate, an unguided and a guided
+      evaluate, one post-training step and one InfFT step must agree (the
+      losses, each step's gradients within 2e-5 relative L2, 99 % of the
+      weights within 1e-4 lr after the two steps);
+  T4. serving with the TokamakConformalConfig defaults (DDIM 200, eta 1,
+      alpha 0.9, threshold 4.98): calibrate on the 1,000 cal sims as one
+      chunk (T_CAL_CHUNK; the JAX default chunk is 50), evaluate the 50
+      test sims unguided (the default) and guided with guidance_scaler 5;
+      ms per step, the surrogate's share of evaluate, peak memory, and a
+      torch.profiler breakdown of one forward at B = 50 with its bound from
+      its FLOPs (FlopCounterMode) at the TF32 peak;
+  T5. pretraining with the TokamakPretrainConfig defaults (batch 16) for 10
+      steps after one warm-up step, the loop's set-up timed apart;
+  T6. from T5's EMA: run_inference with posttrain_config() for 2 epochs of
+      1 step at batch 1,000, and with finetune_config() (DDIM 250) for 1
+      epoch of 1 InfFT step at B = 50, each epoch calibrating on the 1,000
+      cal sims; peak memory.
+
+Depth cuts of the tokamak phases against the reference: 2,048 train
+trajectories (48,950), 10 pretrain steps (200,000), posttrain 2 epochs (8),
+InfFT 1 epoch (5). Widths, DDIM steps, batch sizes and the surrogate are the
+reference's.
 
 Its last three lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -123,7 +176,6 @@ K2_SHAPES = [(64, 64, 64, 8), (64, 128, 64, 2), (32, 64, 128, 1), (32, 128, 128,
              (32, 256, 64, 1), (32, 64, 64, 3), (16, 128, 256, 1), (16, 256, 256, 7),
              (16, 512, 128, 1), (16, 128, 128, 3)]
 K2_BATCH, FRAMES = 16, 32
-K2_BF16 = [(64, 64, 64), (16, 512, 128)]
 K2_SIMT = (32, 64, 64)  # the shape at which the SIMT kernel is checked
 K2_REPS = 10  # timed calls of K2 and F.conv3d per case (the plain version: 1)
 PRETRAIN_STEPS = 10  # the EMA first moves at step 10
@@ -136,6 +188,14 @@ B_N_TRAIN, B_N_CAL, B_N_TEST = 2048, 1000, 50
 B_SOLVER_BATCH = 50
 B_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 B_FT_CAL = 250  # cal sims of the fine-tuning phases (reference 1,000)
+B4_CAL = 250  # cal sims of B4's calibrate (reference 1,000)
+SMOKE_STEPS = 5  # timed pretrain steps (after one more) and guided DDIM steps of phase 10
+# Tokamak: the reference "turbo" UNet1D; trajectories per split (reference
+# 48,950 train, 1,000 cal, 50 test; the train split cut to what T5-T6 read)
+T_N_TRAIN, T_N_CAL, T_N_TEST = 2048, 1000, 50
+T_BATCH = 50  # test batch (reference)
+T_CAL_CHUNK = 1000  # calibrate the reference's batch of 1,000 as one chunk
+T_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 
 
 def log(msg: str) -> None:
@@ -404,9 +464,52 @@ class tf32_flag:
         torch.backends.cudnn.allow_tf32 = self.saved
 
 
+def k2_launches(C) -> int:
+    """Launches of the tensor-core K2 over its precision modes."""
+    return sum(C.conv3d_fused_cuda.launches.values())
+
+
+def zero_k2_counts(C) -> None:
+    C.conv3d_fused_cuda.launches = dict.fromkeys(C.MODES, 0)
+    C.conv3d_fused_simt_cuda.launches = 0
+
+
+class GradRecorder:
+    """While active, keeps a float32 CPU copy of the gradients handed to each
+    `Adam.step` (every optimizer step of the port), flattened into one
+    vector per step."""
+
+    def __enter__(self):
+        from safediffcon_torch.core.train import Adam
+
+        self.steps, self.saved = [], Adam.step
+        saved, steps = self.saved, self.steps
+
+        def step(opt, params, grads, state):
+            grads = list(grads)
+            steps.append(torch.cat([g.detach().float().flatten().cpu() for g in grads]))
+            return saved(opt, params, grads, state)
+
+        Adam.step = step
+        return self
+
+    def __exit__(self, *exc):
+        from safediffcon_torch.core.train import Adam
+
+        Adam.step = self.saved
+
+
+def grad_rel_errs(card: list, cpu: list) -> list:
+    """|g_card - g_cpu| / |g_cpu| (L2 over all parameters) of each step."""
+    if len(card) != len(cpu) or not cpu:
+        raise AssertionError(f"{len(card)} card and {len(cpu)} CPU optimizer steps")
+    return [float((a - b).norm() / b.norm()) for a, b in zip(card, cpu)]
+
+
 def rel_err(got, ref) -> tuple:
     """(max |got - ref|, max |ref|), in float32."""
-    return float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).abs().max()), float(ref.abs().max())
 
 
 def phase_conv_kernel_vs_plain(C):
@@ -414,9 +517,10 @@ def phase_conv_kernel_vs_plain(C):
     F = 32), in each precision mode of the tensor-core kernel: float32 in
     3xTF32 (TF32 off) and TF32 (TF32 on), forward and dx through the
     autograd Function, dW against autograd of the plain version (TF32 off);
-    bfloat16 at two shapes. Times of each mode, the plain version, and one
-    F.conv3d call (cuDNN) in TF32, in float32 and in bfloat16. The SIMT
-    kernel against its plain version at one shape."""
+    bfloat16 (the bf16 main path's mode) likewise, against the plain
+    version on the same bf16 inputs. Times of each mode, the plain version,
+    and one F.conv3d call (cuDNN) in TF32, in float32 and in bfloat16. The
+    SIMT kernel against its plain version at one shape."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = []
     for h, cin, cout, per_forward in K2_SHAPES:
@@ -450,12 +554,14 @@ def phase_conv_kernel_vs_plain(C):
         flops = 2 * K2_BATCH * FRAMES * h * h * 27 * cin * cout
         for mode, on, passes in (("3xtf32", False, 3), ("tf32", True, 1)):
             with tf32_flag(on):
-                before = C.conv3d_fused_cuda.launches
+                before = k2_launches(C), C.conv3d_fused_cuda.launches[mode]
                 out = C.conv3d_fused(x, wf)
                 xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
                 C.conv3d_fused_fn(xk, wk).backward(g)
                 torch.cuda.synchronize()
-                launched = C.conv3d_fused_cuda.launches - before
+                launched = C.conv3d_fused_cuda.launches[mode] - before[1]
+                if k2_launches(C) - before[0] != launched:
+                    raise AssertionError(f"K2 {mode} ran in another mode")
                 ms = cuda_ms(lambda: C.conv3d_fused(x, wf), reps=K2_REPS)
                 dx_ms = cuda_ms(lambda: C.conv3d_fused(g, wt), reps=K2_REPS)
             diff, scale = rel_err(out, plain)
@@ -491,31 +597,44 @@ def phase_conv_kernel_vs_plain(C):
         cases.append(case)
         del xp, wp
 
-        if (h, cin, cout) in K2_BF16:
-            xb, wb = x.bfloat16(), wf.bfloat16()
-            before = C.conv3d_fused_cuda.launches
-            out = C.conv3d_fused(xb, wb)
-            ref = C.conv3d_fused_plain(xb, wb)
-            torch.cuda.synchronize()
-            launched = C.conv3d_fused_cuda.launches - before
-            finite = bool(torch.isfinite(out.float()).all())
-            diff, scale = rel_err(out, ref)
-            bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.bfloat16)
-            ms = cuda_ms(lambda: C.conv3d_fused(xb, wb), K2_REPS)
-            case = dict(h=h, cin=cin, cout=cout, batch=K2_BATCH, frames=FRAMES,
-                        dtype="bfloat16", mode="bf16", kernel_ms=ms,
-                        plain_ms=cuda_ms(lambda: C.conv3d_fused_plain(xb, wb), 1),
-                        library_ms=cuda_ms(lambda: F.conv3d(xb.permute(0, 4, 1, 2, 3),
-                                                            w.bfloat16(), padding=1), K2_REPS),
-                        bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
-                        max_diff=diff, max_abs=scale)
-            log("K2 " + json.dumps(case))
-            # both round one float32 sum to bfloat16 (8 bits): 1e-2 of max
-            if not (out.dtype == torch.bfloat16 and finite and diff <= 1e-2 * scale
-                    and launched == 1):
-                raise AssertionError(f"K2 bfloat16 differs from its plain version: {case}")
-            cases.append(case)
-            del xb, wb, out, ref
+        # bfloat16: the forward, and dx and dW through the autograd Function,
+        # against the plain version and its autograd on the same bf16 inputs
+        xb, wb, gb = x.bfloat16(), w.bfloat16(), g.bfloat16()
+        wbf, wbt = C.flatten_weight(wb), C.flatten_weight(C.flip_transpose(wb))
+        xp, wp = xb.clone().requires_grad_(), wb.clone().requires_grad_()
+        ref = C.conv3d_fused_plain(xp, C.flatten_weight(wp))
+        ref.backward(gb)
+        before = dict(C.conv3d_fused_cuda.launches)
+        out = C.conv3d_fused(xb, wbf)
+        xk, wk = xb.clone().requires_grad_(), wb.clone().requires_grad_()
+        C.conv3d_fused_fn(xk, wk).backward(gb)
+        torch.cuda.synchronize()
+        launched = {m: n - before[m] for m, n in C.conv3d_fused_cuda.launches.items()}
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, xk.grad, wk.grad))
+        diff, scale = rel_err(out, ref)
+        dx_diff, dx_scale = rel_err(xk.grad, xp.grad)
+        dw_diff, dw_scale = rel_err(wk.grad, wp.grad)
+        bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.bfloat16)
+        ms = cuda_ms(lambda: C.conv3d_fused(xb, wbf), K2_REPS)
+        bf16 = dict(h=h, cin=cin, cout=cout, batch=K2_BATCH, frames=FRAMES, dtype="bfloat16",
+                    mode="bf16", launches_per_forward=per_forward, kernel_ms=ms,
+                    dx_kernel_ms=cuda_ms(lambda: C.conv3d_fused(gb, wbt), K2_REPS),
+                    plain_ms=cuda_ms(lambda: C.conv3d_fused_plain(xb, wbf), 1),
+                    library_ms=cuda_ms(lambda: F.conv3d(xb.permute(0, 4, 1, 2, 3), wb,
+                                                        padding=1), K2_REPS),
+                    bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
+                    max_diff=diff, max_abs=scale, dx_max_diff=dx_diff, dx_max_abs=dx_scale,
+                    dw_max_diff=dw_diff, dw_max_abs=dw_scale, launches=launched)
+        log("K2 " + json.dumps(bf16))
+        # each side rounds one float32 sum to bfloat16 (8 bits): 1e-2 of max;
+        # the call, the Function's forward and its dx, all in bf16 mode
+        if not (out.dtype == xk.grad.dtype == wk.grad.dtype == torch.bfloat16 and finite
+                and diff <= 1e-2 * scale and dx_diff <= 1e-2 * dx_scale
+                and dw_diff <= 1e-2 * dw_scale
+                and launched == dict(dict.fromkeys(C.MODES, 0), bf16=3)):
+            raise AssertionError(f"K2 bfloat16 differs from its plain version: {bf16}")
+        cases.append(bf16)
+        del xb, wb, gb, wbf, wbt, xp, wp, ref, out, xk, wk
 
         if (h, cin, cout) == K2_SIMT:
             before = C.conv3d_fused_simt_cuda.launches
@@ -565,8 +684,7 @@ def phase_pretrain(C, smoke, train):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: counts zeroed just before, read just after
-    C.conv3d_fused_cuda.launches = 0
-    C.conv3d_fused_simt_cuda.launches = 0
+    zero_k2_counts(C)
     C.conv3d_fused_cuda.events = []
     mode = C.kernel_mode(torch.float32)
     losses = []
@@ -574,7 +692,7 @@ def phase_pretrain(C, smoke, train):
     state = smoke.pretrain(cfg, train, num_steps=PRETRAIN_STEPS, device="cuda", losses=losses)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = C.conv3d_fused_cuda.launches
+    launches = C.conv3d_fused_cuda.launches[mode]
     simt_launches = C.conv3d_fused_simt_cuda.launches
     k2_s = sum(a.elapsed_time(b) for a, b in C.conv3d_fused_cuda.events) / 1e3
     C.conv3d_fused_cuda.events = None
@@ -591,7 +709,8 @@ def phase_pretrain(C, smoke, train):
     log(f"pretrain losses {json.dumps(losses)}; max |EMA - init| {ema_moved:.3e}, "
         f"max |weights - init| {weights_moved:.3e}")
     # per step: each conv's forward, its recomputation, its dx (3 x 30 = 90)
-    if launches != 3 * n_convs * PRETRAIN_STEPS or simt_launches != 0:
+    if (launches != 3 * n_convs * PRETRAIN_STEPS or k2_launches(C) != launches
+            or simt_launches != 0):
         raise AssertionError(f"K2 launched {launches} times on the tensor cores and "
                              f"{simt_launches} on the SIMT kernel, expected {3 * n_convs} x "
                              f"{PRETRAIN_STEPS} and 0")
@@ -706,7 +825,7 @@ def phase_small_pretrain_agreement(C, smoke, train):
               torch.randn((2, *raw.shape[1:]), generator=gen)) for _ in range(2)]
     losses = {}
     n_convs = count_fused_convs(build_model(16, (1, 2), conv_impl="pallas", device="cpu"))
-    before = C.conv3d_fused_cuda.launches
+    before = k2_launches(C)
     simt_before = C.conv3d_fused_simt_cuda.launches
     with tf32_flag(False):
         for device in ("cuda", "cpu"):
@@ -717,7 +836,7 @@ def phase_small_pretrain_agreement(C, smoke, train):
             losses[device] = [float(v) for v in out]
     log(f"small pretrain: card {losses['cuda']}, cpu {losses['cpu']}")
     # per step: each conv's forward, its recomputation, its dx, all in 3xTF32
-    if (C.conv3d_fused_cuda.launches - before != 2 * 3 * n_convs
+    if (k2_launches(C) - before != 2 * 3 * n_convs
             or C.conv3d_fused_simt_cuda.launches != simt_before):
         raise AssertionError("the small pretrain on the card did not run on the tensor-core K2")
     for got, ref in zip(losses["cuda"], losses["cpu"]):
@@ -871,23 +990,25 @@ def phase_burgers_small_agreement(burgers, data):
         raise AssertionError(f"Burgers small input: card and CPU disagree ({checks})")
 
 
-def unet2d_forward_flops(model, batch: int) -> int:
+def forward_flops(model, shape) -> int:
+    """FLOPs of one no-grad forward of a denoiser on (B, ...) input."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    x = torch.zeros((batch, 16, 128, 3), device="cuda")
-    t = torch.zeros((batch,), dtype=torch.long, device="cuda")
+    x = torch.zeros(shape, device="cuda")
+    t = torch.zeros((shape[0],), dtype=torch.long, device="cuda")
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         model(x, t)
     return counter.get_total_flops()
 
 
-def profile_forward(model, batch: int, reps: int = 5) -> dict:
-    """torch.profiler over `reps` no-grad UNet2D forwards at `batch`: wall
-    and device (kernel) ms per forward, the device's busy share, kernels per
-    forward, and the kernels that take the most device time."""
+def profile_forward(model, shape, reps: int = 5) -> dict:
+    """torch.profiler over `reps` no-grad forwards of a denoiser on input of
+    `shape`: wall and device (kernel) ms per forward, the device's busy
+    share, kernels per forward, and the kernels that take the most device
+    time."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    x = torch.randn((batch, 16, 128, 3), generator=gen, device="cuda")
-    t = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+    x = torch.randn(shape, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (shape[0],), generator=gen, device="cuda")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.no_grad():
         model(x, t)
@@ -909,8 +1030,8 @@ def profile_forward(model, batch: int, reps: int = 5) -> dict:
 
 
 def phase_burgers_serving(burgers, data):
-    """B4: calibrate on the reference's 1000 cal sims and guided evaluate on
-    50 test sims at full width in float32 (default flags), then the same
+    """B4: calibrate on B4_CAL cal sims (reference 1,000) and guided evaluate
+    on 50 test sims at full width in float32 (default flags), then the same
     guided sampling in bfloat16 compute."""
     from safediffcon_torch.tasks.burgers.pipeline import init_params
 
@@ -919,12 +1040,13 @@ def phase_burgers_serving(burgers, data):
     init_params(pipe.model, seed=0)
     n_params = sum(p.numel() for p in pipe.model.parameters())
     steps = ccfg.ddim_sampling_steps
+    cal = data["cal"].data[:B4_CAL]
     log(f"B4 serving: UNet2D {B_MODEL}, {n_params} parameters, seeded weights; {ccfg}; "
-        f"calibrate {ccfg.num_cal_batch} x {ccfg.cal_batch_size} sims in chunks of "
-        f"{pipe.cal_chunk}")
+        f"calibrate on {len(cal)} of the {ccfg.num_cal_batch} x {ccfg.cal_batch_size} sims "
+        f"in chunks of {pipe.cal_chunk}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    q = float(pipe.calibrate(None, data["cal"].data, 0.0,
+    q = float(pipe.calibrate(None, cal, 0.0,
                              generator=torch.Generator(device="cuda").manual_seed(1)))
     calibrate_s = time.perf_counter() - t0
     cal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -950,14 +1072,15 @@ def phase_burgers_serving(burgers, data):
     bf16_s = time.perf_counter() - t0
     bf16_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    flops = unet2d_forward_flops(pipe.model, B_N_TEST)
-    profiles = {"float32": profile_forward(pipe.model, B_N_TEST),
-                "bfloat16": profile_forward(pipe16.model, B_N_TEST)}
+    shape = (B_N_TEST, 16, 128, 3)
+    flops = forward_flops(pipe.model, shape)
+    profiles = {"float32": profile_forward(pipe.model, shape),
+                "bfloat16": profile_forward(pipe16.model, shape)}
     for name, prof in profiles.items():
         log(f"B4 UNet2D forward at B = {B_N_TEST}, {name}: " + json.dumps(prof))
     out = dict(
-        calibrate_s=calibrate_s, cal_sims=len(data["cal"].data),
-        ms_per_cal_step=1e3 * calibrate_s / (steps * -(-len(data["cal"].data) // pipe.cal_chunk)),
+        calibrate_s=calibrate_s, cal_sims=len(cal),
+        ms_per_cal_step=1e3 * calibrate_s / (steps * -(-len(cal) // pipe.cal_chunk)),
         evaluate_s=evaluate_s, sampling_s=sampling_s, rollout_s=rollout_s,
         solver_share=rollout_s / (sampling_s + rollout_s),
         ms_per_guided_step_fp32=1e3 * sampling_s / steps,
@@ -1106,6 +1229,478 @@ def phase_burgers_finetune(burgers, data, params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: UNet3D in bfloat16 (K2 in bf16) and remat "save_heavy"
+# ---------------------------------------------------------------------------
+
+class StepClock(list):
+    """A `losses` list for `pretrain` that syncs and marks the time after
+    each step, and calls `on_first` after the first (warm-up) one."""
+
+    def __init__(self, on_first=None):
+        super().__init__()
+        self.marks = []
+        self.on_first = on_first
+
+    def append(self, loss):
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        super().append(loss)
+        if len(self.marks) == 1 and self.on_first is not None:
+            self.on_first()
+
+
+def phase_smoke_bf16_agreement(C, smoke, train):
+    """10a: two pretrain steps of a small UNet3D(conv_impl="pallas",
+    compute_dtype="bfloat16") on the card (K2 in bf16) and on the CPU (its
+    plain version, which the CPU tests hold against the JAX package) from
+    the same weights and draws."""
+    from safediffcon_torch.tasks.smoke.pipeline import build_model, init_params
+
+    cfg = smoke.SmokePretrainConfig(dim=16, dim_mults=(1, 2), timesteps=6, batch_size=2,
+                                    conv_impl="pallas", compute_dtype="bfloat16")
+    raw = train.raw[:4, ::8, ::4, ::4]  # 4 frames of 16^2
+    small = smoke.SmokeDataset(data=raw / smoke.RESCALER, raw=raw)
+    params = init_params(build_model(16, (1, 2), device="cpu"), seed=5).state_dict()
+    gen = torch.Generator().manual_seed(6)
+    draws = [(torch.randint(0, cfg.timesteps, (2,), generator=gen),
+              torch.randn((2, *raw.shape[1:]), generator=gen)) for _ in range(2)]
+    n_convs = count_fused_convs(build_model(16, (1, 2), conv_impl="pallas", device="cpu"))
+    zero_k2_counts(C)
+    results = {}
+    for device in ("cuda", "cpu"):
+        noise = iter([(t.to(device), n.to(device)) for t, n in draws])
+        losses = []
+        with GradRecorder() as grads:
+            state = smoke.pretrain(cfg, small, num_steps=2, params=params, device=device,
+                                   noise=noise, losses=losses)
+        moved = torch.cat([(p.detach().cpu() - params[k]).flatten()
+                           for k, p in state.model.named_parameters()])
+        results[device] = ([float(v) for v in losses], moved, grads.steps)
+    modes = dict(C.conv3d_fused_cuda.launches)
+    (card_l, card_m, card_g), (cpu_l, cpu_m, cpu_g) = results["cuda"], results["cpu"]
+    cosine = float(card_m @ cpu_m / (card_m.norm() * cpu_m.norm()))
+    out = dict(card_losses=card_l, cpu_losses=cpu_l, grad_rel_errs=grad_rel_errs(card_g, cpu_g),
+               update_cosine=cosine, k2_modes=modes, simt=C.conv3d_fused_simt_cuda.launches)
+    log("10a small bf16 pretrain " + json.dumps(out))
+    # per step: each conv's forward, its recomputation and its dx, in bf16
+    if modes != dict(tf32=0, **{"3xtf32": 0}, bf16=2 * 3 * n_convs) or out["simt"]:
+        raise AssertionError(f"10a: the card's small bf16 pretrain ran K2 as {modes}")
+    # bf16 on both sides, the same roundings with float32 sums in other
+    # orders: the losses within 1.5e-3 (about 10x the 1.3e-4 an H100 saw),
+    # each step's gradients within 1e-1 (3-9x the 1.1e-2 and 3.0e-2 an
+    # H100 saw; the second step starts from weights that differ); two Adam
+    # steps move each weight by about lr * sign(g), so the updates point
+    # the same way (cosine near 1) unless the gradients disagree
+    if not (all(abs(a - b) <= 1.5e-3 * abs(b) for a, b in zip(card_l, cpu_l))
+            and max(out["grad_rel_errs"]) <= 1e-1 and cosine > 0.9):
+        raise AssertionError(f"10a: card and CPU bf16 pretrain disagree: {out}")
+    return out
+
+
+def phase_smoke_bf16_training(C, smoke, train):
+    """10b-10c: the smoke pretrain at the reference width on K2 (conv_impl
+    "pallas", batch 16) in bf16 with remat "full", then float32 (TF32) and
+    bf16 with "save_heavy"; each 1 + SMOKE_STEPS steps in one call, timed
+    after the first. K2's counts are zeroed just before each call and read
+    just after: 90 tensor-core launches per step, all in the run's mode."""
+    from safediffcon_torch.tasks.smoke.pipeline import build_model
+
+    n_convs = count_fused_convs(build_model(conv_impl="pallas", device="meta"))
+    runs = {"bf16_full": dict(compute_dtype="bfloat16"),
+            "tf32_save_heavy": dict(remat_policy="save_heavy"),
+            "bf16_save_heavy": dict(compute_dtype="bfloat16", remat_policy="save_heavy")}
+    out = {}
+    for name, kw in runs.items():
+        cfg = smoke.SmokePretrainConfig(conv_impl="pallas", **kw)
+        mode = "bf16" if cfg.compute_dtype else C.kernel_mode(torch.float32)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def start_events():
+            C.conv3d_fused_cuda.events = []
+
+        clock = StepClock(on_first=start_events)
+        zero_k2_counts(C)
+        smoke.pretrain(cfg, train, num_steps=1 + SMOKE_STEPS, device="cuda", losses=clock)
+        modes = dict(C.conv3d_fused_cuda.launches)
+        simt = C.conv3d_fused_simt_cuda.launches
+        k2_s = sum(a.elapsed_time(b) for a, b in C.conv3d_fused_cuda.events) / 1e3
+        C.conv3d_fused_cuda.events = None
+        seconds = clock.marks[-1] - clock.marks[0]
+        losses = [float(v) for v in clock]
+        out[name] = dict(s_per_step=seconds / SMOKE_STEPS, k2_s=k2_s, k2_share=k2_s / seconds,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9, k2_modes=modes,
+                         simt_launches=simt, losses=losses, mode=mode)
+        log(f"10 pretrain {name}: {cfg}; " + json.dumps(out[name]))
+        expected = dict.fromkeys(C.MODES, 0)
+        expected[mode] = 3 * n_convs * (1 + SMOKE_STEPS)
+        if modes != expected or simt:
+            raise AssertionError(f"10 pretrain {name}: K2 ran {modes} (SIMT {simt}), expected "
+                                 f"{expected}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"10 pretrain {name}: losses {losses}")
+    return out
+
+
+def phase_smoke_bf16_sampling(smoke, test):
+    """10d: guided DDIM steps of SmokePipeline at B = 50 (the framework conv,
+    as in phase 4), float32 (TF32) and bf16 compute, SMOKE_STEPS steps each
+    after one warm-up forward."""
+    from safediffcon_torch.tasks.smoke.pipeline import init_params
+
+    ccfg = dataclasses.replace(smoke.SmokeConformalConfig(), ddim_sampling_steps=SMOKE_STEPS)
+    state = torch.as_tensor(test.data[:N_TEST], device="cuda")
+    out = {}
+    for name, dtype in (("float32", None), ("bfloat16", "bfloat16")):
+        pipe = smoke.SmokePipeline(ccfg, compute_dtype=dtype, device="cuda")
+        init_params(pipe.model, seed=0)
+        t = torch.full((N_TEST,), 500, device="cuda")
+        with torch.no_grad():
+            pipe.model(state, t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pred = pipe._sample_test(state, 0.05, guided=True,
+                                 generator=torch.Generator(device="cuda").manual_seed(2))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out[name] = dict(ms_per_guided_step=1e3 * seconds / SMOKE_STEPS,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         finite=bool(torch.isfinite(pred).all()))
+        del pipe, pred
+        torch.cuda.empty_cache()
+    log(f"10d guided DDIM at B = {N_TEST}, {SMOKE_STEPS} steps: " + json.dumps(out))
+    if not all(v["finite"] for v in out.values()):
+        raise AssertionError(f"10d: non-finite samples {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tokamak (phases T1-T6): UNet1D, the KSTAR surrogate, guided DDIM, training
+# ---------------------------------------------------------------------------
+
+def count_launches(fn, per: int) -> float:
+    """CUDA kernels per unit of `fn`'s work (`per` units), by torch.profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernels / per if kernels else "not measured"
+
+
+def phase_tokamak_solver(kstar):
+    """T1: the surrogate on the card and on the CPU: the three reference
+    golden rollouts; ms per rollout at B = 50 and at datagen's batch, open
+    loop and closed loop; kernel launches per solver step."""
+    golden = np.load(ROOT / "tests" / "golden" / "kstar_reference_rollouts.npz")
+    actions = torch.from_numpy(np.stack([golden[f"actions_{i}"] for i in range(3)]))
+    ref = np.stack([golden[f"outputs_{i}"] for i in range(3)])
+    card_p, cpu_p = kstar.load_kstar_params(device="cuda"), kstar.load_kstar_params(device="cpu")
+    card = kstar.simulate_batch(card_p, actions.cuda()).cpu().numpy()
+    cpu = kstar.simulate_batch(cpu_p, actions).numpy()
+    golden_err = float((np.abs(card - ref) / (np.abs(ref) + 1e-6)).max())
+    cpu_err = float((np.abs(card - cpu) / (np.abs(cpu) + 1e-6)).max())
+    n_gen = T_N_TRAIN + T_N_CAL + T_N_TEST
+    acts50 = actions.cuda().repeat(-(-T_BATCH // 3), 1, 1)[:T_BATCH]
+    acts_gen = actions.cuda().repeat(-(-n_gen // 3), 1, 1)[:n_gen]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = dict(
+        golden_max_rel_err=golden_err, card_vs_cpu_max_rel_err=cpu_err,
+        ms_per_rollout_50=cuda_ms(lambda: kstar.simulate_batch(card_p, acts50), reps=2),
+        ms_per_rollout_datagen=cuda_ms(lambda: kstar.simulate_batch(card_p, acts_gen), reps=1),
+        ms_per_closed_loop_50=cuda_ms(lambda: kstar.closed_loop_batch(card_p, T_BATCH, gen),
+                                      reps=1),
+        ms_per_closed_loop_datagen=cuda_ms(lambda: kstar.closed_loop_batch(card_p, n_gen, gen),
+                                           reps=1),
+        launches_per_step=count_launches(lambda: kstar.simulate_batch(card_p, acts50[:, :10]),
+                                         10),
+        launches_per_closed_loop_step=count_launches(
+            lambda: kstar.closed_loop_batch(card_p, T_BATCH, gen), kstar.NT_ACTIONS),
+        datagen_batch=n_gen, steps=kstar.NT_ACTIONS)
+    log("T1 solver " + json.dumps(out))
+    # the reference's own bound (tests/test_kstar_solver.py); the same
+    # float32 arithmetic on both devices, sums in other orders
+    if not (np.isfinite(card).all() and golden_err < 1e-4 and cpu_err < 1e-4):
+        raise AssertionError(f"T1: the surrogate on the card misses the goldens: {out}")
+    return out
+
+
+def phase_tokamak_datagen(tokamak):
+    """T2: T_N_TRAIN + T_N_CAL + T_N_TEST closed-loop trajectories in one
+    batch (seed 0), the rollout and the npz save timed apart."""
+    path = str(ROOT / "build" / "chip_smoke" / "tokamak.npz")
+    phases = {}
+    tokamak.generate_tokamak_dataset(path, n_train=T_N_TRAIN, n_cal=T_N_CAL, n_test=T_N_TEST,
+                                     seed=0, gen_batch=8192, device="cuda",
+                                     phase_seconds=phases)
+    data = {s: tokamak.TokamakDataset.load(path, s) for s in ("train", "cal", "test")}
+    log(f"T2 datagen: {T_N_TRAIN} + {T_N_CAL} + {T_N_TEST} trajectories (reference 48,950 "
+        f"train, cut to what T5-T6 read) in one batch; seconds {json.dumps(phases)}")
+    for name, d in data.items():
+        if not (np.isfinite(d.data).all() and d.data.shape[1:] == (128, 12)):
+            raise AssertionError(f"tokamak datagen: {name} split is not finite or misshapen")
+    return data, phases
+
+
+TOKAMAK_SMALL_CONF = dict(cal_batch_size=4, num_cal_batch=2, n_cal_samples=8, n_test_samples=4,
+                          test_batch_size=4, ddim_sampling_steps=4, timesteps=8, w_obj=1.0)
+
+
+def tokamak_small_run(tokamak, data, device, draws) -> dict:
+    """A tiny UNet1D (dim 16, seeded weights) on `device` with the given
+    draws: calibrate on 8 cal sims, evaluate 4 test sims unguided and
+    guided, then one post-training step and one InfFT step (w_obj 1, so the
+    loss reaches the weights through the βp and li channels)."""
+    from safediffcon_torch.tasks.tokamak.pipeline import init_params, make_finetune_steps
+
+    def moved(x):
+        return x.to(device)
+
+    sampler_draws, train_draws = draws
+    cal = tokamak.TokamakDataset(data["cal"].data[:8], data["cal"].state_phys[:8])
+    test = tokamak.TokamakDataset(data["test"].data[:4], data["test"].state_phys[:4])
+    pipe = tokamak.TokamakPipeline(tokamak.TokamakConformalConfig(**TOKAMAK_SMALL_CONF), dim=16,
+                                   dim_mults=(1, 2), device=device)
+    init_params(pipe.model, seed=0)
+    noise = iter([(moved(i), [moved(z) for z in st]) for i, st in sampler_draws])
+    q = float(pipe.calibrate(None, cal, 0.0, noise=noise))
+    m = pipe.evaluate(None, test, q, noise=noise)
+    g = pipe.evaluate(None, test, q, guided=True, noise=noise)
+    cfg = dataclasses.replace(tokamak.posttrain_config(), conformal=pipe.ccfg, finetune_lr=1e-3)
+    tx, weighted_step, backward_step = make_finetune_steps(cfg, pipe)
+    opt_state = tx.init(list(pipe.model.parameters()))
+    batch = torch.as_tensor(test.data, device=device)
+    target = torch.as_tensor(test.state_phys, device=device)
+    with GradRecorder() as grads:
+        post = float(weighted_step(opt_state, batch, torch.ones(4, device=device),
+                                   noise=tuple(moved(x) for x in train_draws)))
+        infft = float(backward_step(opt_state, batch, target, q, noise=next(noise)))
+    weights = {k: v.detach().cpu() for k, v in pipe.model.state_dict().items()}
+    return dict(q=q, metrics=m, guided_metrics=g, posttrain_loss=post, infft_loss=infft,
+                weights=weights, grads=grads.steps)
+
+
+def phase_tokamak_small_agreement(tokamak, data):
+    """T3: `tokamak_small_run` on the card and on the CPU (whose path the CPU
+    tests hold against the JAX package) with the same draws, TF32 off:
+    Q-hat, the metrics, both losses, each step's gradients and the weights
+    after the two steps must agree."""
+    gen = torch.Generator().manual_seed(12)
+    shape = (4, 128, 12)
+
+    def sampler_draws():
+        return torch.randn(shape, generator=gen), [torch.randn(shape, generator=gen)
+                                                   for _ in range(3)]
+
+    draws = ([sampler_draws() for _ in range(5)],  # 2 calibrate, 2 evaluate, 1 InfFT
+             (torch.randint(0, 8, (4,), generator=gen), torch.randn(shape, generator=gen)))
+    with tf32_flag(False):
+        results = {device: tokamak_small_run(tokamak, data, device, draws)
+                   for device in ("cuda", "cpu")}
+    card, cpu = results["cuda"], results["cpu"]
+    for device, r in results.items():
+        log(f"T3 small input ({device}): Q-hat {r['q']:.6f}, posttrain loss "
+            f"{r['posttrain_loss']:.6f}, InfFT loss {r['infft_loss']:.6f}, metrics "
+            + json.dumps(r["metrics"], sort_keys=True) + ", guided "
+            + json.dumps(r["guided_metrics"], sort_keys=True))
+    # float32 on both sides, sums in other orders: Q and the losses 1e-4;
+    # the metrics 1e-3 (the surrogate's 1e-3 action quantisation can turn a
+    # rounding difference into one step), a ratio may move by one row or
+    # one sample across the threshold
+    unit = {"time_below_ratio": 1 / (4 * 122), "sample_below_ratio": 1 / 4}
+    checks = [abs(card["q"] - cpu["q"]) <= 1e-4 * abs(cpu["q"]) + 1e-7,
+              abs(card["posttrain_loss"] - cpu["posttrain_loss"])
+              <= 1e-4 * abs(cpu["posttrain_loss"]),
+              abs(card["infft_loss"] - cpu["infft_loss"]) <= 1e-4 * abs(cpu["infft_loss"]),
+              cpu["infft_loss"] > 0]
+    for key in ("metrics", "guided_metrics"):
+        for name, ref in cpu[key].items():
+            tol = unit[name] + 1e-6 if name in unit else 1e-3 * abs(ref) + 1e-7
+            checks.append(abs(card[key][name] - ref) <= tol)
+    # the gradients of the post-training and the InfFT step, float32 sums
+    # in other orders: 2e-5 relative (an H100 saw 1.8e-7 and 1.8e-6); then
+    # Adam (lr 1e-3) steps each weight by about lr * sign(g), so an entry
+    # whose gradient is near 0 may step either way: 99 % of the weights
+    # within 1e-4 lr (an H100 saw 1.5e-8)
+    errs = grad_rel_errs(card["grads"], cpu["grads"])
+    checks.append(max(errs) <= 2e-5)
+    diff = torch.cat([(card["weights"][k] - v).abs().flatten()
+                      for k, v in cpu["weights"].items()])
+    checks.append(float(diff.quantile(0.99)) <= 1e-4 * 1e-3)
+    log(f"T3 small input: gradients' relative L2 error (posttrain, InfFT) {errs}; |card - cpu| "
+        f"of the weights after the two steps: 99th percentile "
+        f"{float(diff.quantile(0.99)):.3e}, max {float(diff.max()):.3e}")
+    if not all(checks):
+        raise AssertionError(f"tokamak small input: card and CPU disagree ({checks})")
+
+
+def phase_tokamak_serving(tokamak, data):
+    """T4: the TokamakConformalConfig defaults (DDIM 200, eta 1, alpha 0.9,
+    threshold 4.98) at the turbo width, float32 at the default flags:
+    calibrate on the 1,000 cal sims in one chunk, evaluate the 50 test sims
+    unguided (the default), then guided with guidance_scaler 5 (as
+    posttrain_config sets it); ms per step, the surrogate's share of
+    evaluate, peak memory, and a torch.profiler breakdown of one forward at
+    B = 50 with its bound from its FLOPs at the TF32 peak."""
+    from safediffcon_torch.tasks.tokamak.pipeline import init_params
+
+    ccfg = tokamak.TokamakConformalConfig()
+    pipe = tokamak.TokamakPipeline(ccfg, cal_chunk=T_CAL_CHUNK, device="cuda")
+    init_params(pipe.model, seed=0)
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    steps = ccfg.ddim_sampling_steps
+    log(f"T4 serving: UNet1D turbo, {n_params} parameters, seeded weights; {ccfg}; calibrate "
+        f"{len(data['cal'])} sims in chunks of {pipe.cal_chunk} (the JAX default is 50)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = float(pipe.calibrate(None, data["cal"], 0.0,
+                             generator=torch.Generator(device="cuda").manual_seed(1)))
+    calibrate_s = time.perf_counter() - t0
+    cal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runs = {}
+    guided_pipe = tokamak.TokamakPipeline(dataclasses.replace(ccfg, guidance_scaler=5.0),
+                                          device="cuda")
+    guided_pipe.model.load_state_dict(pipe.model.state_dict())
+    for name, p, guided in (("unguided", pipe, False), ("guided", guided_pipe, True)):
+        p.phase_seconds = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = p.evaluate(None, data["test"], q, guided=guided,
+                             generator=torch.Generator(device="cuda").manual_seed(2))
+        evaluate_s = time.perf_counter() - t0
+        sampling_s, rollout_s = p.phase_seconds["sampling"], p.phase_seconds["rollout"]
+        runs[name] = dict(evaluate_s=evaluate_s, sampling_s=sampling_s, rollout_s=rollout_s,
+                          solver_share=rollout_s / (sampling_s + rollout_s),
+                          ms_per_step=1e3 * sampling_s / steps,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9, metrics=metrics)
+    shape = (T_BATCH, 128, 12)
+    flops = forward_flops(pipe.model, shape)
+    prof = profile_forward(pipe.model, shape)
+    out = dict(calibrate_s=calibrate_s, cal_sims=len(data["cal"]), cal_chunk=pipe.cal_chunk,
+               ms_per_cal_step=1e3 * calibrate_s / steps, peak_gb_calibrate=cal_peak_gb,
+               evaluate=runs, q=q, forward_gflop=flops / 1e9,
+               forward_bound_ms_tf32=1e3 * flops / TF32_FLOPS_PER_S, forward_profile=prof,
+               flags=dict(cudnn_tf32=torch.backends.cudnn.allow_tf32,
+                          matmul_tf32=torch.backends.cuda.matmul.allow_tf32))
+    log("T4 serving " + json.dumps(out, sort_keys=True))
+    values = [q, *runs["unguided"]["metrics"].values(), *runs["guided"]["metrics"].values()]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"tokamak serving: non-finite result: {out}")
+    return out
+
+
+def phase_tokamak_pretrain(tokamak, data):
+    """T5: TokamakPretrainConfig defaults (batch 16) for T_PRETRAIN_STEPS
+    steps after one warm-up step, from seeded weights; the loop's set-up,
+    timed alone, is taken off the steps' time."""
+    from safediffcon_torch.tasks.tokamak.pipeline import build_model, init_params
+
+    cfg = tokamak.TokamakPretrainConfig()
+    train = data["train"]
+    init = init_params(build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups,
+                                   device="cuda"), seed=cfg.seed)
+    init = {k: v.detach() for k, v in init.state_dict().items()}
+    tokamak.pretrain(cfg, train, num_steps=1, params=init, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokamak.pretrain(cfg, train, num_steps=T_PRETRAIN_STEPS, params=init, device="cuda",
+                     deadline=0.0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    state = tokamak.pretrain(cfg, train, num_steps=T_PRETRAIN_STEPS, params=init,
+                             device="cuda", losses=losses)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0 - setup_s
+    losses = [float(v) for v in losses]
+    ema_moved = max(float((state.ema_params[k] - init[k]).abs().max()) for k in init)
+    out = dict(steps=T_PRETRAIN_STEPS, batch=cfg.batch_size, setup_s=setup_s, seconds=seconds,
+               s_per_step=seconds / T_PRETRAIN_STEPS,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+               ema_moved=ema_moved)
+    log(f"T5 pretrain: {cfg}; " + json.dumps(out))
+    if not (all(math.isfinite(v) for v in losses) and len(losses) == T_PRETRAIN_STEPS
+            and state.step == T_PRETRAIN_STEPS and ema_moved > 0):
+        raise AssertionError(f"tokamak pretrain: {out}")
+    return {k: v.clone() for k, v in state.ema_params.items()}, out
+
+
+def phase_tokamak_finetune(tokamak, data, params):
+    """T6: from T5's EMA, run_inference with posttrain_config() for 2 epochs
+    of 1 step at batch 1,000, and with finetune_config() (DDIM 250) for 1
+    epoch of 1 InfFT step at B = 50; each epoch calibrates on the 1,000 cal
+    sims in one chunk. InfFT's loss relu(threshold - min q95 + Q) has no
+    gradient where the sample's x0 estimate of q95 sits at the clip, as with
+    barely trained weights; one more InfFT step with w_obj 1 (the βp and li
+    objective) must then move the weights."""
+    from safediffcon_torch.tasks.tokamak.pipeline import make_finetune_steps
+
+    cal, test, train = data["cal"], data["test"], data["train"]
+    runs = {"posttrain": dataclasses.replace(tokamak.posttrain_config(), finetune_epoch=2),
+            "infft": dataclasses.replace(tokamak.finetune_config(), finetune_epoch=1)}
+    out = {}
+    for name, cfg in runs.items():
+        pipe = tokamak.TokamakPipeline(cfg.conformal, cal_chunk=T_CAL_CHUNK, device="cuda")
+        cal_s, marks = [], [time.perf_counter()]
+        calibrate = pipe.calibrate
+
+        def timed_calibrate(*a, **kw):
+            t = time.perf_counter()
+            q = calibrate(*a, **kw)
+            torch.cuda.synchronize()
+            cal_s.append(time.perf_counter() - t)
+            return q
+
+        def on_epoch(rec):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        pipe.calibrate = timed_calibrate
+        pipe.phase_seconds = {}
+        torch.cuda.reset_peak_memory_stats()
+        new, q, hist = tokamak.run_inference(cfg, pipe, params, train, cal, test,
+                                             on_epoch=on_epoch)
+        changed = max(float((new[k] - params[k]).abs().max()) for k in params)
+        rec = dict(epochs=[dict(epoch=r["epoch"], loss=r["loss"], quantile=r["quantile"],
+                                seconds=b - a) for r, a, b in zip(hist, marks, marks[1:])],
+                   calibrate_s=cal_s,
+                   evaluate_s=pipe.phase_seconds["sampling"] + pipe.phase_seconds["rollout"],
+                   rollout_s=pipe.phase_seconds["rollout"],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, max_weight_change=changed,
+                   metrics=hist[-1]["eval"])
+        log(f"T6 {name}: " + json.dumps(rec, sort_keys=True))
+        values = [float(q), *hist[-1]["eval"].values(), *(r["loss"] for r in hist)]
+        if not (all(math.isfinite(v) for v in values) and len(hist) == cfg.finetune_epoch):
+            raise AssertionError(f"tokamak {name}: {rec}")
+        if name == "posttrain" and not changed > 0:
+            raise AssertionError("tokamak posttrain left the weights unchanged")
+        if name == "infft" and not changed > 0:
+            pipe.task_cfg = dataclasses.replace(pipe.task_cfg, w_obj=1.0)
+            tx, _, backward_step = make_finetune_steps(cfg, pipe)
+            before = {k: v.clone() for k, v in pipe.model.state_dict().items()}
+            t0 = time.perf_counter()
+            loss = float(backward_step(
+                tx.init(list(pipe.model.parameters())), torch.as_tensor(test.data, device="cuda"),
+                torch.as_tensor(test.state_phys, device="cuda"), q,
+                generator=torch.Generator(device="cuda").manual_seed(7)))
+            moved = max(float((v - before[k]).abs().max())
+                        for k, v in pipe.model.state_dict().items())
+            rec["step_with_objective"] = dict(seconds=time.perf_counter() - t0, loss=loss,
+                                              max_weight_change=moved)
+            log(f"T6 InfFT step with w_obj 1: {json.dumps(rec['step_with_objective'])}")
+            if not (math.isfinite(loss) and loss > 0 and moved > 0):
+                raise AssertionError(f"tokamak InfFT step with w_obj 1: loss {loss}, weights "
+                                     f"moved {moved}")
+        out[name] = rec
+        del pipe, new
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1114,9 +1709,11 @@ def main() -> int:
     from safediffcon_torch.ops import build
     from safediffcon_torch.ops import conv3d_mxu as C
     from safediffcon_torch.ops import pressure_cg as K
+    from safediffcon_torch.solvers import kstar
     from safediffcon_torch.solvers import smoke as S
     import safediffcon_torch.tasks.burgers as burgers
     import safediffcon_torch.tasks.smoke as smoke
+    import safediffcon_torch.tasks.tokamak as tokamak
 
     card = card_line()
     log(f"device: {card}; {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -1144,10 +1741,19 @@ def main() -> int:
     log(f"training phase times {json.dumps(dict(train_times, **ft_times), sort_keys=True)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
+    # phase 10: UNet3D in bf16 (the main path of K2's bf16 mode) and "save_heavy"
+    t_bf16 = time.perf_counter()
+    bf16 = dict(agreement=phase_smoke_bf16_agreement(C, smoke, data[0]),
+                training=phase_smoke_bf16_training(C, smoke, data[0]),
+                sampling=phase_smoke_bf16_sampling(smoke, data[2]))
+    bf16_launches = bf16["training"]["bf16_full"]["k2_modes"]["bf16"]
+    log(f"phase 10 in {time.perf_counter() - t_bf16:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     # Burgers: no kernel of the TPU package lies on its path; K1 and K2 must
     # stay idle through it
-    K.pressure_cg_cuda.launches = C.conv3d_fused_cuda.launches = 0
-    C.conv3d_fused_simt_cuda.launches = 0
+    K.pressure_cg_cuda.launches = 0
+    zero_k2_counts(C)
     t_burgers = time.perf_counter()
     b_times = dict(solver=phase_burgers_solver(burgers))
     b_data, b_times["datagen_s"] = phase_burgers_datagen(burgers)
@@ -1155,12 +1761,27 @@ def main() -> int:
     b_times["serving"] = phase_burgers_serving(burgers, b_data)
     b_ema, b_times["pretrain"] = phase_burgers_pretrain(burgers, b_data)
     b_times.update(phase_burgers_finetune(burgers, b_data, b_ema))
-    idle = (K.pressure_cg_cuda.launches, C.conv3d_fused_cuda.launches,
-            C.conv3d_fused_simt_cuda.launches)
+    idle = (K.pressure_cg_cuda.launches, k2_launches(C), C.conv3d_fused_simt_cuda.launches)
     log(f"Burgers phases B1-B6 in {time.perf_counter() - t_burgers:.1f} s; K1 / K2 / K2 SIMT "
         f"launches during them {idle}; total {time.perf_counter() - t_start:.1f} s")
     if any(idle):
         raise AssertionError(f"a TPU-kernel counterpart ran on the Burgers path: {idle}")
+
+    # Tokamak: no kernel of the TPU package lies on its path either
+    K.pressure_cg_cuda.launches = 0
+    zero_k2_counts(C)
+    t_tokamak = time.perf_counter()
+    t_times = dict(solver=phase_tokamak_solver(kstar))
+    t_data, t_times["datagen"] = phase_tokamak_datagen(tokamak)
+    phase_tokamak_small_agreement(tokamak, t_data)
+    t_times["serving"] = phase_tokamak_serving(tokamak, t_data)
+    t_ema, t_times["pretrain"] = phase_tokamak_pretrain(tokamak, t_data)
+    t_times.update(phase_tokamak_finetune(tokamak, t_data, t_ema))
+    idle = (K.pressure_cg_cuda.launches, k2_launches(C), C.conv3d_fused_simt_cuda.launches)
+    log(f"Tokamak phases T1-T6 in {time.perf_counter() - t_tokamak:.1f} s; K1 / K2 / K2 SIMT "
+        f"launches during them {idle}; total {time.perf_counter() - t_start:.1f} s")
+    if any(idle):
+        raise AssertionError(f"a TPU-kernel counterpart ran on the tokamak path: {idle}")
 
     kernels = [dict(
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",
@@ -1184,13 +1805,15 @@ def main() -> int:
     modes["bf16"] = dict(ms=bf16_main["kernel_ms"], bound_ms=bf16_main["bound_ms"],
                          bound_by=bf16_main["bound_by"], tflops=bf16_main["tflops"],
                          library_ms=bf16_main["library_ms"],
-                         max_rel_err=max(c["max_diff"] / c["max_abs"] for c in conv_cases
-                                         if c["dtype"] == "bfloat16"))
+                         max_rel_err=max(c[f"{k}max_diff"] / c[f"{k}max_abs"]
+                                         for c in conv_cases if c["dtype"] == "bfloat16"
+                                         for k in ("", "dx_", "dw_")))
     modes["3xtf32"]["library_fp32_ms"] = conv_main["library_fp32_ms"]
     kernels.append(dict(
         name="conv3d_fused", route="cuda", source="safediffcon_torch/csrc/conv3d_wgmma.cu",
         replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
-        launches=conv_launches, main_path_mode=train_times["k2_mode"],
+        launches=conv_launches + bf16_launches,
+        main_path_modes={train_times["k2_mode"]: conv_launches, "bf16": bf16_launches},
         max_abs_err=max(c["max_diff"] for c in f32_cases),
         ms=conv_main["kernel_ms"], plain_ms=conv_main["plain_ms"],
         bound_ms=conv_main["bound_ms"], bound_by=conv_main["bound_by"],

@@ -1,15 +1,18 @@
-"""Weight bridge between a flax UNet3D or UNet2D parameter tree and the
-port's `state_dict`, both ways (`flax_to_state_dict`, `state_dict_to_flax`).
+"""Weight bridge between a flax UNet3D, UNet2D or UNet1D parameter tree and
+the port's `state_dict`, both ways (`flax_to_state_dict`,
+`state_dict_to_flax`).
 
 The flax tree names each submodule by class and creation order at the model's
 scope (`ResnetBlock3D_4`, `_PreNormResidual3D_7`, `LinearAttention_2`,
 `Conv_1`, ...). A module wrapped by a pre-norm residual is created in the
 model's compact scope, before its wrapper, so it is named there too and the
-wrapper's scope holds only its ChanLayerNorm; `nn.remat` keeps the unwrapped
-names. `unet3d_scope_map` and `unet2d_scope_map` replay that creation order
-over the torch module tree. Leaves convert as:
+wrapper's scope holds only its norm (ChanLayerNorm, or RMSNorm in UNet1D);
+`nn.remat` keeps the unwrapped names. `unet3d_scope_map` and
+`unet2d_scope_map` (UNet2D and UNet1D, which share their topology) replay
+that creation order over the torch module tree. Leaves convert as:
 
   Dense kernel (in, out)                       -> Linear weight (out, in)
+  Conv kernel (k, I, O)                        -> weight (O, I, k)
   Conv kernel (kH, kW, I, O)                   -> weight (O, I, kH, kW)
   Conv / ConvTranspose kernel (kD,kH,kW,I,O)   -> weight (O, I, kD, kH, kW)
   GroupNorm scale, Embed embedding             -> weight
@@ -31,10 +34,11 @@ import torch
 from torch import nn
 
 from safediffcon_torch.models.layers import GroupNormCL
+from safediffcon_torch.models.unet1d import UNet1D
 from safediffcon_torch.models.unet2d import UNet2D
 from safediffcon_torch.models.unet3d import UNet3D
 
-Model = Union[UNet2D, UNet3D]
+Model = Union[UNet1D, UNet2D, UNet3D]
 
 # inner flax path (below the scope) -> torch sub-path, by scope kind
 _INNER = {
@@ -60,8 +64,10 @@ _INNER = {
         "Conv_0": "res_conv",
     },
     "LinearAttention": {"Dense_0": "to_qkv", "Dense_1": "to_out", "ChanLayerNorm_0": "norm"},
+    "LinearAttention1D": {"Dense_0": "to_qkv", "Dense_1": "to_out", "RMSNorm_0": "norm"},
     "Attention": {"Dense_0": "to_qkv", "Dense_1": "to_out"},
     "PreNormResidual": {"ChanLayerNorm_0": ""},
+    "PreNormResidual1D": {"RMSNorm_0": ""},
     "Downsample": {"Conv_0": "conv"},
     "Upsample": {"Conv_0": "conv"},
     "leaf": {"": ""},
@@ -111,8 +117,10 @@ def unet3d_scope_map(model: UNet3D) -> Dict[str, tuple]:
 
 
 def unet2d_scope_map(model: UNet2D) -> Dict[str, tuple]:
-    """flax scope name -> (torch module prefix, scope kind)."""
+    """flax scope name -> (torch module prefix, scope kind), for UNet2D and
+    UNet1D (whose norms are RMSNorms)."""
     count: Counter = Counter()
+    suffix = "1D" if model.ndim == 1 else ""
     out = {
         "TimeMLP_0": ("time_mlp", "TimeMLP"),
         "init_conv": ("init_conv", "leaf"),
@@ -123,15 +131,15 @@ def unet2d_scope_map(model: UNet2D) -> Dict[str, tuple]:
         out[f"{kind}_{count[kind]}"] = (prefix, map_kind or kind)
         count[kind] += 1
 
-    def pre_norm(kind, prefix):
+    def pre_norm(kind, prefix, map_kind=None):
         # the wrapped module is created before its PreNormResidual
-        take(kind, prefix + ".fn")
-        take("PreNormResidual", prefix + ".norm")
+        take(kind, prefix + ".fn", map_kind)
+        take("PreNormResidual", prefix + ".norm", "PreNormResidual" + suffix)
 
     def level(name, i, resample_kind):
         take("ResnetBlock", f"{name}.{i}.0")
         take("ResnetBlock", f"{name}.{i}.1")
-        pre_norm("LinearAttention", f"{name}.{i}.2")
+        pre_norm("LinearAttention", f"{name}.{i}.2", "LinearAttention" + suffix)
         if resample_kind == "Conv":
             take("Conv", f"{name}.{i}.3", "leaf")
         else:
@@ -162,6 +170,8 @@ def _leaf(name: str, value: np.ndarray):
     if name == "kernel":
         if value.ndim == 2:
             return "weight", value.T
+        if value.ndim == 3:
+            return "weight", value.transpose(2, 1, 0)
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
         if value.ndim == 5:
@@ -183,8 +193,8 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def flax_to_state_dict(model: Model, params: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert a flax param tree into a state_dict for `model` (UNet3D or
-    UNet2D)."""
+    """Convert a flax param tree into a state_dict for `model` (UNet3D,
+    UNet2D or UNet1D)."""
     if "params" in params:
         params = params["params"]
     scopes = scope_map(model)
@@ -232,6 +242,8 @@ def state_dict_to_flax(model: Model, state_dict: Mapping[str, torch.Tensor]) -> 
                 name = "scale"
             elif arr.ndim == 2:
                 name, arr = "kernel", arr.T
+            elif arr.ndim == 3:
+                name, arr = "kernel", arr.transpose(2, 1, 0)
             elif arr.ndim == 4:
                 name, arr = "kernel", arr.transpose(2, 3, 1, 0)
             elif arr.ndim == 5:

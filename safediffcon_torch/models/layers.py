@@ -1,7 +1,9 @@
 """Shared U-Net building blocks (torch.nn, channels-last).
 
 Port of `safediffcon_tpu/models/layers.py`. Norms act on the trailing
-channel axis, as in the flax modules.
+channel axis, as in the flax modules. The conv blocks take `ndim`, the
+number of spatial axes: 2 for the Burgers UNet2D over (B, T, X, C), 1 for
+the tokamak UNet1D over (B, L, C).
 
 Compute dtype follows flax's semantics op by op. A block built with
 `dtype=torch.bfloat16` casts its input and its float32 parameters to bf16
@@ -19,6 +21,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# compute_dtype names of the U-Nets -> the dtype their blocks take (None:
+# float32, the promoted type of float32 inputs and parameters)
+COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -68,6 +75,27 @@ class Conv2dCL(nn.Conv2d):
         y = self._conv_forward(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
                                self.bias.to(dt))
         return y.permute(0, 2, 3, 1)
+
+
+class Conv1dCL(nn.Conv1d):
+    """flax `nn.Conv(kernel_size=(k,), dtype=...)` over channels-last
+    (B, L, C) tensors: SAME for odd k and stride 1, or the given stride and
+    symmetric padding."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size: int, stride: int = 1,
+                 padding: Optional[int] = None, dtype: Optional[torch.dtype] = None):
+        super().__init__(dim_in, dim_out, kernel_size, stride=stride,
+                         padding=kernel_size // 2 if padding is None else padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _compute_dtype(self.compute_dtype, x, self.weight)
+        y = self._conv_forward(x.transpose(1, 2).to(dt), self.weight.to(dt), self.bias.to(dt))
+        return y.transpose(1, 2)
+
+
+# the SAME conv of each number of spatial axes
+CONV_CL = {1: Conv1dCL, 2: Conv2dCL}
 
 
 class GroupNormCL(nn.Module):
@@ -151,13 +179,13 @@ class TimeMLP(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """3x3 conv + GroupNorm + (scale, shift) + SiLU (reference:
+    """3-wide conv + GroupNorm + (scale, shift) + SiLU (reference:
     1D/model/unet.py:128-147)."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, ndim: int = 2):
         super().__init__()
-        self.conv = Conv2dCL(dim_in, dim_out, 3, dtype=dtype)
+        self.conv = CONV_CL[ndim](dim_in, dim_out, 3, dtype=dtype)
         self.norm = GroupNormCL(groups, dim_out, dtype=dtype)
 
     def forward(self, x, scale_shift=None):
@@ -174,12 +202,13 @@ class ResnetBlock(nn.Module):
     1D/model/unet.py:149-180)."""
 
     def __init__(self, dim_in: int, dim_out: int, time_dim: Optional[int], groups: int = 8,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, ndim: int = 2):
         super().__init__()
         self.mlp = Linear(time_dim, dim_out * 2, dtype=dtype) if time_dim else None
-        self.block1 = ConvBlock(dim_in, dim_out, groups, dtype)
-        self.block2 = ConvBlock(dim_out, dim_out, groups, dtype)
-        self.res_conv = Conv2dCL(dim_in, dim_out, 1, dtype=dtype) if dim_in != dim_out else None
+        self.block1 = ConvBlock(dim_in, dim_out, groups, dtype, ndim)
+        self.block2 = ConvBlock(dim_out, dim_out, groups, dtype, ndim)
+        self.res_conv = (CONV_CL[ndim](dim_in, dim_out, 1, dtype=dtype)
+                         if dim_in != dim_out else None)
 
     def forward(self, x, time_emb=None):
         scale_shift = None
@@ -271,25 +300,37 @@ class Downsample(nn.Module):
     """Space-to-depth by 2 in both spatial axes, then a 1x1 conv (reference:
     1D/model/unet.py:39-43). The 4C channels are stacked in (p1, p2, c)
     order, as the JAX reshape does; `F.pixel_unshuffle` would give (c, p1,
-    p2)."""
+    p2). With one spatial axis, a strided conv: kernel 4, stride 2, padding
+    (1, 1) (reference: 1D/model/unet.py:30-31)."""
 
-    def __init__(self, dim_in: int, dim_out: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, dim_in: int, dim_out: int, dtype: Optional[torch.dtype] = None,
+                 ndim: int = 2):
         super().__init__()
-        self.conv = Conv2dCL(4 * dim_in, dim_out, 1, dtype=dtype)
+        self.ndim = ndim
+        if ndim == 1:
+            self.conv = Conv1dCL(dim_in, dim_out, 4, stride=2, padding=1, dtype=dtype)
+        else:
+            self.conv = Conv2dCL(4 * dim_in, dim_out, 1, dtype=dtype)
 
     def forward(self, x):
+        if self.ndim == 1:
+            return self.conv(x)
         b, h, w, c = x.shape
         x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
         return self.conv(x.reshape(b, h // 2, w // 2, 4 * c))
 
 
 class Upsample(nn.Module):
-    """Nearest x2 repeat in both spatial axes, then a 3x3 conv (reference:
-    1D/model/unet.py:24-37)."""
+    """Nearest x2 repeat along each spatial axis, then a SAME 3-wide conv
+    (reference: 1D/model/unet.py:24-37)."""
 
-    def __init__(self, dim_in: int, dim_out: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, dim_in: int, dim_out: int, dtype: Optional[torch.dtype] = None,
+                 ndim: int = 2):
         super().__init__()
-        self.conv = Conv2dCL(dim_in, dim_out, 3, dtype=dtype)
+        self.ndim = ndim
+        self.conv = CONV_CL[ndim](dim_in, dim_out, 3, dtype=dtype)
 
     def forward(self, x):
-        return self.conv(x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
+        for axis in range(1, 1 + self.ndim):
+            x = x.repeat_interleave(2, dim=axis)
+        return self.conv(x)

@@ -11,6 +11,9 @@ NCHW with `permute`.
 `compute_dtype="bfloat16"` runs every Dense and Conv in bf16 from float32
 parameters, with flax's dtype semantics (`models/layers.py`); the output is
 float32 either way.
+
+The tokamak UNet1D (`models/unet1d.py`) is this network over one spatial
+axis; the class builds either from its `ndim`.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ import torch
 from torch import nn
 
 from safediffcon_torch.models.layers import (
+    COMPUTE_DTYPES,
+    CONV_CL,
     Attention,
-    Conv2dCL,
     Downsample,
     LinearAttention,
     PreNormResidual,
@@ -30,11 +34,11 @@ from safediffcon_torch.models.layers import (
     Upsample,
 )
 
-COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
-
 
 class UNet2D(nn.Module):
     """UNet2D forward on (B, T, X, channels) input and (B,) timesteps."""
+
+    ndim = 2  # spatial axes
 
     def __init__(
         self,
@@ -53,15 +57,20 @@ class UNet2D(nn.Module):
         self.compute_dtype = dt or torch.float32
         groups = resnet_block_groups
         time_dim = dim * 4
+        nd = self.ndim
+        conv = CONV_CL[nd]
+        # PreNormResidual: ChanLayerNorm over 2 spatial axes, RMSNorm over 1
+        layernorm = nd > 1
 
         def resnet(d_in, d_out):
-            return ResnetBlock(d_in, d_out, time_dim, groups, dt)
+            return ResnetBlock(d_in, d_out, time_dim, groups, dt, nd)
 
         def linear_attn(d):
-            return PreNormResidual(d, LinearAttention(d, attn_heads, attn_dim_head, dtype=dt))
+            return PreNormResidual(d, LinearAttention(d, attn_heads, attn_dim_head, nd, dtype=dt),
+                                   use_layernorm=layernorm)
 
         self.time_mlp = TimeMLP(dim, time_dim, dtype=dt)
-        self.init_conv = Conv2dCL(channels, dim, 7, dtype=dt)
+        self.init_conv = conv(channels, dim, 7, dtype=dt)
 
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
@@ -75,14 +84,15 @@ class UNet2D(nn.Module):
                 resnet(dim_in, dim_in),
                 resnet(dim_in, dim_in),
                 linear_attn(dim_in),
-                Conv2dCL(dim_in, dim_out, 3, dtype=dt) if is_last
-                else Downsample(dim_in, dim_out, dtype=dt),
+                conv(dim_in, dim_out, 3, dtype=dt) if is_last
+                else Downsample(dim_in, dim_out, dtype=dt, ndim=nd),
             ]))
 
         mid_dim = dims[-1]
         self.mid_block1 = resnet(mid_dim, mid_dim)
         self.mid_attn = PreNormResidual(
-            mid_dim, Attention(mid_dim, attn_heads, attn_dim_head, dtype=dt))
+            mid_dim, Attention(mid_dim, attn_heads, attn_dim_head, dtype=dt),
+            use_layernorm=layernorm)
         self.mid_block2 = resnet(mid_dim, mid_dim)
 
         self.ups = nn.ModuleList()
@@ -92,12 +102,12 @@ class UNet2D(nn.Module):
                 resnet(dim_out + dim_in, dim_out),
                 resnet(dim_out + dim_in, dim_out),
                 linear_attn(dim_out),
-                Conv2dCL(dim_out, dim_in, 3, dtype=dt) if is_last
-                else Upsample(dim_out, dim_in, dtype=dt),
+                conv(dim_out, dim_in, 3, dtype=dt) if is_last
+                else Upsample(dim_out, dim_in, dtype=dt, ndim=nd),
             ]))
 
         self.final_block = resnet(dim * 2, dim)
-        self.final_conv = Conv2dCL(dim, channels, 1, dtype=dt)
+        self.final_conv = conv(dim, channels, 1, dtype=dt)
 
     def forward(self, x, t):
         x = x.to(self.compute_dtype)

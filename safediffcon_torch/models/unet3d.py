@@ -13,10 +13,22 @@ accepts either flag and computes per-head attention.
 
 `conv_impl="pallas"` runs every 3x3x3 conv of the residual blocks on kernel
 K2 (`ops/conv3d_mxu.py`), with the same parameters as the framework conv, so
-a state_dict loads into either. `use_remat` with `remat_policy="full"`
-recomputes each residual block and pre-norm attention block in the backward
-pass (`torch.utils.checkpoint`), as `nn.remat` does in JAX; it acts only
-while autograd records.
+a state_dict loads into either.
+
+`compute_dtype="bfloat16"` runs every Dense and Conv (K2 included) in bf16
+from float32 parameters, with flax's dtype semantics (`models/layers.py`):
+the input, the time embedding and the relative-position bias are cast to
+bf16, so the residual stream stays bf16 (each pre-norm block ends in a bf16
+Dense); ChanLayerNorm takes bf16 statistics and returns float32 through its
+float32 `g`, which the next Dense casts back. The output is float32 either
+way.
+
+`use_remat` recomputes each residual block and pre-norm attention block in
+the backward pass (`torch.utils.checkpoint`), as `nn.remat` does in JAX; it
+acts only while autograd records. `remat_policy="full"` keeps only each
+block's inputs; `"save_heavy"` also keeps the outputs of the convolutions
+and matmuls autograd records (`SAVED_OPS`) and recomputes the rest, as the
+JAX policy saves `conv_general_dilated` and `dot_general`.
 """
 from __future__ import annotations
 
@@ -27,13 +39,46 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from safediffcon_torch.models.layers import GroupNormCL, PreNormResidual, TimeMLP
+from safediffcon_torch.models.layers import (
+    COMPUTE_DTYPES,
+    GroupNormCL,
+    Linear,
+    PreNormResidual,
+    TimeMLP,
+    _compute_dtype,
+)
 from safediffcon_torch.ops.conv3d_mxu import conv3d_fused_fn
 
 ATTN_IMPLS = ("heads", "packed")
 CONV_IMPLS = ("xla", "pallas")
+REMAT_POLICIES = ("full", "save_heavy")
+# the aten ops that F.conv3d / F.conv_transpose3d, F.linear and matmul /
+# einsum reach below autograd: the counterparts of conv_general_dilated and
+# dot_general, whose outputs "save_heavy" keeps
+_aten = torch.ops.aten
+SAVED_OPS = frozenset({_aten.convolution.default, _aten.mm.default, _aten.bmm.default,
+                       _aten.addmm.default, _aten.baddbmm.default})
+
+
+def _save_heavy_policy(ctx, op, *args, **kwargs):
+    # Only ops autograd records are kept. K2's autograd.Function runs its
+    # forward with grad off: its plain version (CPU) is recomputed, and its
+    # CUDA launch goes through ctypes, which no policy sees, so K2 is
+    # recomputed on both devices, as JAX recomputes the pallas_call inside
+    # its custom_vjp.
+    if op in SAVED_OPS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_heavy_context():
+    return create_selective_checkpoint_contexts(_save_heavy_policy)
 
 
 def _rel_pos_buckets(n: int, num_buckets: int = 32, max_distance: int = 128) -> np.ndarray:
@@ -73,10 +118,18 @@ def _rope(x: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
 
 
 class Conv3dCL(nn.Conv3d):
-    """nn.Conv3d over channels-last (B, F, H, W, C) tensors."""
+    """flax `nn.Conv(dtype=...)` over channels-last (B, F, H, W, C) tensors."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size, stride=1, padding=0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(dim_in, dim_out, kernel_size, stride=stride, padding=padding)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        dt = _compute_dtype(self.compute_dtype, x, self.weight)
+        y = self._conv_forward(x.permute(0, 4, 1, 2, 3).to(dt), self.weight.to(dt),
+                               self.bias.to(dt))
+        return y.permute(0, 2, 3, 4, 1)
 
 
 def _flax_same_transpose_pad(k: int, s: int):
@@ -99,8 +152,10 @@ class ConvTransposeCL(nn.Module):
     weight is held in correlation layout (Cout, Cin, kD, kH, kW), like a
     Conv3d's."""
 
-    def __init__(self, dim_in: int, dim_out: int, kernel_size, stride):
+    def __init__(self, dim_in: int, dim_out: int, kernel_size, stride,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.kernel_size = tuple(kernel_size)
         self.stride = tuple(stride)
         self.padding = []
@@ -113,23 +168,26 @@ class ConvTransposeCL(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim_out))
 
     def forward(self, x):
-        w = self.weight.flip(2, 3, 4).transpose(0, 1)
-        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w, self.bias,
+        dt = _compute_dtype(self.compute_dtype, x, self.weight)
+        w = self.weight.flip(2, 3, 4).transpose(0, 1).to(dt)
+        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3).to(dt), w, self.bias.to(dt),
                                stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
 
 
 class TemporalAttention(nn.Module):
     """Full attention over the frame axis with RoPE + relative position bias
-    (reference: video_diffusion_pytorch_conv3d.py:277-353)."""
+    (reference: video_diffusion_pytorch_conv3d.py:277-353). In bf16 the
+    scores, the bias and the softmax are bf16, as in the JAX module."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.heads = heads
         self.dim_head = dim_head
         hidden = heads * dim_head
-        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
-        self.to_out = nn.Linear(hidden, dim, bias=False)
+        self.to_qkv = Linear(dim, hidden * 3, bias=False, dtype=dtype)
+        self.to_out = Linear(hidden, dim, bias=False, dtype=dtype)
 
     def forward(self, x, pos_bias=None):
         b, f, hh, ww, c = x.shape
@@ -157,13 +215,14 @@ class SpatialLinearAttention3D(nn.Module):
     """Per-frame linear attention over H*W tokens
     (reference: video_diffusion_pytorch_conv3d.py:232-258)."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.heads = heads
         self.dim_head = dim_head
         hidden = heads * dim_head
-        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
-        self.to_out = nn.Linear(hidden, dim)
+        self.to_qkv = Linear(dim, hidden * 3, bias=False, dtype=dtype)
+        self.to_out = Linear(hidden, dim, dtype=dtype)
 
     def forward(self, x):
         b, f, hh, ww, c = x.shape
@@ -188,13 +247,14 @@ class SpatialLinearAttention3D(nn.Module):
 class MidSpatialAttention(nn.Module):
     """Full per-frame spatial attention at the bottleneck (`_MidSpatial`)."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.heads = heads
         self.dim_head = dim_head
         hidden = heads * dim_head
-        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
-        self.to_out = nn.Linear(hidden, dim, bias=False)
+        self.to_qkv = Linear(dim, hidden * 3, bias=False, dtype=dtype)
+        self.to_out = Linear(hidden, dim, bias=False, dtype=dtype)
 
     def forward(self, z):
         b, ff, hh, ww, c = z.shape
@@ -218,25 +278,29 @@ class MidSpatialAttention(nn.Module):
 class FusedConv3x3x3(nn.Module):
     """Stride-1 SAME 3x3x3 conv on channels-last tensors through kernel K2
     (`FusedConv3x3x3` of the JAX module). Its parameters are a Conv3d's:
-    weight (Cout, Cin, 3, 3, 3) and bias (Cout,)."""
+    weight (Cout, Cin, 3, 3, 3) and bias (Cout,), float32; with a dtype, x,
+    the weight and the bias are cast to it, and the bias is added in it."""
 
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(dim_out, dim_in, 3, 3, 3))
         self.bias = nn.Parameter(torch.zeros(dim_out))
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return conv3d_fused_fn(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+        dt = self.compute_dtype or x.dtype
+        return conv3d_fused_fn(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class Block3D(nn.Module):
-    def __init__(self, dim_in: int, dim_out: int, groups: int = 8, conv_impl: str = "xla"):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8, conv_impl: str = "xla",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if conv_impl == "pallas":
-            self.conv = FusedConv3x3x3(dim_in, dim_out)
+            self.conv = FusedConv3x3x3(dim_in, dim_out, dtype)
         else:
-            self.conv = Conv3dCL(dim_in, dim_out, kernel_size=3, padding=1)
-        self.norm = GroupNormCL(groups, dim_out)
+            self.conv = Conv3dCL(dim_in, dim_out, kernel_size=3, padding=1, dtype=dtype)
+        self.norm = GroupNormCL(groups, dim_out, dtype=dtype)
 
     def forward(self, x, scale_shift=None):
         x = self.norm(self.conv(x))
@@ -251,12 +315,13 @@ class ResnetBlock3D(nn.Module):
     builds the block without its time projection."""
 
     def __init__(self, dim_in: int, dim_out: int, time_dim: Optional[int], groups: int = 8,
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla", dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.mlp = nn.Linear(time_dim, dim_out * 2) if time_dim else None
-        self.block1 = Block3D(dim_in, dim_out, groups, conv_impl)
-        self.block2 = Block3D(dim_out, dim_out, groups, conv_impl)
-        self.res_conv = Conv3dCL(dim_in, dim_out, kernel_size=1) if dim_in != dim_out else None
+        self.mlp = Linear(time_dim, dim_out * 2, dtype=dtype) if time_dim else None
+        self.block1 = Block3D(dim_in, dim_out, groups, conv_impl, dtype)
+        self.block2 = Block3D(dim_out, dim_out, groups, conv_impl, dtype)
+        self.res_conv = (Conv3dCL(dim_in, dim_out, kernel_size=1, dtype=dtype)
+                         if dim_in != dim_out else None)
 
     def forward(self, x, time_emb=None):
         scale_shift = None
@@ -272,10 +337,8 @@ class ResnetBlock3D(nn.Module):
 
 
 class UNet3D(nn.Module):
-    """UNet3D forward on (B, F, H, W, C) float32 input and (B,) timesteps.
-
-    compute_dtype "float32" only, and remat_policy "full" only: bfloat16
-    compute and the "save_heavy" policy are not ported yet."""
+    """UNet3D forward on (B, F, H, W, C) input and (B,) timesteps; float32
+    output."""
 
     def __init__(
         self,
@@ -296,26 +359,25 @@ class UNet3D(nn.Module):
             raise ValueError(f"unknown conv_impl {conv_impl!r}")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
-        if remat_policy == "save_heavy":
-            raise NotImplementedError("remat_policy 'save_heavy' is not ported yet")
-        if remat_policy != "full":
+        if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
-        if compute_dtype == "bfloat16":
-            raise NotImplementedError("compute_dtype 'bfloat16' is not ported yet")
-        if compute_dtype not in (None, "float32"):
+        if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        dt = COMPUTE_DTYPES[compute_dtype]
+        self.compute_dtype = dt or torch.float32
         self.use_remat = use_remat
+        self.remat_policy = remat_policy
 
         def temporal(d):
-            return PreNormResidual(d, TemporalAttention(d, attn_heads, attn_dim_head))
+            return PreNormResidual(d, TemporalAttention(d, attn_heads, attn_dim_head, dt))
 
         def spatial(d):
-            return PreNormResidual(d, SpatialLinearAttention3D(d, attn_heads, attn_dim_head))
+            return PreNormResidual(d, SpatialLinearAttention3D(d, attn_heads, attn_dim_head, dt))
 
         time_dim = dim * 4
         self.time_rel_pos_bias = nn.Embedding(32, attn_heads)
-        self.time_mlp = TimeMLP(dim, time_dim)
-        self.init_conv = Conv3dCL(channels, dim, kernel_size=7, padding=3)
+        self.time_mlp = TimeMLP(dim, time_dim, dtype=dt)
+        self.init_conv = Conv3dCL(channels, dim, kernel_size=7, padding=3, dtype=dt)
         self.init_temporal_attn = temporal(dim)
 
         dims = [dim] + [dim * m for m in dim_mults]
@@ -323,7 +385,7 @@ class UNet3D(nn.Module):
         num_res = len(in_out)
 
         def resnet(d_in, d_out, t_dim=time_dim):
-            return ResnetBlock3D(d_in, d_out, t_dim, resnet_groups, conv_impl)
+            return ResnetBlock3D(d_in, d_out, t_dim, resnet_groups, conv_impl, dt)
 
         # each level: [resnet, resnet, spatial attn, temporal attn, resample]
         self.downs = nn.ModuleList()
@@ -337,13 +399,13 @@ class UNet3D(nn.Module):
                 # spatial-only downsample, k(1,4,4) s(1,2,2)
                 nn.Identity() if is_last else Conv3dCL(
                     dim_out, dim_out, kernel_size=(1, 4, 4), stride=(1, 2, 2),
-                    padding=(0, 1, 1)),
+                    padding=(0, 1, 1), dtype=dt),
             ]))
 
         mid_dim = dims[-1]
         self.mid_block1 = resnet(mid_dim, mid_dim)
         self.mid_spatial_attn = PreNormResidual(
-            mid_dim, MidSpatialAttention(mid_dim, attn_heads, attn_dim_head))
+            mid_dim, MidSpatialAttention(mid_dim, attn_heads, attn_dim_head, dt))
         self.mid_temporal_attn = temporal(mid_dim)
         self.mid_block2 = resnet(mid_dim, mid_dim)
 
@@ -357,26 +419,31 @@ class UNet3D(nn.Module):
                 temporal(dim_in),
                 # spatial-only transposed-conv upsample, k(1,4,4) s(1,2,2)
                 nn.Identity() if is_last else ConvTransposeCL(
-                    dim_in, dim_in, kernel_size=(1, 4, 4), stride=(1, 2, 2)),
+                    dim_in, dim_in, kernel_size=(1, 4, 4), stride=(1, 2, 2), dtype=dt),
             ]))
 
         self.final_block = resnet(dim * 2, dim, None)
-        self.final_conv = Conv3dCL(dim, channels, kernel_size=1)
+        self.final_conv = Conv3dCL(dim, channels, kernel_size=1, dtype=dt)
 
     def forward(self, x, t):
-        x = x.to(torch.float32)
+        dt = self.compute_dtype
+        x = x.to(dt)
         f = x.shape[1]
         buckets = torch.as_tensor(_rel_pos_buckets(f, num_buckets=32, max_distance=32),
                                   device=x.device)
-        pos_bias = self.time_rel_pos_bias(buckets).permute(2, 0, 1)  # (H, F, F)
-        time_emb = self.time_mlp(t)
+        pos_bias = self.time_rel_pos_bias(buckets).permute(2, 0, 1).to(dt)  # (H, F, F)
+        time_emb = self.time_mlp(t).to(dt)
 
         if self.use_remat and torch.is_grad_enabled():
-            # each residual / pre-norm block keeps only its inputs; its
-            # activations are recomputed in the backward pass
+            # each residual / pre-norm block keeps its inputs ("full") and
+            # its conv / matmul outputs ("save_heavy"); the rest is
+            # recomputed in the backward pass
+            kw_ckpt = dict(use_reentrant=False, preserve_rng_state=False)
+            if self.remat_policy == "save_heavy":
+                kw_ckpt["context_fn"] = _save_heavy_context
+
             def run(block, *args, **kw):
-                return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
-                                  **kw)
+                return checkpoint(block, *args, **kw_ckpt, **kw)
         else:
             def run(block, *args, **kw):
                 return block(*args, **kw)

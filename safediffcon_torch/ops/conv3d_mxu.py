@@ -24,7 +24,8 @@ K = 27*Cin:
   channel-transposed weight (`_bwd`, conv3d_mxu.py:126-139), reading the
   TF32 flag when it runs. dW is a weight-gradient reduction outside the
   kernel, as in JAX: the framework's `conv3d_weight` on CUDA and the plain
-  shifted-slice form on the CPU.
+  shifted-slice form on the CPU, both in float32 (for bf16 input too) and
+  rounded once to the weight's dtype.
 """
 from __future__ import annotations
 
@@ -137,7 +138,7 @@ def kernel_mode(dtype) -> str:
 
 def _launch(fn, x, args, counter):
     """Run one launch on the current stream, raising on a refused launch;
-    count it on `counter` and time it when `counter.events` is a list."""
+    time it when `counter.events` is a list. The caller counts it."""
     stream = torch.cuda.current_stream(x.device)
     events = counter.events
     if events is not None:
@@ -146,7 +147,6 @@ def _launch(fn, x, args, counter):
     err = fn(*args, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"{counter.__name__}: kernel launch failed with error {err}")
-    counter.launches += 1
     if events is not None:
         end.record(stream)
         events.append((start, end))
@@ -155,7 +155,8 @@ def _launch(fn, x, args, counter):
 def conv3d_fused_cuda(x: torch.Tensor, w_flat: torch.Tensor, tile: Tuple[int, int]) -> torch.Tensor:
     """Launch the tensor-core kernel (`csrc/conv3d_wgmma.cu`) on the current
     stream with the tile of `wgmma_tile`, in the precision of `kernel_mode`.
-    Counts its launches in `conv3d_fused_cuda.launches`; when
+    Counts its launches per precision mode in the dict
+    `conv3d_fused_cuda.launches` ({mode: count}); when
     `conv3d_fused_cuda.events` is a list, appends a (start, end) pair of
     timing CUDA events around each launch (no sync)."""
     b, f, h, w, c = x.shape
@@ -173,10 +174,11 @@ def conv3d_fused_cuda(x: torch.Tensor, w_flat: torch.Tensor, tile: Tuple[int, in
     args = (x.data_ptr(), w_hi.data_ptr(), None if w_lo is None else w_lo.data_ptr(),
             out.data_ptr(), b, f, h, w, c, cout, *tile, MODES[mode])
     _launch(fn, x, args, conv3d_fused_cuda)
+    conv3d_fused_cuda.launches[mode] += 1
     return out
 
 
-conv3d_fused_cuda.launches = 0
+conv3d_fused_cuda.launches = dict.fromkeys(MODES, 0)
 conv3d_fused_cuda.events = None
 
 
@@ -193,6 +195,7 @@ def conv3d_fused_simt_cuda(x: torch.Tensor, w_flat: torch.Tensor) -> torch.Tenso
     args = (x.data_ptr(), w_flat.data_ptr(), out.data_ptr(), b, f, h, w, c, cout,
             _DTYPES[x.dtype])
     _launch(fn, x, args, conv3d_fused_simt_cuda)
+    conv3d_fused_simt_cuda.launches += 1
     return out
 
 
@@ -247,9 +250,13 @@ class _Conv3dFused(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = conv3d_fused(g, flatten_weight(flip_transpose(weight)))
         if ctx.needs_input_grad[1]:
+            # in float32 from the operands, rounded once to the weight's
+            # dtype, as the JAX VJP computes it (bf16 operands are exact in
+            # float32 and in TF32)
             if g.is_cuda:
                 dw = torch.nn.grad.conv3d_weight(
-                    x.permute(0, 4, 1, 2, 3), weight.shape, g.permute(0, 4, 1, 2, 3), padding=1)
+                    x.float().permute(0, 4, 1, 2, 3), weight.shape,
+                    g.float().permute(0, 4, 1, 2, 3), padding=1)
             else:
                 dw = conv3d_weight_grad_plain(x, g)
             dw = dw.to(weight.dtype)

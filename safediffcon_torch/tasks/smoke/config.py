@@ -3,8 +3,7 @@
 Same fields and defaults as `safediffcon_tpu/tasks/smoke/config.py`, which
 mirror the reference reproduce runs (reference: 2d/train_2d.py:26-76,
 2d/scripts/{train,posttrain,finetune}.sh). The port does not take every
-value yet: compute_dtype "bfloat16", remat_policy "save_heavy", sampler "dpm"
-and device_pool > 0 raise where they are used.
+value yet: sampler "dpm" and device_pool > 0 raise where they are used.
 """
 from __future__ import annotations
 

@@ -86,8 +86,9 @@ def generate_smoke_dataset(
     Controls are full-field N(v, |v|/10) noise recorded every time_scale
     frames with the interior
     zeroed (reference: get_envolve, 2d/apps/a_gen_dataset_128.py:287-313).
-    The JAX version's mass-conservation filter comes with the training
-    slice, whose datasets use it.
+    The JAX version's mass-conservation filter (`conservation_min` /
+    `conservation_max`, safediffcon_tpu/tasks/smoke/data.py:94-202) is not
+    ported yet (ROADMAP.md section 1, item 5): every generated sim is kept.
 
     When `phase_seconds` is a dict, adds the seconds of each phase to it,
     summed over batches, each phase ending in a sync: "inputs" (waypoints,

@@ -104,6 +104,7 @@ class SmokePipeline:
         conf_cfg: SmokeConformalConfig,
         dim: int = 64,
         dim_mults=(1, 2, 4),
+        compute_dtype: Optional[str] = None,
         attn_impl: str = "packed",
         solver_accuracy: float = 1e-8,  # reference eval CG tolerance
         solver_max_iter: int = 500,
@@ -136,7 +137,8 @@ class SmokePipeline:
             alpha=conf_cfg.alpha,
         )
         self.finetune_set = finetune_set
-        self.model = build_model(dim, dim_mults, attn_impl=attn_impl, device=device).eval()
+        self.model = build_model(dim, dim_mults, compute_dtype, attn_impl=attn_impl,
+                                 device=device).eval()
         self.sched = make_schedule(conf_cfg.timesteps, conf_cfg.beta_schedule,
                                    device=device)
         self.diff_cfg = DiffusionConfig(

@@ -38,7 +38,7 @@ def _torch_weight(k):
 def test_plain_matches_pallas_interpret(shape, cout, tile_h):
     x, k = _inputs(shape, cout, 0)
     ref = np.asarray(J.conv3d_fused(jnp.asarray(x), jnp.asarray(k), tile_h, True))
-    before = K.conv3d_fused_cuda.launches
+    before = dict(K.conv3d_fused_cuda.launches)
     out = K.conv3d_fused(torch.from_numpy(x), K.flatten_weight(_torch_weight(k)))
     assert out.shape == ref.shape and out.dtype == torch.float32
     # float32 sums over 27 * Cin terms in another order: the JAX test's 2e-5

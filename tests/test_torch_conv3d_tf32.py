@@ -194,7 +194,7 @@ def test_kernel_mode_follows_the_cudnn_tf32_flag():
 
 def test_cpu_tensors_launch_neither_kernel():
     x, k = _inputs((1, 2, 8, 8, 8), 8, 4)
-    before = (K.conv3d_fused_cuda.launches, K.conv3d_fused_simt_cuda.launches)
+    before = (dict(K.conv3d_fused_cuda.launches), K.conv3d_fused_simt_cuda.launches)
     out = K.conv3d_fused(torch.from_numpy(x), _w_flat(k))
     assert out.shape == (1, 2, 8, 8, 8)
     assert (K.conv3d_fused_cuda.launches, K.conv3d_fused_simt_cuda.launches) == before

@@ -135,17 +135,19 @@ def test_bridge_is_strict(tiny_unet):
 
 
 def test_conv_impl_pallas_raises():
-    """conv_impl="pallas" builds (its 3x3x3 convs on kernel K2); it raises
-    only where the port lacks what it asks for, and an unknown flag raises."""
+    """conv_impl="pallas" builds (its 3x3x3 convs on kernel K2), also in
+    bfloat16 and with remat "save_heavy"; an unknown flag raises."""
     net = TU.UNet3D(dim=8, dim_mults=(1, 2), conv_impl="pallas")
     assert isinstance(net.downs[0][0].block1.conv, TU.FusedConv3x3x3)
     assert isinstance(TU.UNet3D(dim=8, dim_mults=(1, 2)).downs[0][0].block1.conv, TU.Conv3dCL)
     with pytest.raises(ValueError):
         TU.UNet3D(dim=8, dim_mults=(1, 2), conv_impl="cudnn")
-    with pytest.raises(NotImplementedError):
-        TU.UNet3D(dim=8, dim_mults=(1, 2), conv_impl="pallas", compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        TU.UNet3D(dim=8, dim_mults=(1, 2), conv_impl="pallas", remat_policy="save_heavy")
+    net = TU.UNet3D(dim=8, dim_mults=(1, 2), conv_impl="pallas", compute_dtype="bfloat16")
+    assert net.downs[0][0].block1.conv.compute_dtype == torch.bfloat16
+    net = TU.UNet3D(dim=8, dim_mults=(1, 2), conv_impl="pallas", remat_policy="save_heavy")
+    assert net.remat_policy == "save_heavy"
+    with pytest.raises(ValueError):
+        TU.UNet3D(dim=8, dim_mults=(1, 2), compute_dtype="float16")
     with pytest.raises(ValueError):
         TU.UNet3D(dim=8, dim_mults=(1, 2), remat_policy="none")
 

@@ -21,11 +21,11 @@ fails ends the run with a non-zero exit.
      mults (1, 2, 4), 7 channels, 32 frames of 64^2, seeded weights):
      generate 16 train, 50 cal and 50 test sims with the port's solver (256
      frames at 128^2, CG 1e-6; its phases timed, K1 by CUDA events), then
-     SmokePipeline.calibrate and guided
-     evaluate with
-     the SmokeConformalConfig defaults (DDIM 100, eta 1, solver 1e-8 / 500,
+     SmokePipeline.calibrate on 25 of the cal sims (the script's budget
+     cut) and guided evaluate on the 50 test sims with the
+     SmokeConformalConfig defaults (DDIM 100, eta 1, solver 1e-8 / 500,
      backend "auto" = K1) and the pipeline's default chunks, so each runs
-     one batch of 50 and reports its peak device memory. K1's launch count
+     one batch and reports its peak device memory. K1's launch count
      is zeroed just before calibrate and read just after evaluate, and must
      be 255 per evaluated batch;
   5. a small input run on the card and on the CPU (whose path the CPU tests
@@ -50,7 +50,8 @@ fails ends the run with a non-zero exit.
      launch counts are zeroed just before and must read 90 per step on the
      tensor-core kernel and 0 on the SIMT kernel just after;
   9. one posttrain epoch and one InfFT epoch through run_inference from
-     the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 100 (the
+     the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 25 (the
+     reference's 100 cut to keep the script inside its budget; the
      SmokePipeline model, framework conv; K1 in evaluate), then one InfFT
      step at Q = 1, where its loss has a gradient;
  10. UNet3D in bfloat16 compute and with remat "save_heavy":
@@ -66,10 +67,16 @@ fails ends the run with a non-zero exit.
           s per step, K2's share by CUDA events, peak memory;
      10c. the same in float32 (TF32) and in bf16 with "save_heavy";
      10d. SMOKE_STEPS guided DDIM steps of SmokePipeline at B = 50 in float32
-          and in bf16 compute: ms per step and peak memory.
+          and in bf16 compute: ms per step and peak memory;
+ 11. the serving path with sampler "dpm" (DPM-Solver++(2M), 25 steps, inside
+     the JAX docstring's ~20-50) at phase 4's width, weights and data:
+     SmokePipeline.calibrate on the 50 cal sims and guided evaluate on the
+     50 test sims, each one batch, the solver on K1; K1's launch count is
+     zeroed just before calibrate and must read 255 just after evaluate,
+     K2's must read 0; seconds per DPM step and peak memory.
 
 The Burgers 1D task (no kernel of the TPU package lies on its path; K1 and
-K2 must not launch while it runs), at the reference "turbo" UNet2D (dim 128,
+K2 must not launch while B1-B7 run), at the reference "turbo" UNet2D (dim 128,
 mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
 
   B1. the FD solver (10 chunks of 1,000 explicit-Euler steps at 128 cells)
@@ -93,16 +100,37 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
       steps after one warm-up step, the loop's set-up timed apart;
   B6. from B5's EMA: posttrain, 2 epochs of 2 steps at batch 380, one
       recalibration, then one evaluate; InfFT_iters 2 (one step at B = 50,
-      calibrate, evaluate); both calibrate on 250 cal sims.
+      calibrate, evaluate); both calibrate on 100 cal sims;
+  B7. the samplers beyond DDIM and two-model composition:
+      (a) tiny UNet2Ds (dim 16) on the card and on the CPU with the same
+          weights and draws, TF32 off: a two-model (prior_beta 0.5) DPM
+          calibrate and guided evaluate (Q-hat and the loss within 1e-4
+          relative, J 1e-3, a rate one cell), an ancestral chain of 100
+          steps with the guidance at x_{t-1} and self-recurrence (within
+          1e-4), one pretrain(model_w=True) step (the loss within 1e-4
+          relative, the weights within 2 lr);
+      (b) pretrain(model_w=True), the w-only prior, as B5: batch 16, 10
+          steps after one warm-up step;
+      (c) BurgersPipeline(two_model=True, prior_beta=0.5), the JAX CLI's
+          default beta, with B5's EMA as the main model and (b)'s as the
+          prior, DDIM 200: calibrate on 50 cal sims, guided evaluate on the
+          50 test sims;
+      (d) sampler "dpm", 25 steps, B5's EMA: calibrate on 250 cal sims,
+          guided evaluate on the 50 test sims;
+      (e) the ancestral sampler through calibrate (ddim_sampling_steps
+          1,000 = timesteps, 1,000 conditioned steps) on 50 cal sims;
+      ms per step and peak memory of each.
 
 Depth cuts of the Burgers phases against the reference: 2,048 train sims
-(40,000), 10 pretrain steps (200,000), posttrain 2 epochs x 2 steps (5 x
-3,200), InfFT 2 iterations (3), B4's and the fine-tuning calibration on
-250 cal sims (1,000; B4's cut keeps the whole script inside its budget).
+(40,000), 10 pretrain steps (200,000; also the w-prior's), posttrain 2
+epochs x 2 steps (5 x 3,200), InfFT 2 iterations (3), B4's and B7(d)'s
+calibration on 250 cal sims, the fine-tuning calibration on 100 and B7(c)'s
+and (e)'s on 50 (1,000; these cuts keep the whole script inside its
+budget).
 Widths, DDIM steps, batch sizes and the solver are the reference's.
 
 The tokamak task (no kernel of the TPU package lies on its path; K1 and K2
-counts are zeroed before T1 and must read 0 after T6), at the reference
+counts are zeroed before T1 and must read 0 after T7), at the reference
 "turbo" UNet1D (dim 128, mults (1, 2, 4, 8), 12 channels, 57,341,452
 parameters, seeded weights):
 
@@ -126,13 +154,16 @@ parameters, seeded weights):
       its FLOPs (FlopCounterMode) at the TF32 peak;
   T5. pretraining with the TokamakPretrainConfig defaults (batch 16) for 10
       steps after one warm-up step, the loop's set-up timed apart;
-  T6. from T5's EMA: run_inference with posttrain_config() for 2 epochs of
+  T6. from T5's EMA: run_inference with posttrain_config() for 1 epoch of
       1 step at batch 1,000, and with finetune_config() (DDIM 250) for 1
       epoch of 1 InfFT step at B = 50, each epoch calibrating on the 1,000
-      cal sims; peak memory.
+      cal sims; peak memory;
+  T7. from T5's EMA, sampler "dpm" with 25 steps: calibrate on the 1,000
+      cal sims as one chunk, then an unguided evaluate on the 50 test sims;
+      ms per step and peak memory.
 
 Depth cuts of the tokamak phases against the reference: 2,048 train
-trajectories (48,950), 10 pretrain steps (200,000), posttrain 2 epochs (8),
+trajectories (48,950), 10 pretrain steps (200,000), posttrain 1 epoch (8),
 InfFT 1 epoch (5). Widths, DDIM steps, batch sizes and the surrogate are the
 reference's.
 
@@ -163,6 +194,7 @@ BF16_FLOPS_PER_S = 989e12
 CG_FLOPS_PER_CELL = 23
 CELLS = 127
 N_CAL, N_TEST = 50, 50  # sims per split (reference: 200 cal, 50 test)
+SERVE_CAL = 25  # cal sims of phase 4's calibrate, to keep the script in its budget
 N_TRAIN = 16  # one pretrain batch (reference: 19,800 train sims)
 GEN_BATCH = 50
 K1_REPS = 20  # timed K1 calls per case
@@ -181,14 +213,18 @@ K2_REPS = 10  # timed calls of K2 and F.conv3d per case (the plain version: 1)
 PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 FT_SIMS = 8  # cal and test sims of the posttrain / InfFT epochs
 POSTTRAIN_STEPS = 3
+FT_DDIM = 25  # DDIM steps of phase 9 (reference 100), to keep the script in its budget
+DPM_STEPS = 25  # DPM-Solver++(2M) steps of phases 11, B7 and T7 (JAX docstring: ~20-50)
 # Burgers: the reference "turbo" UNet2D; sims per split (reference 40,000
 # train, 1,000 cal, 50 test; the train split cut to what B5-B6 read)
 B_MODEL = dict(dim=128, dim_mults=(1, 2, 4, 8))
 B_N_TRAIN, B_N_CAL, B_N_TEST = 2048, 1000, 50
 B_SOLVER_BATCH = 50
 B_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
-B_FT_CAL = 250  # cal sims of the fine-tuning phases (reference 1,000)
+B_FT_CAL = 100  # cal sims of the fine-tuning phases (reference 1,000)
 B4_CAL = 250  # cal sims of B4's calibrate (reference 1,000)
+B7_CAL = 50  # cal sims of B7's two-model and ancestral calibrations (reference 1,000)
+B7_ANCESTRAL_T = 100  # timesteps of B7(a)'s ancestral chain
 SMOKE_STEPS = 5  # timed pretrain steps (after one more) and guided DDIM steps of phase 10
 # Tokamak: the reference "turbo" UNet1D; trajectories per split (reference
 # 48,950 train, 1,000 cal, 50 test; the train split cut to what T5-T6 read)
@@ -349,10 +385,11 @@ def phase_serving(K, smoke):
     test = smoke.SmokeDataset.load(path, "test")
     train = smoke.SmokeDataset.load(path, "train")
 
-    ccfg = smoke.SmokeConformalConfig(cal_batch_size=N_CAL, num_cal_batch=1,
+    ccfg = smoke.SmokeConformalConfig(cal_batch_size=SERVE_CAL, num_cal_batch=1,
                                       n_test_samples=N_TEST, test_batch_size=N_TEST)
     pipe = smoke.SmokePipeline(ccfg, device="cuda")
-    log(f"depth cut: {N_CAL} cal + {N_TEST} test sims (reference 200 + 50); width, "
+    log(f"depth cut: calibrate on {SERVE_CAL} of the {N_CAL} cal sims, {N_TEST} test sims "
+        f"(reference 200 + 50); width, "
         f"frames, DDIM {ccfg.ddim_sampling_steps} steps and the 256-frame solver are the "
         f"reference's; default chunks: calibrate {pipe.cal_chunk}, evaluate {pipe.eval_chunk}")
     from safediffcon_torch.tasks.smoke.pipeline import init_params
@@ -365,7 +402,8 @@ def phase_serving(K, smoke):
     K.pressure_cg_cuda.iterations = []
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    q = pipe.calibrate(cal, 0.0, generator=torch.Generator(device="cuda").manual_seed(1))
+    q = pipe.calibrate(smoke.SmokeDataset(cal.data[:SERVE_CAL], cal.raw[:SERVE_CAL]), 0.0,
+                       generator=torch.Generator(device="cuda").manual_seed(1))
     q = float(q)
     calibrate_s = time.perf_counter() - t0
     cal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -384,7 +422,7 @@ def phase_serving(K, smoke):
     sampling_s, rollout_s = pipe.phase_seconds["sampling"], pipe.phase_seconds["rollout"]
     at_max = float((iters >= 500).float().mean())
     log(f"phase calibrate: {calibrate_s:.2f} s ({1e3 * calibrate_s / steps:.1f} ms per "
-        f"conditioned DDIM step at B={N_CAL}); Q-hat {q:.6f}; peak device memory "
+        f"conditioned DDIM step at B={SERVE_CAL}); Q-hat {q:.6f}; peak device memory "
         f"{cal_peak_gb:.2f} GB")
     log(f"phase evaluate: {evaluate_s:.2f} s = sampling {sampling_s:.2f} s "
         f"({1e3 * sampling_s / steps:.1f} ms per guided step at B={N_TEST}) + solver rollout "
@@ -726,7 +764,8 @@ def phase_pretrain(C, smoke, train):
 
 def phase_finetune(K, smoke, data, params):
     """One posttrain epoch and one InfFT epoch through run_inference from
-    the pretrained EMA weights, on FT_SIMS cal and test sims with DDIM 100;
+    the pretrained EMA weights, on FT_SIMS cal and test sims with DDIM FT_DDIM
+    (reference 100);
     then one more InfFT step at Q = 1. InfFT's loss with finetune_config
     (w_safe 1) is w_safe * mean(relu(final safe rate + Q - bound)^2): it is 0,
     with a zero gradient, while every predicted safe rate lies below
@@ -739,7 +778,7 @@ def phase_finetune(K, smoke, data, params):
     cal = smoke.SmokeDataset(cal.data[:FT_SIMS], cal.raw[:FT_SIMS])
     test = smoke.SmokeDataset(test.data[:FT_SIMS], test.raw[:FT_SIMS])
     cut = dict(cal_batch_size=FT_SIMS, num_cal_batch=1, n_test_samples=FT_SIMS,
-               test_batch_size=FT_SIMS)
+               test_batch_size=FT_SIMS, ddim_sampling_steps=FT_DDIM)
     runs = {
         "posttrain": dataclasses.replace(smoke.posttrain_config(), finetune_epoch=1,
                                          finetune_steps=POSTTRAIN_STEPS),
@@ -846,7 +885,7 @@ def phase_small_pretrain_agreement(C, smoke, train):
 
 
 # ---------------------------------------------------------------------------
-# Burgers 1D (phases B1-B6): UNet2D, the FD solver, guided DDIM, training
+# Burgers 1D (phases B1-B7): UNet2D, the FD solver, guided DDIM, training
 # ---------------------------------------------------------------------------
 
 def burgers_tolerance_rates(n_samples: int) -> dict:
@@ -1104,30 +1143,32 @@ def phase_burgers_serving(burgers, data):
     return out
 
 
-def phase_burgers_pretrain(burgers, data):
-    """B5: BurgersPretrainConfig defaults for B_PRETRAIN_STEPS steps after one
-    warm-up step, from seeded weights (cfg.seed); the loop's set-up, timed
-    alone, is taken off the steps' time."""
+def phase_burgers_pretrain(burgers, data, model_w: bool = False):
+    """B5 (B7(b) with model_w, the w-only prior): BurgersPretrainConfig
+    defaults for B_PRETRAIN_STEPS steps after one warm-up step, from seeded
+    weights (cfg.seed); the loop's set-up, timed alone, is taken off the
+    steps' time."""
     from safediffcon_torch.tasks.burgers.pipeline import build_model, init_params
 
     cfg = dataclasses.replace(burgers.BurgersPretrainConfig(), **B_MODEL)
     train = data["train"]
     init = init_params(build_model(cfg.dim, cfg.dim_mults, device="cuda"), seed=cfg.seed)
     init = {k: v.detach() for k, v in init.state_dict().items()}
-    burgers.pretrain(cfg, train, num_steps=1, params=init, device="cuda")  # warm-up
+    burgers.pretrain(cfg, train, num_steps=1, params=init, device="cuda",
+                     model_w=model_w)  # warm-up
     # the set-up (model, optimizer and EMA state) alone: a deadline in the
     # past stops the loop before its first step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     burgers.pretrain(cfg, train, num_steps=B_PRETRAIN_STEPS, params=init, device="cuda",
-                     deadline=0.0)
+                     deadline=0.0, model_w=model_w)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     losses = []
     t0 = time.perf_counter()
     state = burgers.pretrain(cfg, train, num_steps=B_PRETRAIN_STEPS, params=init,
-                             device="cuda", losses=losses)
+                             device="cuda", losses=losses, model_w=model_w)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0 - setup_s
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1136,7 +1177,7 @@ def phase_burgers_pretrain(burgers, data):
     out = dict(steps=B_PRETRAIN_STEPS, batch=cfg.batch_size, setup_s=setup_s,
                seconds=seconds, s_per_step=seconds / B_PRETRAIN_STEPS, peak_gb=peak_gb,
                losses=losses, ema_moved=ema_moved)
-    log(f"B5 pretrain: {cfg}; " + json.dumps(out))
+    log(f"{'B7(b) w-prior' if model_w else 'B5'} pretrain: {cfg}; " + json.dumps(out))
     if not (all(math.isfinite(v) for v in losses) and len(losses) == B_PRETRAIN_STEPS
             and state.step == B_PRETRAIN_STEPS and ema_moved > 0):
         raise AssertionError(f"Burgers pretrain: {out}")
@@ -1226,6 +1267,163 @@ def phase_burgers_finetune(burgers, data, params):
         out[name] = rec
         del pipe, state
         torch.cuda.empty_cache()
+    return out
+
+
+def burgers_b7_small_run(burgers, data, device, draws) -> dict:
+    """B7(a) on `device`, tiny UNet2Ds (dim 16, seeded 0 and 1): a two-model
+    (prior_beta 0.5) DPM calibrate on 8 cal sims and guided evaluate of 4
+    test sims; an ancestral chain of B7_ANCESTRAL_T steps with the guidance
+    at x_{t-1} (guidance_on_x0=False) and self-recurrence, conditioned on
+    the 4 test sims; one pretrain(model_w=True) step (Adam, lr 1e-3)."""
+    from safediffcon_torch.core.diffusion import DiffusionConfig
+    from safediffcon_torch.core.sampling import ancestral_sample
+    from safediffcon_torch.core.schedules import make_schedule
+    from safediffcon_torch.tasks.burgers.pipeline import build_model, init_params
+    from safediffcon_torch.tasks.burgers.task import COND_IDX, BurgersConditioner
+
+    dpm_draws, chain_draws, train_draws = draws
+
+    def moved(x):
+        return x.to(device)
+
+    small = dict(dim=16, dim_mults=(1, 2))
+    nets = [init_params(build_model(**small, device=device), seed=seed) for seed in (0, 1)]
+    pair = tuple({k: v.detach() for k, v in net.state_dict().items()} for net in nets)
+    test = burgers.BurgersDataset(data["test"].data[:4], data["test"].u_phys[:4],
+                                  data["test"].f_phys[:4])
+    conf = burgers.BurgersConformalConfig(**dict(BURGERS_SMALL_CONF, sampler="dpm",
+                                                 ddim_sampling_steps=5))
+    pipe = burgers.BurgersPipeline(conf, two_model=True, prior_beta=0.5, device=device, **small)
+    noise = iter([(moved(z), []) for z in dpm_draws])
+    q = float(pipe.calibrate(pair, data["cal"].data[:8], 0.0, noise=noise))
+    m = pipe.evaluate(pair, test, q, noise=noise)
+
+    T = B7_ANCESTRAL_T
+    state = torch.as_tensor(test.data, device=device)
+    init, steps = chain_draws
+    with torch.no_grad():
+        chain = ancestral_sample(
+            nets[0], make_schedule(T, "cosine", device=device), DiffusionConfig(timesteps=T),
+            state.shape, cond=BurgersConditioner(u0=state[:, 0, :, 0], uT=state[:, COND_IDX, :, 0]),
+            guidance_grad=burgers.guidance_grad_fn(12.0, burgers.BurgersTaskConfig(w_score=5.0)),
+            guidance_on_x0=False, recurrence=True, init_noise=moved(init),
+            step_noise=[moved(z) for z in steps])
+
+    cfg = dataclasses.replace(burgers.BurgersPretrainConfig(), **small, timesteps=100,
+                              batch_size=4, lr=1e-3)
+    losses = []
+    st = burgers.pretrain(cfg, data["train"], num_steps=1, params=pair[0], device=device,
+                          noise=iter([tuple(moved(x) for x in train_draws)]), losses=losses,
+                          model_w=True)
+    return dict(q=q, metrics=m, chain=chain.cpu(), w_loss=float(losses[0]),
+                weights={k: v.detach().cpu() for k, v in st.model.state_dict().items()})
+
+
+def phase_burgers_b7_agreement(burgers, data):
+    """B7(a): `burgers_b7_small_run` on the card and on the CPU (whose paths
+    the CPU tests hold against the JAX package) with the same weights and
+    draws, TF32 off: Q-hat, the metrics, the ancestral chain, the w-prior's
+    loss and its weights after the step must agree."""
+    gen = torch.Generator().manual_seed(17)
+    shape = (4, 16, 128, 3)
+    T = B7_ANCESTRAL_T
+    draws = ([torch.randn(shape, generator=gen) for _ in range(3)],  # 2 calibrate, 1 evaluate
+             # the chain: per step the posterior draw, the second posterior
+             # draw (guidance at x_{t-1}) and the recurrence's
+             (torch.randn(shape, generator=gen),
+              [torch.randn(shape, generator=gen) for _ in range(3 * (T - 1))]),
+             (torch.randint(0, 100, (4,), generator=gen), torch.randn(shape, generator=gen)))
+    with tf32_flag(False):
+        results = {device: burgers_b7_small_run(burgers, data, device, draws)
+                   for device in ("cuda", "cpu")}
+    card, cpu = results["cuda"], results["cpu"]
+    chain_diff = float((card["chain"] - cpu["chain"]).abs().max())
+    w_diff = max(float((card["weights"][k] - v).abs().max()) for k, v in cpu["weights"].items())
+    for device, r in results.items():
+        log(f"B7(a) small input ({device}): two-model DPM Q-hat {r['q']:.6f}, w-prior loss "
+            f"{r['w_loss']:.6f}, ancestral chain max |x| {float(r['chain'].abs().max()):.4f}, "
+            f"metrics " + json.dumps(r["metrics"], sort_keys=True))
+    log(f"B7(a): max |card - cpu| of the ancestral chain {chain_diff:.3e}, of the w-prior's "
+        f"weights after its step {w_diff:.3e}")
+    unit = burgers_tolerance_rates(4)
+    # float32 on both sides, sums in other orders: Q and the loss 1e-4, J
+    # 1e-3, a rate may move by one cell across the bound; the chain's 100
+    # steps of a UNet2D evaluation and two guidance gradients each, on values
+    # of order 1: 1e-4 (an H100 saw 4.3e-6); one Adam step of lr 1e-3 from
+    # equal weights: 2 lr
+    checks = [abs(card["q"] - cpu["q"]) <= 1e-4 * abs(cpu["q"]) + 1e-7,
+              abs(card["w_loss"] - cpu["w_loss"]) <= 1e-4 * abs(cpu["w_loss"]),
+              chain_diff <= 1e-4, bool(torch.isfinite(cpu["chain"]).all()), w_diff < 2e-3]
+    for name, ref in cpu["metrics"].items():
+        tol = unit[name] + 1e-6 if name in unit else 1e-3 * abs(ref) + 1e-7
+        checks.append(abs(card["metrics"][name] - ref) <= tol)
+    if not all(checks):
+        raise AssertionError(f"B7(a): card and CPU disagree ({checks})")
+    return dict(chain_max_diff=chain_diff, weights_max_diff=w_diff, q=cpu["q"])
+
+
+def burgers_serve(burgers, label: str, ccfg, params, cal, test=None, **pipe_kw) -> dict:
+    """Calibrate on `cal` (and guided evaluate on `test`) at the turbo width
+    with `ccfg`; ms per sampler step, peak memory."""
+    pipe = burgers.BurgersPipeline(ccfg, device="cuda", **B_MODEL, **pipe_kw)
+    # model evaluations per sampler call: the ancestral sampler takes every
+    # timestep when ddim_sampling_steps >= timesteps
+    steps = min(ccfg.ddim_sampling_steps, ccfg.timesteps)
+    chunks = -(-len(cal) // min(pipe.cal_chunk, ccfg.cal_batch_size))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = float(pipe.calibrate(params, cal, 0.0,
+                             generator=torch.Generator(device="cuda").manual_seed(1)))
+    calibrate_s = time.perf_counter() - t0
+    out = dict(sampler=ccfg.sampler, steps=steps, cal_sims=len(cal), calibrate_s=calibrate_s,
+               ms_per_cal_step=1e3 * calibrate_s / (steps * chunks),
+               peak_gb_calibrate=torch.cuda.max_memory_allocated() / 1e9, q=q, **pipe_kw)
+    values = [q]
+    if test is not None:
+        pipe.phase_seconds = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = pipe.evaluate(params, test, q,
+                                generator=torch.Generator(device="cuda").manual_seed(2))
+        sampling_s, rollout_s = pipe.phase_seconds["sampling"], pipe.phase_seconds["rollout"]
+        out.update(evaluate_s=time.perf_counter() - t0, sampling_s=sampling_s,
+                   rollout_s=rollout_s, ms_per_guided_step=1e3 * sampling_s / steps,
+                   peak_gb_evaluate=torch.cuda.max_memory_allocated() / 1e9, metrics=metrics)
+        values += list(metrics.values())
+    log(f"{label}: " + json.dumps(out, sort_keys=True))
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{label}: non-finite result {out}")
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_burgers_b7(burgers, data, main_params):
+    """B7: the samplers beyond DDIM and two-model composition. (a) card
+    against CPU on tiny UNet2Ds; (b) the w-only prior's pretrain (batch 16,
+    B_PRETRAIN_STEPS steps after one); at the turbo width, from B5's EMA as
+    the main model: (c) two-model serving with (b)'s EMA as the prior,
+    prior_beta 0.5 (the JAX CLI's default), DDIM 200, calibrate on B7_CAL
+    cal sims and guided evaluate on the 50 test sims; (d) sampler "dpm" with
+    DPM_STEPS steps, calibrate on B4_CAL cal sims and guided evaluate; (e)
+    the ancestral sampler through calibrate (ddim_sampling_steps 1,000 =
+    timesteps) on B7_CAL cal sims."""
+    out = dict(agreement=phase_burgers_b7_agreement(burgers, data))
+    prior, out["w_prior_pretrain"] = phase_burgers_pretrain(burgers, data, model_w=True)
+    base = burgers.BurgersConformalConfig()
+    cal, test = data["cal"].data, data["test"]
+    out["two_model"] = burgers_serve(burgers, "B7(c) two-model DDIM serving", base,
+                                     (main_params, prior), cal[:B7_CAL], test, two_model=True,
+                                     prior_beta=0.5)
+    out["dpm"] = burgers_serve(
+        burgers, "B7(d) DPM serving",
+        dataclasses.replace(base, sampler="dpm", ddim_sampling_steps=DPM_STEPS), main_params,
+        cal[:B4_CAL], test)
+    out["ancestral"] = burgers_serve(
+        burgers, "B7(e) ancestral calibrate",
+        dataclasses.replace(base, ddim_sampling_steps=base.timesteps), main_params,
+        cal[:B7_CAL])
     return out
 
 
@@ -1376,8 +1574,57 @@ def phase_smoke_bf16_sampling(smoke, test):
     return out
 
 
+def phase_smoke_dpm_serving(K, C, smoke, data):
+    """11: SmokePipeline with sampler "dpm" (DPM-Solver++(2M), DPM_STEPS
+    steps) at full width with phase 4's seeded weights and data: calibrate
+    on the N_CAL cal sims and guided evaluate on the N_TEST test sims, each
+    one batch, the solver on K1 (backend "auto"). K1's count is zeroed just
+    before calibrate and must read 255 per evaluated batch just after
+    evaluate; K2's counts must read 0."""
+    from safediffcon_torch.tasks.smoke.pipeline import init_params
+
+    _, cal, test = data
+    ccfg = smoke.SmokeConformalConfig(sampler="dpm", ddim_sampling_steps=DPM_STEPS,
+                                      cal_batch_size=N_CAL, num_cal_batch=1,
+                                      n_test_samples=N_TEST, test_batch_size=N_TEST)
+    pipe = smoke.SmokePipeline(ccfg, device="cuda")
+    init_params(pipe.model, seed=0)
+    # the main path: counts zeroed just before, read just after
+    K.pressure_cg_cuda.launches = 0
+    zero_k2_counts(C)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = float(pipe.calibrate(cal, 0.0, generator=torch.Generator(device="cuda").manual_seed(1)))
+    calibrate_s = time.perf_counter() - t0
+    cal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    pipe.phase_seconds = {}
+    t0 = time.perf_counter()
+    metrics = pipe.evaluate(test, q, generator=torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    evaluate_s = time.perf_counter() - t0
+    launches = K.pressure_cg_cuda.launches
+    k2 = (k2_launches(C), C.conv3d_fused_simt_cuda.launches)
+    sampling_s, rollout_s = pipe.phase_seconds["sampling"], pipe.phase_seconds["rollout"]
+    out = dict(steps=DPM_STEPS, calibrate_s=calibrate_s,
+               s_per_conditioned_step=calibrate_s / DPM_STEPS, evaluate_s=evaluate_s,
+               sampling_s=sampling_s, rollout_s=rollout_s,
+               s_per_guided_step=sampling_s / DPM_STEPS, peak_gb_calibrate=cal_peak_gb,
+               peak_gb_evaluate=torch.cuda.max_memory_allocated() / 1e9, q=q,
+               k1_launches=launches, k2_launches=k2[0], k2_simt_launches=k2[1])
+    log("phase 11 smoke DPM serving " + json.dumps(out, sort_keys=True))
+    log("phase 11 metrics " + json.dumps(metrics, sort_keys=True))
+    expected = SOLVER_STEPS * -(-N_TEST // pipe.eval_chunk)
+    if launches != expected or any(k2):
+        raise AssertionError(f"phase 11 launched K1 {launches} times (expected {expected}) and "
+                             f"K2 {k2} times (expected 0)")
+    if not (math.isfinite(q) and all(math.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"phase 11: non-finite result: Q {q}, metrics {metrics}")
+    return launches, out
+
+
 # ---------------------------------------------------------------------------
-# Tokamak (phases T1-T6): UNet1D, the KSTAR surrogate, guided DDIM, training
+# Tokamak (phases T1-T7): UNet1D, the KSTAR surrogate, guided DDIM, training
 # ---------------------------------------------------------------------------
 
 def count_launches(fn, per: int) -> float:
@@ -1630,7 +1877,7 @@ def phase_tokamak_pretrain(tokamak, data):
 
 
 def phase_tokamak_finetune(tokamak, data, params):
-    """T6: from T5's EMA, run_inference with posttrain_config() for 2 epochs
+    """T6: from T5's EMA, run_inference with posttrain_config() for 1 epoch
     of 1 step at batch 1,000, and with finetune_config() (DDIM 250) for 1
     epoch of 1 InfFT step at B = 50; each epoch calibrates on the 1,000 cal
     sims in one chunk. InfFT's loss relu(threshold - min q95 + Q) has no
@@ -1640,7 +1887,7 @@ def phase_tokamak_finetune(tokamak, data, params):
     from safediffcon_torch.tasks.tokamak.pipeline import make_finetune_steps
 
     cal, test, train = data["cal"], data["test"], data["train"]
-    runs = {"posttrain": dataclasses.replace(tokamak.posttrain_config(), finetune_epoch=2),
+    runs = {"posttrain": dataclasses.replace(tokamak.posttrain_config(), finetune_epoch=1),
             "infft": dataclasses.replace(tokamak.finetune_config(), finetune_epoch=1)}
     out = {}
     for name, cfg in runs.items():
@@ -1701,6 +1948,36 @@ def phase_tokamak_finetune(tokamak, data, params):
     return out
 
 
+def phase_tokamak_dpm(tokamak, data, params):
+    """T7: sampler "dpm" with DPM_STEPS steps at the turbo width from T5's
+    EMA: calibrate on the 1,000 cal sims as one chunk, then an unguided
+    evaluate (the default) on the 50 test sims; ms per step, peak memory."""
+    ccfg = tokamak.TokamakConformalConfig(sampler="dpm", ddim_sampling_steps=DPM_STEPS)
+    pipe = tokamak.TokamakPipeline(ccfg, cal_chunk=T_CAL_CHUNK, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = float(pipe.calibrate(params, data["cal"], 0.0,
+                             generator=torch.Generator(device="cuda").manual_seed(1)))
+    calibrate_s = time.perf_counter() - t0
+    cal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pipe.phase_seconds = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = pipe.evaluate(params, data["test"], q,
+                            generator=torch.Generator(device="cuda").manual_seed(2))
+    evaluate_s = time.perf_counter() - t0
+    sampling_s, rollout_s = pipe.phase_seconds["sampling"], pipe.phase_seconds["rollout"]
+    out = dict(steps=DPM_STEPS, cal_sims=len(data["cal"]), cal_chunk=pipe.cal_chunk,
+               calibrate_s=calibrate_s, ms_per_cal_step=1e3 * calibrate_s / DPM_STEPS,
+               peak_gb_calibrate=cal_peak_gb, evaluate_s=evaluate_s, sampling_s=sampling_s,
+               rollout_s=rollout_s, ms_per_step=1e3 * sampling_s / DPM_STEPS,
+               peak_gb_evaluate=torch.cuda.max_memory_allocated() / 1e9, q=q, metrics=metrics)
+    log("T7 DPM serving " + json.dumps(out, sort_keys=True))
+    if not all(math.isfinite(v) for v in [q, *metrics.values()]):
+        raise AssertionError(f"tokamak DPM serving: non-finite result: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1750,6 +2027,12 @@ def main() -> int:
     log(f"phase 10 in {time.perf_counter() - t_bf16:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # phase 11: smoke serving with DPM-Solver++(2M), K1 on its main path again
+    t_dpm = time.perf_counter()
+    dpm_launches, dpm_times = phase_smoke_dpm_serving(K, C, smoke, data)
+    log(f"phase 11 in {time.perf_counter() - t_dpm:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     # Burgers: no kernel of the TPU package lies on its path; K1 and K2 must
     # stay idle through it
     K.pressure_cg_cuda.launches = 0
@@ -1761,8 +2044,11 @@ def main() -> int:
     b_times["serving"] = phase_burgers_serving(burgers, b_data)
     b_ema, b_times["pretrain"] = phase_burgers_pretrain(burgers, b_data)
     b_times.update(phase_burgers_finetune(burgers, b_data, b_ema))
+    t_b7 = time.perf_counter()
+    b_times["b7"] = phase_burgers_b7(burgers, b_data, b_ema)
+    log(f"B7 in {time.perf_counter() - t_b7:.1f} s")
     idle = (K.pressure_cg_cuda.launches, k2_launches(C), C.conv3d_fused_simt_cuda.launches)
-    log(f"Burgers phases B1-B6 in {time.perf_counter() - t_burgers:.1f} s; K1 / K2 / K2 SIMT "
+    log(f"Burgers phases B1-B7 in {time.perf_counter() - t_burgers:.1f} s; K1 / K2 / K2 SIMT "
         f"launches during them {idle}; total {time.perf_counter() - t_start:.1f} s")
     if any(idle):
         raise AssertionError(f"a TPU-kernel counterpart ran on the Burgers path: {idle}")
@@ -1777,8 +2063,9 @@ def main() -> int:
     t_times["serving"] = phase_tokamak_serving(tokamak, t_data)
     t_ema, t_times["pretrain"] = phase_tokamak_pretrain(tokamak, t_data)
     t_times.update(phase_tokamak_finetune(tokamak, t_data, t_ema))
+    t_times["dpm"] = phase_tokamak_dpm(tokamak, t_data, t_ema)
     idle = (K.pressure_cg_cuda.launches, k2_launches(C), C.conv3d_fused_simt_cuda.launches)
-    log(f"Tokamak phases T1-T6 in {time.perf_counter() - t_tokamak:.1f} s; K1 / K2 / K2 SIMT "
+    log(f"Tokamak phases T1-T7 in {time.perf_counter() - t_tokamak:.1f} s; K1 / K2 / K2 SIMT "
         f"launches during them {idle}; total {time.perf_counter() - t_start:.1f} s")
     if any(idle):
         raise AssertionError(f"a TPU-kernel counterpart ran on the tokamak path: {idle}")
@@ -1787,7 +2074,10 @@ def main() -> int:
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",
         replaces="safediffcon_tpu/ops/pressure_cg.py:42",
         also_replaces="safediffcon_tpu/ops/pressure_cg.py:119",
-        launches=launches, max_abs_err=max(c["max_diff"] for c in cases),
+        launches=launches + dpm_launches,
+        main_path_launches={"phase 4 DDIM serving": launches,
+                            "phase 11 DPM serving": dpm_launches},
+        max_abs_err=max(c["max_diff"] for c in cases),
         ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
         us_per_iter=main_case["us_per_iter"], cluster=k1_cluster,

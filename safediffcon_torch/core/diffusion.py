@@ -1,11 +1,10 @@
 """Gaussian diffusion process: q/p math and the training loss.
 
 Port of `safediffcon_tpu/core/diffusion.py` (reference:
-1D/model/diffusion.py:193-224,629-746) over channels-last tensors, with the
-DDIM sampler's fields of `DiffusionConfig`. `apply_fn(x, t)` is the denoiser
-with its weights bound. Random timesteps and noise come from an explicit
-`torch.Generator`, or are handed in (`t=`, `noise=`), which is how the
-parity tests replay JAX's draws.
+1D/model/diffusion.py:193-224,629-746) over channels-last tensors.
+`apply_fn(x, t)` is the denoiser with its weights bound. Random timesteps
+and noise come from an explicit `torch.Generator`, or are handed in (`t=`,
+`noise=`), which is how the parity tests replay JAX's draws.
 """
 from __future__ import annotations
 
@@ -27,6 +26,14 @@ class DiffusionConfig:
     objective: str = "pred_noise"
     beta_schedule: str = "sigmoid"
     ddim_eta: float = 0.0
+    clip_denoised: bool = True  # ancestral sampler: clamp x_start to [-1, 1]
+    # DPM-Solver++ only: impose conditions at the iterate's own noise level
+    # (q_sample of the clean condition values) at intermediate steps instead
+    # of writing clean values into a noisy iterate (RePaint-style,
+    # arXiv 2201.09865); the final sample still gets the clean values. Off
+    # by default: the U-Nets are trained with clean conditions written into
+    # the noised input, so noised conditions are out of distribution.
+    noise_matched_cond: bool = False
 
     @property
     def is_ddim(self) -> bool:
@@ -65,6 +72,26 @@ def predict_noise_from_start(sched: DiffusionSchedule, x_t, t, x0):
     return (
         extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t - x0
     ) / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd)
+
+
+def predict_start_from_v(sched: DiffusionSchedule, x_t, t, v):
+    nd = x_t.ndim
+    return (
+        extract(sched.sqrt_alphas_cumprod, t, nd) * x_t
+        - extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * v
+    )
+
+
+def q_posterior(sched: DiffusionSchedule, x_start, x_t, t):
+    """Mean, variance and clipped log variance of q(x_{t-1} | x_t, x_0)."""
+    nd = x_t.ndim
+    mean = (
+        extract(sched.posterior_mean_coef1, t, nd) * x_start
+        + extract(sched.posterior_mean_coef2, t, nd) * x_t
+    )
+    var = extract(sched.posterior_variance, t, nd)
+    log_var = extract(sched.posterior_log_variance_clipped, t, nd)
+    return mean, var, log_var
 
 
 def p_losses(

@@ -4,8 +4,8 @@ Same fields and defaults as `safediffcon_tpu/tasks/burgers/config.py`, which
 mirror the reference reproduce runs (reference:
 1D/configs/train_config.py:69-77, 1D/configs/posttrain_config.py:116-127,
 1D/configs/inference_config.py:117-134, 1D/scripts/reproduce_InfFT.sh). The
-port does not take every value yet: sampler "dpm" and steps_per_call > 1
-raise where they are used.
+port does not take every value yet: steps_per_call > 1 raises where it is
+used.
 """
 from __future__ import annotations
 

@@ -11,20 +11,30 @@ Port of `safediffcon_tpu/tasks/burgers/pipeline.py` (reference:
 Weights are passed as `params`, a state_dict of the UNet2D (the pipeline
 runs its model on them through `torch.func.functional_call`), or None for
 the pipeline model's own weights; load flax weights with
-`models.convert.load_flax_params` or `flax_to_state_dict`. Random draws come
-from explicit `torch.Generator`s; `noise=` hands in the draws instead, in the
-order the code consumes them (each sampler call's (init_noise,
-step_noise), each training step's (t, noise)), which is how the parity tests
-replay the JAX key chain.
+`models.convert.load_flax_params` or `flax_to_state_dict`. A
+`BurgersPipeline(two_model=True)` composes the main denoiser with the w-only
+prior that `pretrain(model_w=True)` trains; its `params` is then the pair
+(main, prior), each a state_dict of the same UNet2D or None.
 
-Not ported yet (they raise): two-model composed sampling (`two_model`), the
-w-only prior (`model_w`), `sampler="dpm"`, `steps_per_call > 1`, and the
-`*_resilient` wrappers of the JAX module (TPU worker-fault recovery).
+The test sampler is the config's `sampler` ("ddim" or "dpm"); calibration
+takes the same DPM sampler, or `core.sampling.sample` for "ddim", which is
+the ancestral sampler when ddim_sampling_steps >= timesteps. Random draws
+come from explicit `torch.Generator`s; `noise=` hands in the draws instead,
+in the order the code consumes them, which is how the parity tests replay
+the JAX key chain: each training step's (t, noise) and each sampler call's
+(init_noise, step_noise), where step_noise is that sampler's
+(`core.sampling`): DDIM's stochastic steps, the ancestral steps' draws, or
+nothing for DPM (its noise-matched impositions with
+`dpm_noise_matched_cond`).
+
+Not ported yet (they raise): `steps_per_call > 1`, and the `*_resilient`
+wrappers of the JAX module (TPU worker-fault recovery).
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import logging
 import math
 import time
@@ -36,7 +46,12 @@ from torch.func import functional_call
 
 from safediffcon_torch.core.conformal import normalize_weights, weighted_quantile
 from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
-from safediffcon_torch.core.sampling import ddim_sample, sample
+from safediffcon_torch.core.sampling import (
+    compose_two_model_apply,
+    dpm_solver_sample,
+    get_sampler,
+    sample,
+)
 from safediffcon_torch.core.schedules import get_J_scheduler, make_schedule
 from safediffcon_torch.core.train import (
     TrainState,
@@ -62,9 +77,12 @@ from safediffcon_torch.tasks.burgers.task import (
     SCALER,
     BurgersConditioner,
     BurgersTaskConfig,
+    ModelWConditioner,
     conformal_score,
     guidance_grad_fn,
     infft_loss,
+    mask_model_w_input,
+    mask_model_w_output,
     shift_weights,
     train_conditioner,
 )
@@ -72,7 +90,10 @@ from safediffcon_torch.tasks.burgers.task import (
 log = logging.getLogger(__name__)
 
 Params = Optional[Mapping[str, torch.Tensor]]
-# One sampler call's noise: (init_noise, [noise of each stochastic step]).
+# The JAX CLI's refusal of two-model fine-tuning (cli/main.py:365-368)
+TWO_MODEL_FINETUNE = ("two_model is a sampling/eval surface (the reference composes models at "
+                      "inference only); finetune the main model, then evaluate with two_model")
+# One sampler call's draws: (init_noise, step_noise), in the sampler's order.
 Noise = Tuple[torch.Tensor, list]
 # One training step's draws: (timesteps (B,), noise like the batch).
 TrainNoise = Tuple[torch.Tensor, torch.Tensor]
@@ -113,13 +134,14 @@ class BurgersPipeline:
         # calibration sub-batch; scores and weights are per sample, so any
         # chunking gives the same Q-hat
         cal_chunk: Optional[int] = 50,
+        # two-model composed sampling: the denoiser corrected by the w-only
+        # prior (core.sampling.compose_two_model_apply); `params` is then
+        # (main, prior) everywhere in the pipeline
         two_model: bool = False,
+        prior_beta: float = 1.0,
+        normalize_beta: bool = False,
         device="cuda",
     ):
-        if conf_cfg.sampler != "ddim":
-            raise NotImplementedError(f"sampler {conf_cfg.sampler!r} is not ported yet")
-        if two_model:
-            raise NotImplementedError("two-model composed sampling is not ported yet")
         self.ccfg = conf_cfg
         self.device = torch.device(device)
         self.cal_chunk = cal_chunk
@@ -136,17 +158,40 @@ class BurgersPipeline:
             sampling_timesteps=conf_cfg.ddim_sampling_steps,
             ddim_eta=conf_cfg.ddim_eta,
             beta_schedule="cosine",
+            noise_matched_cond=conf_cfg.dpm_noise_matched_cond,
         )
         self.j_scheduler = get_J_scheduler(conf_cfg.J_scheduler)
+        self._sampler = get_sampler(conf_cfg.sampler)
+        # calibration takes the test sampler, or Q-hat loses its coverage
+        # meaning for the deployed sampler; DDIM's calibration goes through
+        # `sample`, so it is ancestral at ddim_sampling_steps >= timesteps
+        self._cal_sampler = (dpm_solver_sample if self._sampler is dpm_solver_sample
+                             else sample)
+        self.two_model = two_model
+        self._composed = compose_two_model_apply(
+            self._bind, self._bind, prior_beta=prior_beta, normalize_beta=normalize_beta,
+            mask_w_input=mask_model_w_input, mask_w_output=mask_model_w_output,
+        ) if two_model else None
         # seconds per phase of `_evaluate` ("sampling", "rollout"), summed
         # over calls, when set to a dict; each phase then ends in a sync
         self.phase_seconds: Optional[Dict[str, float]] = None
 
-    def apply_fn(self, params: Params = None):
-        """The denoiser (x, t) -> output on `params` (None: the model's own)."""
+    def _bind(self, params: Params, x, t):
+        if params is None:
+            return self.model(x, t)
+        return functional_call(self.model, params, (x, t))
+
+    def apply_fn(self, params=None):
+        """The denoiser (x, t) -> output on `params` (None: the model's own);
+        with two_model, the composed denoiser on the pair (main, prior)."""
+        if self.two_model:
+            if not (isinstance(params, (tuple, list)) and len(params) == 2):
+                raise ValueError("a two-model pipeline takes params = (main, prior), each a "
+                                 "state_dict or None")
+            return functools.partial(self._composed, tuple(params))
         if params is None:
             return self.model
-        return lambda x, t: functional_call(self.model, params, (x, t))
+        return functools.partial(self._bind, params)
 
     @contextlib.contextmanager
     def _phase(self, name: str):
@@ -178,8 +223,8 @@ class BurgersPipeline:
         tc = self.task_cfg
         cond = BurgersConditioner(u0=state[:, 0, :, 0], uT=state[:, COND_IDX, :, 0],
                                   w=state[:, :, :, 1])
-        out = sample(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
-                     cond=cond, **sampler_kw)
+        out = self._cal_sampler(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
+                                cond=cond, **sampler_kw)
         scores = conformal_score(out, state, tc.use_max_safety)
         weights = shift_weights(state, Q, tc)
         if self.ccfg.InfFT_Q is not None:
@@ -230,9 +275,9 @@ class BurgersPipeline:
         prediction (reference: 1D/inference/inference_ft.py:316-347)."""
         cond = BurgersConditioner(u0=state[:, 0, :, 0], uT=state[:, COND_IDX, :, 0])
         g = guidance_grad_fn(Q, self.task_cfg) if guided else None
-        out = ddim_sample(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
-                          cond=cond, guidance_grad=g, j_scheduler=self.j_scheduler,
-                          final_step_grad=final_step_grad, **sampler_kw)
+        out = self._sampler(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
+                            cond=cond, guidance_grad=g, j_scheduler=self.j_scheduler,
+                            final_step_grad=final_step_grad, **sampler_kw)
         return out * SCALER
 
     @torch.no_grad()
@@ -281,13 +326,17 @@ def pretrain(
     global-norm clip, EMA. Returns the TrainState (its `model` holds the
     trained weights, `ema_params` the EMA).
 
+    model_w=True trains the w-only prior p(w | u0, uT) instead (reference
+    is_model_w, 1D/model/diffusion.py:678-679,718-720): the model never sees
+    u_1..u_{T-1} (`mask_model_w_input`) and the u channel carries no loss
+    (`ModelWConditioner`). Its weights are the prior of
+    `BurgersPipeline(two_model=True)`.
+
     `params` (a state_dict) starts from given weights, else `init_params`
     seeds them from cfg.seed. `resume_dir` restores step, weights, Adam
     moments and EMA from its latest checkpoint. Timesteps and noise come from
     a generator seeded with cfg.seed, or from `noise`, which yields each
     micro-batch's (t, noise) in order. `losses`: see `run_train_loop`."""
-    if model_w:
-        raise NotImplementedError("the w-only prior model (model_w) is not ported yet")
     num_steps = num_steps or cfg.train_num_steps
     model = build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups, cfg.compute_dtype,
                         device=device)
@@ -298,7 +347,13 @@ def pretrain(
     sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective, device=device)
     dcfg = DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective,
                            beta_schedule=cfg.beta_schedule)
-    cond = train_conditioner()
+    if model_w:
+        cond = ModelWConditioner()
+
+        def apply_fn(x, t):
+            return model(mask_model_w_input(x), t)
+    else:
+        cond, apply_fn = train_conditioner(), model
 
     lr = periodic_cosine_schedule(cfg.lr, cfg.cosine_t_max)
     tx = make_optimizer("adam", lr, betas=cfg.adam_betas, max_grad_norm=cfg.max_grad_norm)
@@ -319,7 +374,7 @@ def pretrain(
 
     def loss_fn(i, batch):
         t, n = next(noise) if noise is not None else draw_t_noise(dcfg, batch, generator)
-        return p_losses(model, sched, dcfg, batch, t, n, cond).mean()
+        return p_losses(apply_fn, sched, dcfg, batch, t, n, cond).mean()
 
     def step_fn(state, batch):
         # batch: (accum * batch_size, ...) -> (accum, batch_size, ...)
@@ -344,7 +399,10 @@ def pretrain(
 def make_train_state(pipeline: BurgersPipeline, params: Params, tx, ema_decay: float,
                      ema_update_every: int) -> TrainState:
     """A TrainState on a copy of the pipeline's model holding `params` (None:
-    the model's own weights); the pipeline's model is left as it is."""
+    the model's own weights); the pipeline's model is left as it is. A
+    two-model pipeline is refused: it is an evaluation surface."""
+    if pipeline.two_model:
+        raise ValueError(TWO_MODEL_FINETUNE)
     net = copy.deepcopy(pipeline.model).train()
     if params is not None:
         net.load_state_dict(params)
@@ -374,9 +432,9 @@ def infft_step(pipeline: BurgersPipeline, state: TrainState, test_batch: torch.T
     kw = (dict(generator=generator) if noise is None
           else dict(init_noise=noise[0], step_noise=noise[1]))
     cond = BurgersConditioner(u0=test_batch[:, 0, :, 0], uT=test_batch[:, COND_IDX, :, 0])
-    out = ddim_sample(state.model, pipeline.sched, pipeline.diff_cfg, test_batch.shape,
-                      cond=cond, guidance_grad=guidance_grad_fn(Q, pipeline.task_cfg),
-                      j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
+    out = pipeline._sampler(state.model, pipeline.sched, pipeline.diff_cfg, test_batch.shape,
+                            cond=cond, guidance_grad=guidance_grad_fn(Q, pipeline.task_cfg),
+                            j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
     loss = infft_loss(out * SCALER, Q, pipeline.task_cfg)
     state.apply_gradients(torch.autograd.grad(loss, list(state.model.parameters())))
     return loss.detach()

@@ -12,8 +12,9 @@ including its quirks (reference: 1D/model/diffusion.py:336-366):
   - padding zeroes u rows COND_IDX+1.., f rows COND_IDX.., s rows COND_IDX..
     (s row 10 is real data but is zeroed all the same)
 
-The w-only prior model of the two-model path (`ModelWConditioner`,
-`mask_model_w_*`) is not ported yet.
+The w-only prior model p(w | u0, uT) of two-model composed sampling is
+trained through `mask_model_w_input` and `ModelWConditioner`, and composed
+with `mask_model_w_output` (`core.sampling.compose_two_model_apply`).
 """
 from __future__ import annotations
 
@@ -99,6 +100,43 @@ class BurgersConditioner:
 def train_conditioner() -> BurgersConditioner:
     """Conditioner for the training loss (conditions read from x_start)."""
     return BurgersConditioner()
+
+
+# ---------------------------------------------------------------------------
+# w-only prior model p(w | u0, uT): the reference's is_model_w /
+# eval_two_models surface (1D/model/diffusion.py:226-244,678-679,718-720)
+# ---------------------------------------------------------------------------
+
+def mask_model_w_input(x: torch.Tensor) -> torch.Tensor:
+    """Zero the u rows the prior model never sees (u_1..u_{T-1}; u0 and uT
+    stay: it models p(w | u0, uT)). Applied to the model's input in
+    training and in two-model sampling (reference:
+    1D/model/diffusion.py:229-231,678-679)."""
+    x = x.clone()
+    x[:, 1:COND_IDX, :, U] = 0.0
+    return x
+
+
+def mask_model_w_output(out: torch.Tensor) -> torch.Tensor:
+    """The prior model predicts only w: zero its whole u-channel output
+    (reference: 1D/model/diffusion.py:232)."""
+    out = out.clone()
+    out[:, :, :, U] = 0.0
+    return out
+
+
+@dataclasses.dataclass
+class ModelWConditioner(BurgersConditioner):
+    """Training conditioner of the w-only prior model: BurgersConditioner's
+    conditioning and padding, and no loss on the u channel (the reference
+    copies the target into the u rows of the output before the MSE,
+    1D/model/diffusion.py:718-720). The input masking is
+    `mask_model_w_input` around the model, not here."""
+
+    def mask_output(self, model_out: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        model_out = super().mask_output(model_out, target)
+        model_out[:, :, :, U] = target[:, :, :, U]
+        return model_out
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 Same fields and defaults as `safediffcon_tpu/tasks/smoke/config.py`, which
 mirror the reference reproduce runs (reference: 2d/train_2d.py:26-76,
 2d/scripts/{train,posttrain,finetune}.sh). The port does not take every
-value yet: sampler "dpm" and device_pool > 0 raise where they are used.
+value yet: device_pool > 0 raises where it is used.
 """
 from __future__ import annotations
 

@@ -9,10 +9,13 @@ Port of `safediffcon_tpu/tasks/smoke/pipeline.py` (reference:
 
 The model's weights live in a torch module (load flax weights with
 `models.convert.load_flax_params`, or seed them with `init_params`); training
-updates them in place. Random draws come from explicit `torch.Generator`s;
-`noise=` hands in the draws instead (each sampler call's (init_noise,
-step_noise), each training micro-batch's (t, noise)), which is how the parity
-tests replay the JAX key chain.
+updates them in place. The sampler of calibration, test sampling and InfFT
+is the config's `sampler`: "ddim" or "dpm" (DPM-Solver++(2M)). Random draws
+come from explicit `torch.Generator`s; `noise=` hands in the draws instead,
+which is how the parity tests replay the JAX key chain: each training
+micro-batch's (t, noise) and each sampler call's (init_noise, step_noise),
+where step_noise is the noise of DDIM's stochastic steps and is empty for
+DPM, which draws only its initial noise.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from torch import nn
 
 from safediffcon_torch.core.conformal import normalize_weights, weighted_quantile
 from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
-from safediffcon_torch.core.sampling import ddim_sample
+from safediffcon_torch.core.sampling import get_sampler
 from safediffcon_torch.core.schedules import make_schedule
 from safediffcon_torch.core.train import (
     TrainState,
@@ -65,7 +68,7 @@ from safediffcon_torch.tasks.smoke.task import (
 
 log = logging.getLogger(__name__)
 
-# One sampler call's noise: (init_noise, [noise of each stochastic step]).
+# One sampler call's draws: (init_noise, step_noise), in the sampler's order.
 Noise = Tuple[torch.Tensor, list]
 # One training micro-batch's draws: (timesteps (B,), noise like the batch).
 TrainNoise = Tuple[torch.Tensor, torch.Tensor]
@@ -123,8 +126,6 @@ class SmokePipeline:
         eval_chunk: Optional[int] = 50,
         device="cuda",
     ):
-        if conf_cfg.sampler != "ddim":
-            raise NotImplementedError(f"sampler {conf_cfg.sampler!r} is not ported yet")
         self.ccfg = conf_cfg
         self.device = torch.device(device)
         self.cal_chunk = cal_chunk
@@ -147,6 +148,9 @@ class SmokePipeline:
             ddim_eta=conf_cfg.ddim_eta,
             beta_schedule=conf_cfg.beta_schedule,
         )
+        # calibration takes the test sampler, or Q-hat loses its coverage
+        # meaning for the deployed sampler
+        self.sampler_fn = get_sampler(conf_cfg.sampler)
         self.masks = S.build_masks(device)
         self.solver_kw = dict(
             accuracy=solver_accuracy, max_iter=solver_max_iter,
@@ -182,8 +186,8 @@ class SmokePipeline:
         """Calibration: sample conditioned on (init density, control); score
         + weights (reference: 2d/inference_2d.py:113-148)."""
         cond = SmokeConditioner(init=state[:, 0, :, :, 0], control=state[..., CX : CY + 1])
-        out = ddim_sample(self.apply_fn, self.sched, self.diff_cfg, state.shape,
-                          cond=cond, **sampler_kw)
+        out = self.sampler_fn(self.apply_fn, self.sched, self.diff_cfg, state.shape,
+                              cond=cond, **sampler_kw)
         scores = conformal_score(out, state)
         w = shift_weights(state, Q, self.task_cfg, "train")
         if self.finetune_set == "test":
@@ -197,8 +201,8 @@ class SmokePipeline:
         (reference: run_model, 2d/inference_2d.py:197-237)."""
         cond = SmokeConditioner(init=state[:, 0, :, :, 0], control=control)
         g = guidance_grad_fn(Q, self.task_cfg) if guided else None
-        out = ddim_sample(self.apply_fn, self.sched, self.diff_cfg, state.shape,
-                          cond=cond, guidance_grad=g, **sampler_kw)
+        out = self.sampler_fn(self.apply_fn, self.sched, self.diff_cfg, state.shape,
+                              cond=cond, guidance_grad=g, **sampler_kw)
         if control is not None:  # post-loop control re-imposition (diffusion_2d.py:400-402)
             out[..., CX : CY + 1] = control
         return tile_rate_channels(out * rescaler(out))
@@ -406,14 +410,15 @@ def make_finetune_steps(cfg: SmokeInferenceConfig, pipeline: SmokePipeline):
         kw = pipeline._sampler_kw
         init = test_batch[:, 0, :, :, 0]
         g = guidance_grad_fn(Q, tc) if ccfg.use_guidance else None
+        sampler = pipeline.sampler_fn
         with torch.no_grad():
-            first = ddim_sample(pipeline.apply_fn, sched, pipeline.diff_cfg, test_batch.shape,
-                                cond=SmokeConditioner(init=init), guidance_grad=g,
-                                **kw(draws, generator))
+            first = sampler(pipeline.apply_fn, sched, pipeline.diff_cfg, test_batch.shape,
+                            cond=SmokeConditioner(init=init), guidance_grad=g,
+                            **kw(draws, generator))
         control = first[..., CX : CY + 1]
-        out = ddim_sample(pipeline.apply_fn, sched, pipeline.diff_cfg, test_batch.shape,
-                          cond=SmokeConditioner(init=init, control=control),
-                          final_step_grad=True, **kw(draws, generator))
+        out = sampler(pipeline.apply_fn, sched, pipeline.diff_cfg, test_batch.shape,
+                      cond=SmokeConditioner(init=init, control=control),
+                      final_step_grad=True, **kw(draws, generator))
         out = torch.cat([out[..., :CX], control, out[..., CY + 1 :]], dim=-1)
         loss = backward_loss(out * rescaler(out), Q, tc)
         tx.step(params, torch.autograd.grad(loss, params), opt_state)

@@ -3,8 +3,7 @@
 Same fields and defaults as `safediffcon_tpu/tasks/tokamak/config.py`, which
 mirror the reference reproduce runs (reference:
 tokamak/configs/pretrain_config.py, tokamak/configs/inference_config.py,
-tokamak/scripts/posttrain.sh, tokamak/scripts/finetune.sh). The port does
-not take every value yet: sampler "dpm" raises where it is used.
+tokamak/scripts/posttrain.sh, tokamak/scripts/finetune.sh).
 """
 from __future__ import annotations
 
@@ -52,7 +51,7 @@ class TokamakConformalConfig:
     ddim_sampling_steps: int = 200
     ddim_eta: float = 1.0
     timesteps: int = 1000
-    sampler: str = "ddim"  # "ddim" | "dpm" (DPM-Solver++ 2M, not ported yet)
+    sampler: str = "ddim"  # "ddim" | "dpm" (DPM-Solver++ 2M, fewer steps)
     # guidance
     w_obj: float = 0.0
     w_safe: float = 1.0

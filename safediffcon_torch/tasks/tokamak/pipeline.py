@@ -22,11 +22,13 @@ Weights are passed as `params`, a state_dict of the UNet1D (the pipeline
 runs its model on them through `torch.func.functional_call`), or None for
 the pipeline model's own weights. Random draws come from explicit
 `torch.Generator`s; `noise=` hands in the draws instead, in the order the
-code consumes them (each sampler call's (init_noise, step_noise), each
-training step's (t, noise)), which is how the parity tests replay the JAX
-key chain.
+code consumes them, which is how the parity tests replay the JAX key chain:
+each training step's (t, noise) and each sampler call's (init_noise,
+step_noise), where step_noise is the noise of DDIM's stochastic steps and
+is empty for DPM. Calibration, test sampling and InfFT take the config's
+`sampler`: "ddim" or "dpm" (DPM-Solver++(2M)).
 
-Not ported yet (they raise): `sampler="dpm"`, `steps_per_call > 1`, and the
+Not ported yet (they raise): `steps_per_call > 1`, and the
 `run_inference_resilient` wrapper of the JAX module (TPU worker-fault
 recovery).
 """
@@ -44,7 +46,7 @@ from torch.func import functional_call
 
 from safediffcon_torch.core.conformal import normalize_weights, weighted_quantile
 from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
-from safediffcon_torch.core.sampling import ddim_sample
+from safediffcon_torch.core.sampling import get_sampler
 from safediffcon_torch.core.schedules import get_J_scheduler, make_schedule
 from safediffcon_torch.core.train import (
     TrainState,
@@ -77,7 +79,7 @@ from safediffcon_torch.tasks.tokamak.task import (
 log = logging.getLogger(__name__)
 
 Params = Optional[Mapping[str, torch.Tensor]]
-# One sampler call's noise: (init_noise, [noise of each stochastic step]).
+# One sampler call's draws: (init_noise, step_noise), in the sampler's order.
 Noise = Tuple[torch.Tensor, list]
 # One training step's draws: (timesteps (B,), noise like the batch).
 TrainNoise = Tuple[torch.Tensor, torch.Tensor]
@@ -122,8 +124,6 @@ class TokamakPipeline:
         cal_chunk: Optional[int] = 50,
         device="cuda",
     ):
-        if conf_cfg.sampler != "ddim":
-            raise NotImplementedError(f"sampler {conf_cfg.sampler!r} is not ported yet")
         self.ccfg = conf_cfg
         self.device = torch.device(device)
         self.cal_chunk = cal_chunk
@@ -143,6 +143,9 @@ class TokamakPipeline:
             beta_schedule="cosine",
         )
         self.j_scheduler = get_J_scheduler(conf_cfg.J_scheduler)
+        # calibration takes the test sampler, or Q-hat loses its coverage
+        # meaning for the deployed sampler
+        self.sampler_fn = get_sampler(conf_cfg.sampler)
         self.solver_params = load_kstar_params(device=device)
         # seconds per phase of `_evaluate` ("sampling", "rollout"), summed
         # over calls, when set to a dict; each phase then ends in a sync
@@ -185,8 +188,8 @@ class TokamakPipeline:
         u0 and the full (βp, li) trajectories; score and weight (reference:
         tokamak/inference/conformal.py:34-117)."""
         ccfg, tc = self.ccfg, self.task_cfg
-        out = ddim_sample(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
-                          cond=sampling_conditioner(state, actions=True), **sampler_kw)
+        out = self.sampler_fn(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
+                              cond=sampling_conditioner(state, actions=True), **sampler_kw)
         scores = conformal_score(out, state)
         weights = shift_weights(state, state_target, Q, tc)
         # composite weight factors (reference: tokamak/inference/conformal.py:84-100):
@@ -247,10 +250,10 @@ class TokamakPipeline:
         """Test sampling conditioned on (u0, target trajectories); returns
         PHYSICAL-unit predictions (reference: tokamak/inference/pipeline.py:381-407)."""
         g = guidance_grad_fn(state_target, Q, self.task_cfg) if guided else None
-        out = ddim_sample(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
-                          cond=sampling_conditioner(state), guidance_grad=g,
-                          j_scheduler=self.j_scheduler, final_step_grad=final_step_grad,
-                          **sampler_kw)
+        out = self.sampler_fn(self.apply_fn(params), self.sched, self.diff_cfg, state.shape,
+                              cond=sampling_conditioner(state), guidance_grad=g,
+                              j_scheduler=self.j_scheduler, final_step_grad=final_step_grad,
+                              **sampler_kw)
         return out * scaler(out)
 
     @torch.no_grad()
@@ -394,9 +397,9 @@ def make_finetune_steps(cfg: TokamakInferenceConfig, pipeline: TokamakPipeline):
         kw = (dict(generator=generator) if noise is None
               else dict(init_noise=noise[0], step_noise=noise[1]))
         g = guidance_grad_fn(state_target, Q, tc) if ccfg.use_guidance else None
-        out = ddim_sample(model, sched, pipeline.diff_cfg, test_batch.shape,
-                          cond=sampling_conditioner(test_batch), guidance_grad=g,
-                          j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
+        out = pipeline.sampler_fn(model, sched, pipeline.diff_cfg, test_batch.shape,
+                                  cond=sampling_conditioner(test_batch), guidance_grad=g,
+                                  j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
         loss = backward_loss(out * scaler(out), state_target, Q, tc)
         tx.step(params, torch.autograd.grad(loss, params), opt_state)
         return loss.detach()

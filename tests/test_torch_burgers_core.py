@@ -194,8 +194,12 @@ def test_sample_dispatch():
     out = TSmp.sample(t_apply, sched, DiffusionConfig(timesteps=10, sampling_timesteps=3),
                       SHAPE, generator=torch.Generator().manual_seed(0))
     assert out.shape == SHAPE and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError):  # the ancestral sampler
-        TSmp.sample(t_apply, sched, DiffusionConfig(timesteps=10), SHAPE)
+    # as many sampling steps as timesteps: the ancestral sampler
+    out = TSmp.sample(t_apply, sched, DiffusionConfig(timesteps=10), SHAPE,
+                      generator=torch.Generator().manual_seed(0))
+    ref = TSmp.ancestral_sample(t_apply, sched, DiffusionConfig(timesteps=10), SHAPE,
+                                generator=torch.Generator().manual_seed(0))
+    assert torch.equal(out, ref) and torch.isfinite(out).all()
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 dim 16, a few sims at the task's 128 cells): `BurgersPipeline.calibrate` +
 guided `evaluate` (DDIM of UNet2D -> FD solver -> metrics) from the same
 weights, with the JAX key chain's draws replayed into the port; the exact
-`state_dir` resume of post-training; the options that are not ported."""
+`state_dir` resume of post-training; the option that is not ported."""
 import os
 
 import numpy as np
@@ -76,12 +76,10 @@ def test_posttrain_state_dir_resume_is_exact(data, tmp_path):
 
 
 def test_unported_options_raise(data):
+    with pytest.raises(ValueError):  # a sampler the package does not have
+        BurgersPipeline(BurgersConformalConfig(**CONF, sampler="unipc"), device="cpu", **PIPE)
     with pytest.raises(NotImplementedError):
-        BurgersPipeline(BurgersConformalConfig(**CONF, sampler="dpm"), device="cpu", **PIPE)
-    with pytest.raises(NotImplementedError):
-        BurgersPipeline(BurgersConformalConfig(**CONF), two_model=True, device="cpu", **PIPE)
-    with pytest.raises(NotImplementedError):
-        pretrain(BurgersPretrainConfig(**PIPE), data["train"], num_steps=1, model_w=True,
+        pretrain(BurgersPretrainConfig(**PIPE), data["train"], num_steps=1, steps_per_call=4,
                  device="cpu")
     tp = BurgersPipeline(BurgersConformalConfig(**CONF), device="cpu", **PIPE)
     with pytest.raises(NotImplementedError):

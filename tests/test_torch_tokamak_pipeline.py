@@ -3,7 +3,7 @@
 `TokamakPipeline.calibrate` and an unguided and a guided `evaluate` (DDIM of
 UNet1D -> KSTAR surrogate -> metrics) from the same weights, with the JAX key
 chain's draws replayed into the port; the exact `state_dir` resume of
-`run_inference`; the option that is not ported."""
+`run_inference`; a sampler the package does not have."""
 import dataclasses
 import os
 
@@ -76,5 +76,5 @@ def test_run_inference_state_dir_resume_is_exact(data, tmp_path):
 
 
 def test_unported_sampler_raises():
-    with pytest.raises(NotImplementedError):
-        TokamakPipeline(TokamakConformalConfig(**CONF, sampler="dpm"), device="cpu", **PIPE)
+    with pytest.raises(ValueError):
+        TokamakPipeline(TokamakConformalConfig(**CONF, sampler="unipc"), device="cpu", **PIPE)

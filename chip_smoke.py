@@ -43,7 +43,8 @@ fails ends the run with a non-zero exit.
      (TF32, float32, bfloat16) and bounds;
   7. a small pretrain on the card (K2 in 3xTF32) and on the CPU (its plain
      version, which the CPU tests hold against the JAX package) with the
-     same weights and draws, TF32 off: the losses must agree;
+     same weights and draws, TF32 off: the losses must agree; then the same
+     with steps_per_call 2 and a device pool (12d);
   8. pretraining at the reference width on K2 (SmokePretrainConfig with
      conv_impl "pallas": batch 16, remat "full", float32, default flags, so
      K2 in TF32) for PRETRAIN_STEPS steps after one warm-up step; K2's
@@ -70,9 +71,9 @@ fails ends the run with a non-zero exit.
           and in bf16 compute: ms per step and peak memory;
  11. the serving path with sampler "dpm" (DPM-Solver++(2M), 25 steps, inside
      the JAX docstring's ~20-50) at phase 4's width, weights and data:
-     SmokePipeline.calibrate on the 50 cal sims and guided evaluate on the
-     50 test sims, each one batch, the solver on K1; K1's launch count is
-     zeroed just before calibrate and must read 255 just after evaluate,
+     SmokePipeline.calibrate on 25 of the cal sims and guided evaluate on
+     the 50 test sims, each one batch, the solver on K1; K1's launch count
+     is zeroed just before calibrate and must read 255 just after evaluate,
      K2's must read 0; seconds per DPM step and peak memory.
 
 The Burgers 1D task (no kernel of the TPU package lies on its path; K1 and
@@ -113,9 +114,9 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
           steps after one warm-up step;
       (c) BurgersPipeline(two_model=True, prior_beta=0.5), the JAX CLI's
           default beta, with B5's EMA as the main model and (b)'s as the
-          prior, DDIM 200: calibrate on 50 cal sims, guided evaluate on the
-          50 test sims;
-      (d) sampler "dpm", 25 steps, B5's EMA: calibrate on 250 cal sims,
+          prior, DDIM 100: calibrate on 50 cal sims, guided
+          evaluate on the 50 test sims;
+      (d) sampler "dpm", 25 steps, B5's EMA: calibrate on 100 cal sims,
           guided evaluate on the 50 test sims;
       (e) the ancestral sampler through calibrate (ddim_sampling_steps
           1,000 = timesteps, 1,000 conditioned steps) on 50 cal sims;
@@ -124,8 +125,9 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
 Depth cuts of the Burgers phases against the reference: 2,048 train sims
 (40,000), 10 pretrain steps (200,000; also the w-prior's), posttrain 2
 epochs x 2 steps (5 x 3,200), InfFT 2 iterations (3), B4's and B7(d)'s
-calibration on 250 cal sims, the fine-tuning calibration on 100 and B7(c)'s
-and (e)'s on 50 (1,000; these cuts keep the whole script inside its
+calibration on 100 cal sims, the fine-tuning calibration on
+100 and B7(c)'s and (e)'s on 50 (1,000), B7(c) at DDIM 100 (200; these cuts
+keep the whole script inside its
 budget).
 Widths, DDIM steps, batch sizes and the solver are the reference's.
 
@@ -167,12 +169,42 @@ trajectories (48,950), 10 pretrain steps (200,000), posttrain 1 epoch (8),
 InfFT 1 epoch (5). Widths, DDIM steps, batch sizes and the surrogate are the
 reference's.
 
+The command line (phase 12; `python -m safediffcon_torch.cli.main <task>
+<phase>`), with the launch counts zeroed before each part and read after:
+
+ 12a. `python3 -m safediffcon_torch.cli.main burgers generate-data` in a
+      process of its own (64 train, 50 cal, 50 test sims into
+      build/chip_smoke/cli/burgers): exit code 0, and `-X importtime` shows
+      no module of JAX or the JAX package imported;
+ 12b. smoke through `main([...])` in this process, at the reference width:
+      generate-data (16 + 8 + 8 sims; K1 255 launches per generated batch);
+      a library generate_smoke_dataset with conservation bounds set around
+      the median mass ratio of an unfiltered batch of 8: the kept ratios lie
+      inside them and sims were regenerated; pretrain --conv-impl pallas
+      --steps 2 --steps-per-call 2, then --steps 4 --resume (milestones 2
+      and 4; K2 90 tensor-core launches per step, 0 SIMT); a library
+      pretrain(steps_per_call=2, device_pool=8, pool_refresh_every=4) of 6
+      steps at phase 8's configuration (s per step and peak memory beside
+      phase 8's, set-up included in both); eval --ddim-steps 10
+      --checkpoints 2:4:2 (K1 255 launches per evaluated chunk per
+      milestone, K2 0);
+ 12c. Burgers (on 12a's data) and tokamak (generate-data 64 + 50 + 50)
+      through the command line at their "turbo" widths: pretrain --steps 2
+      --steps-per-call 2, eval --ddim-steps 20; K1 and K2 stay idle;
+ 12d. (in phase 7) a second small pretrain with steps_per_call 2 and a
+      bfloat16 device pool of 3 of the 4 sims, card (K2 in 3xTF32) against
+      CPU within phase 7's 1e-4.
+
+Depth cut to make room for phase 12: phase 11's calibrate on 25 cal sims
+(50 before), B4's and B7(d)'s on 100 (250), B7(c) at DDIM 100 (200).
+
 Its last three lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -222,8 +254,9 @@ B_N_TRAIN, B_N_CAL, B_N_TEST = 2048, 1000, 50
 B_SOLVER_BATCH = 50
 B_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 B_FT_CAL = 100  # cal sims of the fine-tuning phases (reference 1,000)
-B4_CAL = 250  # cal sims of B4's calibrate (reference 1,000)
+B4_CAL = 100  # cal sims of B4's and B7(d)'s calibrate (reference 1,000)
 B7_CAL = 50  # cal sims of B7's two-model and ancestral calibrations (reference 1,000)
+B7_DDIM = 100  # DDIM steps of B7(c)'s two-model serving (reference 200)
 B7_ANCESTRAL_T = 100  # timesteps of B7(a)'s ancestral chain
 SMOKE_STEPS = 5  # timed pretrain steps (after one more) and guided DDIM steps of phase 10
 # Tokamak: the reference "turbo" UNet1D; trajectories per split (reference
@@ -232,6 +265,14 @@ T_N_TRAIN, T_N_CAL, T_N_TEST = 2048, 1000, 50
 T_BATCH = 50  # test batch (reference)
 T_CAL_CHUNK = 1000  # calibrate the reference's batch of 1,000 as one chunk
 T_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
+# Phase 12: the command line's scratch directory (under the gitignored build/),
+# its splits (train, cal, test) for Burgers and tokamak and for smoke, smoke
+# eval's DDIM steps, and the device-pool pretrain's pool and steps
+CLI_DIR = ROOT / "build" / "chip_smoke" / "cli"
+CLI_B_SPLITS = (64, 50, 50)
+CLI_S_SPLITS = (16, 8, 8)
+CLI_S_DDIM = 10
+POOL_SIMS, POOL_STEPS = 8, 6
 
 
 def log(msg: str) -> None:
@@ -862,26 +903,30 @@ def phase_small_pretrain_agreement(C, smoke, train):
     gen = torch.Generator().manual_seed(6)
     draws = [(torch.randint(0, cfg.timesteps, (2,), generator=gen),
               torch.randn((2, *raw.shape[1:]), generator=gen)) for _ in range(2)]
-    losses = {}
     n_convs = count_fused_convs(build_model(16, (1, 2), conv_impl="pallas", device="cpu"))
-    before = k2_launches(C)
-    simt_before = C.conv3d_fused_simt_cuda.launches
-    with tf32_flag(False):
-        for device in ("cuda", "cpu"):
-            noise = iter([(t.to(device), n.to(device)) for t, n in draws])
-            out = []
-            smoke.pretrain(cfg, small, num_steps=2, params=params, device=device, noise=noise,
-                           losses=out)
-            losses[device] = [float(v) for v in out]
-    log(f"small pretrain: card {losses['cuda']}, cpu {losses['cpu']}")
-    # per step: each conv's forward, its recomputation, its dx, all in 3xTF32
-    if (k2_launches(C) - before != 2 * 3 * n_convs
-            or C.conv3d_fused_simt_cuda.launches != simt_before):
-        raise AssertionError("the small pretrain on the card did not run on the tensor-core K2")
-    for got, ref in zip(losses["cuda"], losses["cpu"]):
-        # float32 on both, sums in another order, after one Adam step
-        if not abs(got - ref) <= 1e-4 * abs(ref):
-            raise AssertionError(f"card and CPU pretrain losses disagree: {losses}")
+    # the second run (12d): both steps in one chunk, batches gathered from a
+    # bfloat16 pool of 3 of the 4 sims on the device
+    for options in ({}, dict(steps_per_call=2, device_pool=3)):
+        losses = {}
+        before = k2_launches(C)
+        simt_before = C.conv3d_fused_simt_cuda.launches
+        with tf32_flag(False):
+            for device in ("cuda", "cpu"):
+                noise = iter([(t.to(device), n.to(device)) for t, n in draws])
+                out = []
+                smoke.pretrain(cfg, small, num_steps=2, params=params, device=device,
+                               noise=noise, losses=out, **options)
+                losses[device] = [float(v) for v in out]
+        log(f"small pretrain {json.dumps(options)}: card {losses['cuda']}, cpu {losses['cpu']}")
+        # per step: each conv's forward, its recomputation, its dx, all in 3xTF32
+        if (k2_launches(C) - before != 2 * 3 * n_convs
+                or C.conv3d_fused_simt_cuda.launches != simt_before):
+            raise AssertionError("the small pretrain on the card did not run on the "
+                                 "tensor-core K2")
+        for got, ref in zip(losses["cuda"], losses["cpu"]):
+            # float32 on both, sums in another order, after one Adam step
+            if not abs(got - ref) <= 1e-4 * abs(ref):
+                raise AssertionError(f"card and CPU pretrain losses disagree: {losses}")
 
 
 # ---------------------------------------------------------------------------
@@ -1404,7 +1449,7 @@ def phase_burgers_b7(burgers, data, main_params):
     against CPU on tiny UNet2Ds; (b) the w-only prior's pretrain (batch 16,
     B_PRETRAIN_STEPS steps after one); at the turbo width, from B5's EMA as
     the main model: (c) two-model serving with (b)'s EMA as the prior,
-    prior_beta 0.5 (the JAX CLI's default), DDIM 200, calibrate on B7_CAL
+    prior_beta 0.5 (the JAX CLI's default), DDIM B7_DDIM, calibrate on B7_CAL
     cal sims and guided evaluate on the 50 test sims; (d) sampler "dpm" with
     DPM_STEPS steps, calibrate on B4_CAL cal sims and guided evaluate; (e)
     the ancestral sampler through calibrate (ddim_sampling_steps 1,000 =
@@ -1413,9 +1458,10 @@ def phase_burgers_b7(burgers, data, main_params):
     prior, out["w_prior_pretrain"] = phase_burgers_pretrain(burgers, data, model_w=True)
     base = burgers.BurgersConformalConfig()
     cal, test = data["cal"].data, data["test"]
-    out["two_model"] = burgers_serve(burgers, "B7(c) two-model DDIM serving", base,
-                                     (main_params, prior), cal[:B7_CAL], test, two_model=True,
-                                     prior_beta=0.5)
+    out["two_model"] = burgers_serve(
+        burgers, "B7(c) two-model DDIM serving",
+        dataclasses.replace(base, ddim_sampling_steps=B7_DDIM), (main_params, prior),
+        cal[:B7_CAL], test, two_model=True, prior_beta=0.5)
     out["dpm"] = burgers_serve(
         burgers, "B7(d) DPM serving",
         dataclasses.replace(base, sampler="dpm", ddim_sampling_steps=DPM_STEPS), main_params,
@@ -1577,7 +1623,7 @@ def phase_smoke_bf16_sampling(smoke, test):
 def phase_smoke_dpm_serving(K, C, smoke, data):
     """11: SmokePipeline with sampler "dpm" (DPM-Solver++(2M), DPM_STEPS
     steps) at full width with phase 4's seeded weights and data: calibrate
-    on the N_CAL cal sims and guided evaluate on the N_TEST test sims, each
+    on SERVE_CAL cal sims and guided evaluate on the N_TEST test sims, each
     one batch, the solver on K1 (backend "auto"). K1's count is zeroed just
     before calibrate and must read 255 per evaluated batch just after
     evaluate; K2's counts must read 0."""
@@ -1585,7 +1631,7 @@ def phase_smoke_dpm_serving(K, C, smoke, data):
 
     _, cal, test = data
     ccfg = smoke.SmokeConformalConfig(sampler="dpm", ddim_sampling_steps=DPM_STEPS,
-                                      cal_batch_size=N_CAL, num_cal_batch=1,
+                                      cal_batch_size=SERVE_CAL, num_cal_batch=1,
                                       n_test_samples=N_TEST, test_batch_size=N_TEST)
     pipe = smoke.SmokePipeline(ccfg, device="cuda")
     init_params(pipe.model, seed=0)
@@ -1594,7 +1640,8 @@ def phase_smoke_dpm_serving(K, C, smoke, data):
     zero_k2_counts(C)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    q = float(pipe.calibrate(cal, 0.0, generator=torch.Generator(device="cuda").manual_seed(1)))
+    q = float(pipe.calibrate(smoke.SmokeDataset(cal.data[:SERVE_CAL], cal.raw[:SERVE_CAL]), 0.0,
+                             generator=torch.Generator(device="cuda").manual_seed(1)))
     calibrate_s = time.perf_counter() - t0
     cal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
@@ -1606,7 +1653,7 @@ def phase_smoke_dpm_serving(K, C, smoke, data):
     launches = K.pressure_cg_cuda.launches
     k2 = (k2_launches(C), C.conv3d_fused_simt_cuda.launches)
     sampling_s, rollout_s = pipe.phase_seconds["sampling"], pipe.phase_seconds["rollout"]
-    out = dict(steps=DPM_STEPS, calibrate_s=calibrate_s,
+    out = dict(steps=DPM_STEPS, cal_sims=SERVE_CAL, calibrate_s=calibrate_s,
                s_per_conditioned_step=calibrate_s / DPM_STEPS, evaluate_s=evaluate_s,
                sampling_s=sampling_s, rollout_s=rollout_s,
                s_per_guided_step=sampling_s / DPM_STEPS, peak_gb_calibrate=cal_peak_gb,
@@ -1978,6 +2025,200 @@ def phase_tokamak_dpm(tokamak, data, params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the command line (python -m safediffcon_torch.cli.main) and the
+# training-loop options
+# ---------------------------------------------------------------------------
+
+def run_cli(argv: list) -> None:
+    """One in-process command of the port's command line, so that the launch
+    counters can be read; it must return 0."""
+    from safediffcon_torch.cli.main import main as cli_main
+
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    log(f"12 cli {' '.join(argv)}: rc {rc} in {time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        raise AssertionError(f"the command line returned {rc} for {argv}")
+
+
+def phase_cli_subprocess() -> dict:
+    """12a: `python3 -m safediffcon_torch.cli.main burgers generate-data` as
+    a user runs it, in a process of its own; `-X importtime` lists every
+    module it imports, and none may be JAX's or the JAX package's."""
+    import importlib.util
+    import re
+
+    out = CLI_DIR / "burgers"
+    out.mkdir(parents=True, exist_ok=True)
+    argv = [sys.executable, "-X", "importtime", "-m", "safediffcon_torch.cli.main", "burgers",
+            "generate-data",
+            "--n-train", str(CLI_B_SPLITS[0]), "--n-cal", str(CLI_B_SPLITS[1]),
+            "--n-test", str(CLI_B_SPLITS[2]), "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    jax_here = importlib.util.find_spec("jax") is not None
+    modules = re.findall(r"^import time:\s+\d+ \|\s+\d+ \|\s*(\S+)", proc.stderr, re.M)
+    forbidden = sorted({m for m in modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "safediffcon_tpu")})
+    log(f"12a {' '.join(argv[1:])}: rc {proc.returncode} in {seconds:.2f} s (process start "
+        f"included); {len(modules)} modules imported, of JAX or the JAX package: {forbidden} "
+        f"(jax importable on this host: {jax_here}); last line "
+        f"{proc.stdout.strip().splitlines()[-1:]}")
+    if proc.returncode != 0 or not (out / "burgers.npz").exists() or not modules or forbidden:
+        raise AssertionError(f"12a: the command line failed or imported {forbidden}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return dict(seconds=seconds, modules_imported=len(modules), jax_importable=jax_here)
+
+
+def phase_cli_smoke(K, C, smoke, pretrain_ref: dict) -> dict:
+    """12b: the smoke task through the command line on the card: generate-data
+    (K1 in the rollout), a library datagen with the conservation filter,
+    pretrain on K2 with --steps-per-call 2 (2 steps, then 2 more with
+    --resume: milestones 2 and 4), a library pretrain with a device pool at
+    the reference width, and eval --checkpoints 2:4:2 (K1 in each
+    evaluate, K2 idle)."""
+    from safediffcon_torch.tasks.smoke.pipeline import build_model
+
+    out_dir = CLI_DIR / "smoke"
+    c = ["--out", str(out_dir)]
+    n_train, n_cal, n_test = CLI_S_SPLITS
+    res = {}
+    K.pressure_cg_cuda.launches = 0
+    zero_k2_counts(C)
+    t0 = time.perf_counter()
+    run_cli(["smoke", "generate-data", "--n-train", str(n_train), "--n-cal", str(n_cal),
+             "--n-test", str(n_test)] + c)
+    gen_batches = -(-(n_train + n_cal + n_test) // 16)  # the default gen_batch
+    res["generate_data"] = dict(seconds=time.perf_counter() - t0,
+                                k1_launches=K.pressure_cg_cuda.launches, batches=gen_batches)
+    if K.pressure_cg_cuda.launches != SOLVER_STEPS * gen_batches or k2_launches(C):
+        raise AssertionError(f"12b generate-data launched K1 {K.pressure_cg_cuda.launches} "
+                             f"times, expected {SOLVER_STEPS * gen_batches}")
+
+    # the conservation filter: bounds around the median mass ratio of an
+    # unfiltered batch, so that sims are rejected on both sides
+    t0 = time.perf_counter()
+    probe = smoke.generate_smoke_dataset(str(out_dir / "probe.npz"), n_train=8, n_cal=0,
+                                         n_test=0, gen_batch=8, seed=5, device="cuda")
+    r = np.sort(probe)
+    lo, hi = float(r[1] + r[2]) / 2, float(r[5] + r[6]) / 2
+    launches0 = K.pressure_cg_cuda.launches
+    kept = smoke.generate_smoke_dataset(str(out_dir / "filtered.npz"), n_train=8, n_cal=0,
+                                        n_test=0, gen_batch=8, seed=6, conservation_min=lo,
+                                        conservation_max=hi, device="cuda")
+    attempts = (K.pressure_cg_cuda.launches - launches0) // SOLVER_STEPS
+    res["conservation"] = dict(seconds=time.perf_counter() - t0, bounds=[lo, hi],
+                               probe_ratios=probe.tolist(), kept_ratios=kept.tolist(),
+                               batches=attempts)
+    log("12b conservation filter " + json.dumps(res["conservation"]))
+    if not (len(kept) == 8 and ((kept > lo) & (kept < hi)).all() and attempts > 1):
+        raise AssertionError(f"12b conservation filter: kept {kept} in ({lo}, {hi}) after "
+                             f"{attempts} batches")
+
+    # pretrain on K2 through the command line: 90 tensor-core launches per step
+    n_convs = count_fused_convs(build_model(conv_impl="pallas", device="meta"))
+    mode = C.kernel_mode(torch.float32)
+    zero_k2_counts(C)
+    K.pressure_cg_cuda.launches = 0
+    t0 = time.perf_counter()
+    for steps, extra in ((2, []), (4, ["--resume"])):
+        run_cli(["smoke", "pretrain", "--conv-impl", "pallas", "--steps", str(steps),
+                 "--steps-per-call", "2", *extra] + c)
+    launches = C.conv3d_fused_cuda.launches[mode]
+    res["pretrain"] = dict(seconds=time.perf_counter() - t0, k2_launches=launches,
+                           k2_mode=mode, simt=C.conv3d_fused_simt_cuda.launches,
+                           milestones=sorted(os.listdir(out_dir / "smoke-pretrain")))
+    log("12b pretrain " + json.dumps(res["pretrain"]))
+    if (launches != 3 * n_convs * 4 or k2_launches(C) != launches
+            or C.conv3d_fused_simt_cuda.launches or K.pressure_cg_cuda.launches
+            or res["pretrain"]["milestones"] != ["ckpt-2.pt", "ckpt-4.pt"]):
+        raise AssertionError(f"12b pretrain: {res['pretrain']}, expected {3 * n_convs} "
+                             f"tensor-core launches per step over 4 steps")
+    k2_cli = launches
+
+    # the library pretrain with a device pool, at phase 8's configuration
+    train = smoke.SmokeDataset.load(str(out_dir / "smoke.npz"), "train")
+    cfg = smoke.SmokePretrainConfig(conv_impl="pallas")
+    pool = dict(steps_per_call=2, device_pool=POOL_SIMS, pool_refresh_every=4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_k2_counts(C)
+    losses = []
+    t0 = time.perf_counter()
+    state = smoke.pretrain(cfg, train, num_steps=POOL_STEPS, device="cuda", losses=losses,
+                           **pool)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = C.conv3d_fused_cuda.launches[mode]
+    losses = [float(v) for v in losses]
+    res["device_pool_pretrain"] = dict(
+        pool, steps=POOL_STEPS, train_sims=len(train), seconds=seconds,
+        s_per_step=seconds / POOL_STEPS, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        phase8_s_per_step=pretrain_ref["s_per_step"],
+        phase8_peak_gb=pretrain_ref["pretrain_peak_gb"], k2_launches=launches, losses=losses)
+    log("12b device-pool pretrain (set-up included, as phase 8) "
+        + json.dumps(res["device_pool_pretrain"]))
+    if (launches != 3 * n_convs * POOL_STEPS or k2_launches(C) != launches
+            or not all(math.isfinite(v) for v in losses) or state.step != POOL_STEPS):
+        raise AssertionError(f"12b device-pool pretrain: {res['device_pool_pretrain']}")
+    k2_pool = launches
+    del state
+    torch.cuda.empty_cache()
+
+    # eval of both milestones: K1 in each evaluate, K2 idle (cuDNN serving)
+    K.pressure_cg_cuda.launches = 0
+    zero_k2_counts(C)
+    t0 = time.perf_counter()
+    run_cli(["smoke", "eval", "--ddim-steps", str(CLI_S_DDIM), "--checkpoints", "2:4:2"] + c)
+    k1 = K.pressure_cg_cuda.launches
+    with open(out_dir / "smoke_eval_sweep.json") as f:
+        table = json.load(f)
+    res["eval"] = dict(seconds=time.perf_counter() - t0, k1_launches=k1, k2=k2_launches(C),
+                       table=table)
+    log("12b eval sweep " + json.dumps(res["eval"], sort_keys=True))
+    expected = SOLVER_STEPS * -(-n_test // 50) * 2  # per evaluated chunk per milestone
+    values = [v for m in table.values() for v in m.values() if isinstance(v, float)]
+    if (k1 != expected or k2_launches(C) or sorted(table) != ["2", "4"]
+            or any("error" in m for m in table.values())
+            or not all(math.isfinite(v) for v in values)):
+        raise AssertionError(f"12b eval: K1 {k1} (expected {expected}), K2 {k2_launches(C)}, "
+                             f"table {table}")
+    res["launches"] = dict(k1_eval=k1, k2_cli_pretrain=k2_cli, k2_pool_pretrain=k2_pool)
+    return res
+
+
+def phase_cli_burgers_tokamak(K, C) -> dict:
+    """12c: Burgers (on 12a's data) and tokamak through the command line at
+    their "turbo" widths: pretrain --steps 2 --steps-per-call 2, then eval
+    --ddim-steps 20; K1 and K2 stay idle."""
+    K.pressure_cg_cuda.launches = 0
+    zero_k2_counts(C)
+    res = {}
+    for task in ("burgers", "tokamak"):
+        out_dir = CLI_DIR / task
+        c = ["--out", str(out_dir)]
+        t0 = time.perf_counter()
+        if task == "tokamak":
+            run_cli(["tokamak", "generate-data", "--n-train", str(CLI_B_SPLITS[0]),
+                     "--n-cal", str(CLI_B_SPLITS[1]), "--n-test", str(CLI_B_SPLITS[2])] + c)
+        run_cli([task, "pretrain", "--steps", "2", "--steps-per-call", "2"] + c)
+        run_cli([task, "eval", "--ddim-steps", "20"] + c)
+        with open(out_dir / f"{task}_eval_results.json") as f:
+            metrics = json.load(f)
+        res[task] = dict(seconds=time.perf_counter() - t0, metrics=metrics)
+        log(f"12c {task}: " + json.dumps(res[task], sort_keys=True))
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"12c {task}: non-finite metrics {metrics}")
+    idle = (K.pressure_cg_cuda.launches, k2_launches(C), C.conv3d_fused_simt_cuda.launches)
+    if any(idle):
+        raise AssertionError(f"12c: a TPU-kernel counterpart ran on the Burgers or tokamak "
+                             f"path: {idle}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2070,13 +2311,23 @@ def main() -> int:
     if any(idle):
         raise AssertionError(f"a TPU-kernel counterpart ran on the tokamak path: {idle}")
 
+    # phase 12: the command line, K1 and K2 on its smoke path
+    t_cli = time.perf_counter()
+    cli = dict(subprocess=phase_cli_subprocess())
+    cli["smoke"] = phase_cli_smoke(K, C, smoke, train_times)
+    cli["burgers_tokamak"] = phase_cli_burgers_tokamak(K, C)
+    cli_launches = cli["smoke"]["launches"]
+    log(f"phase 12 in {time.perf_counter() - t_cli:.1f} s; launches {json.dumps(cli_launches)}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
+
     kernels = [dict(
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",
         replaces="safediffcon_tpu/ops/pressure_cg.py:42",
         also_replaces="safediffcon_tpu/ops/pressure_cg.py:119",
-        launches=launches + dpm_launches,
+        launches=launches + dpm_launches + cli_launches["k1_eval"],
         main_path_launches={"phase 4 DDIM serving": launches,
-                            "phase 11 DPM serving": dpm_launches},
+                            "phase 11 DPM serving": dpm_launches,
+                            "phase 12 smoke eval --checkpoints": cli_launches["k1_eval"]},
         max_abs_err=max(c["max_diff"] for c in cases),
         ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
@@ -2102,8 +2353,15 @@ def main() -> int:
     kernels.append(dict(
         name="conv3d_fused", route="cuda", source="safediffcon_torch/csrc/conv3d_wgmma.cu",
         replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
-        launches=conv_launches + bf16_launches,
-        main_path_modes={train_times["k2_mode"]: conv_launches, "bf16": bf16_launches},
+        launches=(conv_launches + bf16_launches + cli_launches["k2_cli_pretrain"]
+                  + cli_launches["k2_pool_pretrain"]),
+        main_path_modes={train_times["k2_mode"]: conv_launches + cli_launches["k2_cli_pretrain"]
+                         + cli_launches["k2_pool_pretrain"], "bf16": bf16_launches},
+        main_path_launches={"phase 8 pretrain": conv_launches, "phase 10b bf16": bf16_launches,
+                            "phase 12 smoke pretrain --steps-per-call 2":
+                                cli_launches["k2_cli_pretrain"],
+                            "phase 12 pretrain with a device pool":
+                                cli_launches["k2_pool_pretrain"]},
         max_abs_err=max(c["max_diff"] for c in f32_cases),
         ms=conv_main["kernel_ms"], plain_ms=conv_main["plain_ms"],
         bound_ms=conv_main["bound_ms"], bound_by=conv_main["bound_by"],

@@ -10,7 +10,9 @@ Port of `safediffcon_tpu/core/train.py` (reference: 1D/model/trainer.py:21-210,
     optax's formulas (the learning rate schedule sees the update count
     before its increment; bias corrections are float32 powers; the clip
     scale is max_norm / |g| with no epsilon, where `clip_grad_norm_` adds
-    1e-6). It updates the parameters in place. "sgd" is not ported.
+    1e-6). It updates the parameters in place. "sgd" is optax's
+    `sgd(lr, momentum=0.9)`: trace m <- g + 0.9 m (the first m is g, no
+    Nesterov), update -lr * m, after the same optional clip.
   - `periodic_cosine_schedule`, `warmup_cosine_schedule`: the closed forms
     of torch's CosineAnnealingLR and of the posttrain SequentialLR, in
     float32 as JAX computes them.
@@ -18,11 +20,8 @@ Port of `safediffcon_tpu/core/train.py` (reference: 1D/model/trainer.py:21-210,
     weights), the optimizer state and an EMA of the weights (0.995, applied
     when the new step count is a multiple of 10).
   - `accumulated_grads`, `run_train_loop` (the numpy batch order of the JAX
-    loop, checkpoint cadence, wall-clock deadline).
-
-`steps_per_call`, `device_pool` and `pool_refresh_every` of the JAX loop
-amortise TPU dispatch and are not ported: other values than their defaults
-raise.
+    loop, checkpoint cadence, wall-clock deadline, `steps_per_call` chunks
+    and the bfloat16 `device_pool`).
 """
 from __future__ import annotations
 
@@ -111,11 +110,7 @@ class Adam:
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
              state: AdamState) -> None:
         """Apply one update to `params` and `state` in place."""
-        grads = list(grads)
-        if self.max_grad_norm and self.max_grad_norm > 0:
-            g_norm = torch.sqrt(sum(g.square().sum() for g in grads))
-            keep = g_norm < self.max_grad_norm
-            grads = [torch.where(keep, g, g / g_norm * self.max_grad_norm) for g in grads]
+        grads = _clip_by_global_norm(list(grads), self.max_grad_norm)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
@@ -139,15 +134,69 @@ class Adam:
         torch._foreach_add_(list(params), upd)
 
 
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """optax.clip_by_global_norm: g * max_norm / |g| where |g| >= max_norm,
+    no epsilon; a no-op when max_norm is 0."""
+    if not (max_norm and max_norm > 0):
+        return grads
+    g_norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    keep = g_norm < max_norm
+    return [torch.where(keep, g, g / g_norm * max_norm) for g in grads]
+
+
+@dataclasses.dataclass
+class SGDState:
+    """optax's sgd state: the update count (for a schedule) and the momentum
+    trace, one tensor per parameter."""
+
+    count: int
+    trace: List[torch.Tensor]
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "trace": self.trace}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.count = int(d["count"])
+        for dst, src in zip(self.trace, list(d["trace"])):
+            dst.copy_(src)
+
+
+class SGD:
+    """optax.chain(clip_by_global_norm(max_grad_norm), sgd(lr, momentum)), or
+    sgd alone when max_grad_norm is 0: m <- g + momentum * m (m starts at 0,
+    so the first m is g; no Nesterov), then params += -lr * m."""
+
+    def __init__(self, lr: Schedule, momentum: float = 0.9, max_grad_norm: float = 0.0):
+        self.lr, self.momentum, self.max_grad_norm = lr, momentum, max_grad_norm
+
+    def init(self, params: Sequence[torch.Tensor]) -> SGDState:
+        return SGDState(0, [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+             state: SGDState) -> None:
+        """Apply one update to `params` and `state` in place."""
+        grads = _clip_by_global_norm(list(grads), self.max_grad_norm)
+        torch._foreach_mul_(state.trace, self.momentum)
+        torch._foreach_add_(state.trace, grads)
+        lr = float(np.float32(self.lr(state.count) if callable(self.lr) else self.lr))
+        state.count += 1
+        upd = torch._foreach_mul(state.trace, -lr)
+        torch._foreach_add_(list(params), upd)
+
+
+Optimizer = Union[Adam, SGD]
+
+
 def make_optimizer(kind: str = "adam", lr: Schedule = 1e-5, weight_decay: float = 1e-4,
-                   betas=(0.9, 0.99), max_grad_norm: float = 1.0) -> Adam:
-    """The JAX factory's "adam" and "adamw" (weight_decay is used by "adamw"
-    only); "sgd" is on no ported path and is not ported yet."""
+                   betas=(0.9, 0.99), max_grad_norm: float = 1.0) -> Optimizer:
+    """The JAX factory: "adam", "adamw" (weight_decay is used by "adamw"
+    only) and "sgd" (momentum 0.9; betas and weight_decay unused)."""
     if kind in ("adam", "adamw"):
         return Adam(lr, b1=betas[0], b2=betas[1], max_grad_norm=max_grad_norm,
                     weight_decay=weight_decay if kind == "adamw" else 0.0)
     if kind == "sgd":
-        raise NotImplementedError(f"optimizer {kind!r} is not ported yet")
+        return SGD(lr, momentum=0.9, max_grad_norm=max_grad_norm)
     raise ValueError(f"unknown optimizer {kind!r}")
 
 
@@ -159,14 +208,14 @@ def make_optimizer(kind: str = "adam", lr: Schedule = 1e-5, weight_decay: float 
 class TrainState:
     step: int
     model: nn.Module
-    tx: Adam
-    opt_state: AdamState
+    tx: Optimizer
+    opt_state: Union[AdamState, SGDState]
     ema_params: Dict[str, torch.Tensor]
     ema_decay: float = 0.995
     ema_update_every: int = 10
 
     @classmethod
-    def create(cls, model: nn.Module, tx: Adam, ema_decay: float = 0.995,
+    def create(cls, model: nn.Module, tx: Optimizer, ema_decay: float = 0.995,
                ema_update_every: int = 10) -> "TrainState":
         params = dict(model.named_parameters())
         return cls(step=0, model=model, tx=tx, opt_state=tx.init(list(params.values())),
@@ -247,25 +296,73 @@ def run_train_loop(
 ) -> TrainState:
     """The JAX package's epoch-less training loop (reference: Trainer loop,
     1D/model/trainer.py:150-210), one optimizer step per call of
-    `step_fn(state, batch) -> loss`.
+    `step_fn(state, batch) -> loss`, where batch is a float32 tensor of
+    `batch_take` samples on the model's device.
 
-    Batches are slices of a numpy permutation of `data`: the first from
-    `default_rng(seed + start_step)`, each reshuffle from
-    `default_rng(seed + step + need)`, exactly as in JAX, and are copied to
-    the model's device step by step. A checkpoint is written whenever the step
-    crosses a multiple of `checkpoint_every`, and at the last step reached.
-    `deadline` (absolute `time.time()` seconds) stops the loop before the
-    first step at or after it. When `losses` is a list, each step's loss (a
-    device tensor, no sync) is appended to it."""
-    if steps_per_call != 1 or device_pool != 0 or pool_refresh_every != 0:
-        raise NotImplementedError(
-            "steps_per_call, device_pool and pool_refresh_every amortise TPU dispatch and "
-            "are not ported; leave them at 1, 0 and 0")
+    Steps run in chunks of kk = min(steps_per_call, steps left), clamped to
+    the next multiple of `checkpoint_every` when checkpoints are written.
+    A chunk's indices are one slice of a numpy permutation of the data: the
+    first from `default_rng(seed + start_step)`, each reshuffle from
+    `default_rng(seed + step + need)` with `step` the chunk's first step,
+    exactly as in JAX (so the batches differ from steps_per_call = 1 where
+    a reshuffle falls inside a chunk). A chunk's kk batches cross to the
+    device in one copy from a reused (pinned, on CUDA) host buffer and its
+    steps run back to back; losses stay on the device until a log boundary.
+    A checkpoint is written whenever the step crosses a multiple of
+    `checkpoint_every`, and at the last step reached. `deadline` (absolute
+    `time.time()` seconds) is tested at chunk boundaries. When `losses` is a
+    list, each step's loss (a device tensor, no sync) is appended to it.
+
+    `device_pool` > 0 holds min(device_pool, n) samples, drawn by
+    `default_rng(seed + 7 + salt).choice(n, pool, replace=False)`, on the
+    device in bfloat16; a chunk sends only its (kk, B) indices, each batch is
+    gathered on the device and cast to float32. When the pool is smaller
+    than the data it is re-drawn every `pool_refresh_every` steps (default
+    max(1, 3 * pool // batch_take)) with salt = the step, and the order is
+    re-permuted from `default_rng(seed + step + 13)`."""
     if checkpoint_dir:
         from safediffcon_torch.utils.checkpoint import save_checkpoint
     device = next(state.model.parameters()).device
+    cuda = device.type == "cuda"
+    k = max(int(steps_per_call), 1)
+    n_data = data.shape[0]
+    sample_shape = tuple(data.shape[1:])
+    copied: Optional[torch.cuda.Event] = None
 
-    n = data.shape[0]
+    pool_dev = None
+    if device_pool and device_pool > 0 and start_step < num_steps:
+        pool = min(int(device_pool), n_data)
+        # staging buffers allocated once: the float32 gather, its bfloat16
+        # cast (pinned on CUDA) and the device pool, refilled in place
+        stage_f32 = np.empty((pool,) + sample_shape, np.float32)
+        stage_bf16 = torch.empty((pool,) + sample_shape, dtype=torch.bfloat16, pin_memory=cuda)
+        pool_dev = torch.empty((pool,) + sample_shape, dtype=torch.bfloat16, device=device)
+
+        def draw_pool(salt: int) -> None:
+            ids = np.random.default_rng(seed + 7 + salt).choice(n_data, pool, replace=False)
+            if cuda:
+                torch.cuda.current_stream(device).synchronize()  # the last copy is done
+            np.take(np.asarray(data), ids, axis=0, out=stage_f32)
+            stage_bf16.copy_(torch.from_numpy(stage_f32))  # round to nearest even
+            pool_dev.copy_(stage_bf16, non_blocking=cuda)
+
+        draw_pool(start_step)
+        if pool >= n_data:
+            pool_refresh_every = 0
+        elif pool_refresh_every <= 0:
+            pool_refresh_every = max(1, 3 * pool // batch_take)
+        if logger:
+            logger.info("%s: pinned %d/%d samples (%.2f GB bf16) in device memory%s",
+                        log_prefix, pool, n_data, pool_dev.nbytes / 1e9,
+                        f", refreshed every {pool_refresh_every} steps"
+                        if pool_refresh_every else "")
+        n = pool
+    else:
+        n = n_data
+        host = torch.empty((k * batch_take,) + sample_shape, dtype=torch.float32,
+                           pin_memory=cuda)
+        host_np = host.numpy()
+
     order = np.random.default_rng(seed + start_step).permutation(n)
     pos = 0
     step = start_step
@@ -284,30 +381,60 @@ def run_train_loop(
             out.append(got)
         return np.concatenate(out) if len(out) > 1 else out[0]
 
+    def to_device(sel) -> torch.Tensor:
+        """The chunk's batches, (len(sel), ...) float32 on the device, in one
+        host-to-device copy."""
+        nonlocal copied
+        if pool_dev is not None:
+            idx = torch.as_tensor(sel, dtype=torch.long).to(device, non_blocking=False)
+            return pool_dev[idx].float()
+        if copied is not None:
+            copied.synchronize()  # the previous chunk's copy has left the buffer
+        m = len(sel)
+        np.take(np.asarray(data), sel, axis=0, out=host_np[:m])
+        out = host[:m].to(device, non_blocking=cuda)
+        if cuda:
+            copied = torch.cuda.Event()
+            copied.record()
+        return out
+
     t0 = time.time()
     pending: List[torch.Tensor] = []
     last_log = start_step
     last_ckpt = start_step
+    last_pool = start_step
     while step < num_steps:
         if deadline is not None and time.time() >= deadline:
             if logger:
                 logger.info("%s: wall-clock deadline reached at step %d/%d — stopping and "
                             "checkpointing", log_prefix, step, num_steps)
             break
-        sel = draw(batch_take)
-        batch = torch.as_tensor(np.asarray(data[sel]), device=device)
-        loss = step_fn(state, batch)
-        step += 1
-        if losses is not None:
-            losses.append(loss)
-        if logger:
-            pending.append(loss)
-            if step - last_log >= log_every:
-                mean = float(torch.stack(pending).mean())
-                pending.clear()
-                logger.info("%s step %d loss %.5f (%.1f steps/s)", log_prefix, step, mean,
-                            (step - start_step) / (time.time() - t0))
-                last_log = step
+        kk = min(k, num_steps - step)
+        if checkpoint_dir and checkpoint_every < 10**9:
+            # milestones stay exact multiples of the cadence
+            kk = min(kk, (step // checkpoint_every + 1) * checkpoint_every - step)
+        if pool_dev is not None and pool_refresh_every and step - last_pool >= pool_refresh_every:
+            draw_pool(step)
+            order = np.random.default_rng(seed + step + 13).permutation(n)
+            pos = 0
+            last_pool = step
+            if logger:
+                logger.info("%s: refreshed device pool at step %d", log_prefix, step)
+        batches = to_device(draw(batch_take * kk))
+        for i in range(kk):
+            loss = step_fn(state, batches[i * batch_take : (i + 1) * batch_take])
+            if losses is not None:
+                losses.append(loss)
+            if logger:
+                pending.append(loss)
+        del batches
+        step += kk
+        if logger and step - last_log >= log_every:
+            mean = float(torch.stack(pending).mean())
+            pending.clear()
+            logger.info("%s step %d loss %.5f (%.1f steps/s)", log_prefix, step, mean,
+                        (step - start_step) / (time.time() - t0))
+            last_log = step
         if checkpoint_dir and step // checkpoint_every > last_ckpt // checkpoint_every:
             save_checkpoint(checkpoint_dir, state, step)
             last_ckpt = step

@@ -146,7 +146,7 @@ def _launch(fn, x, args, counter):
         start.record(stream)
     err = fn(*args, stream.cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{counter.__name__}: kernel launch failed with error {err}")
+        raise RuntimeError(f"{counter.__name__}: kernel launch failed with CUDA error {err}")
     if events is not None:
         end.record(stream)
         events.append((start, end))

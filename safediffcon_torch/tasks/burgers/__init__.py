@@ -22,8 +22,10 @@ from safediffcon_torch.tasks.burgers.data import BurgersDataset, generate_burger
 from safediffcon_torch.tasks.burgers.pipeline import (
     BurgersPipeline,
     inference_finetune,
+    inference_finetune_resilient,
     infft_step,
     posttrain,
+    posttrain_resilient,
     pretrain,
     weighted_step,
 )

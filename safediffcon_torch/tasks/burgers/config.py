@@ -3,9 +3,9 @@
 Same fields and defaults as `safediffcon_tpu/tasks/burgers/config.py`, which
 mirror the reference reproduce runs (reference:
 1D/configs/train_config.py:69-77, 1D/configs/posttrain_config.py:116-127,
-1D/configs/inference_config.py:117-134, 1D/scripts/reproduce_InfFT.sh). The
-port does not take every value yet: steps_per_call > 1 raises where it is
-used.
+1D/configs/inference_config.py:117-134, 1D/scripts/reproduce_InfFT.sh).
+`BurgersPostTrainConfig.steps_per_call` chunks post-training's steps inside
+each evaluation segment (`pipeline.posttrain`).
 """
 from __future__ import annotations
 
@@ -83,8 +83,8 @@ class BurgersPostTrainConfig:
     ema_update_every: int = 10
     max_grad_norm: float = 1.0
     seed: int = 42
-    # optimizer steps fused per device call in the JAX package; the port
-    # takes 1 only
+    # optimizer steps per chunk: one host-to-device copy of the chunk's
+    # batches and weights, its steps back to back
     steps_per_call: int = 1
 
 

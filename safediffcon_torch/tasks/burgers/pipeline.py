@@ -6,7 +6,8 @@ Port of `safediffcon_tpu/tasks/burgers/pipeline.py` (reference:
 1D/inference/inference_ft.py:26-433): `build_model`, `init_params`,
 `BurgersPipeline` (`calibrate`, `reweights`, `evaluate`), `pretrain`,
 `posttrain` and `inference_finetune`, with the steps they take
-(`weighted_step`, `infft_step`) exposed.
+(`weighted_step`, `infft_step`) exposed, and `posttrain_resilient` and
+`inference_finetune_resilient` (CUDA fault handling, `utils/faults.py`).
 
 Weights are passed as `params`, a state_dict of the UNet2D (the pipeline
 runs its model on them through `torch.func.functional_call`), or None for
@@ -26,9 +27,6 @@ the JAX key chain: each training step's (t, noise) and each sampler call's
 (`core.sampling`): DDIM's stochastic steps, the ancestral steps' draws, or
 nothing for DPM (its noise-matched impositions with
 `dpm_noise_matched_cond`).
-
-Not ported yet (they raise): `steps_per_call > 1`, and the `*_resilient`
-wrappers of the JAX module (TPU worker-fault recovery).
 """
 from __future__ import annotations
 
@@ -336,7 +334,8 @@ def pretrain(
     seeds them from cfg.seed. `resume_dir` restores step, weights, Adam
     moments and EMA from its latest checkpoint. Timesteps and noise come from
     a generator seeded with cfg.seed, or from `noise`, which yields each
-    micro-batch's (t, noise) in order. `losses`: see `run_train_loop`."""
+    micro-batch's (t, noise) in order. `steps_per_call` and `losses`: see
+    `run_train_loop`."""
     num_steps = num_steps or cfg.train_num_steps
     model = build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups, cfg.compute_dtype,
                         device=device)
@@ -500,9 +499,12 @@ def posttrain(
     latest saved one, bit-identically to an uninterrupted run. `noise`
     yields, in the order they are consumed, each step's (t, noise) and each
     sampler call's (init_noise, step_noise). `on_epoch(record)` fires after
-    each epoch's record is saved."""
-    if cfg.steps_per_call != 1:
-        raise NotImplementedError("steps_per_call > 1 is not ported; leave it at 1")
+    each epoch's record is saved.
+
+    `cfg.steps_per_call` = k runs the steps in chunks of up to k inside each
+    evaluation segment, as JAX does: a chunk's batches and weights cross to
+    the device in one copy and its steps run back to back. Each step draws
+    its own (t, noise), so the chunking changes no result of the port."""
     ccfg = cfg.conformal
     steps_per_epoch = finetune_steps or cfg.finetune_steps
     device = pipeline.device
@@ -534,15 +536,25 @@ def posttrain(
     # (1D/posttrain/post_train.py:288), as it % (subset / gcd(batch, subset)).
     eval_period = (cfg.finetune_subset_size // math.gcd(bsz, cfg.finetune_subset_size)
                    if eval_every_subset_epoch else steps_per_epoch)
+    k = max(int(cfg.steps_per_call), 1)
     for epoch in range(start_epoch, cfg.finetune_epoch):
         gen = _epoch_generator(cfg.seed, epoch, device)
         w_train = pipeline.reweights(finetune_data.data, Q)
         losses, eval_history = [], []
-        for it, sel in enumerate(epoch_sels(), start=1):
-            batch = torch.as_tensor(finetune_data.data[sel], device=device)
-            w = torch.as_tensor(w_train[sel], device=device)
-            draws = next(noise) if noise is not None else None
-            losses.append(weighted_step(pipeline, state, batch, w, gen, draws))
+        sels = epoch_sels()
+        it = 0
+        while it < steps_per_epoch:
+            # a chunk never crosses an evaluation point
+            kk = min(k, eval_period - it % eval_period, steps_per_epoch - it)
+            sel = np.concatenate(sels[it : it + kk])
+            batches = torch.as_tensor(finetune_data.data[sel], device=device)
+            ws = torch.as_tensor(w_train[sel], device=device)
+            for i in range(kk):
+                rows = slice(i * bsz, (i + 1) * bsz)
+                draws = next(noise) if noise is not None else None
+                losses.append(weighted_step(pipeline, state, batches[rows], ws[rows], gen,
+                                            draws))
+            it += kk
             if eval_every_subset_epoch and it % eval_period == 0:
                 m = pipeline.evaluate(state.ema_params, test_data, Q, generator=gen, noise=noise)
                 eval_history.append(m)
@@ -616,3 +628,56 @@ def inference_finetune(
         if on_epoch is not None:
             on_epoch(all_metrics[-1])
     return state, Q, all_metrics
+
+
+# ---------------------------------------------------------------------------
+# Fault-tolerant phase wrappers (utils/faults.py)
+# ---------------------------------------------------------------------------
+
+def posttrain_resilient(
+    cfg: BurgersPostTrainConfig,
+    make_pipeline,
+    params: Params,
+    finetune_data: BurgersDataset,
+    cal_data: BurgersDataset,
+    test_data: BurgersDataset,
+    state_dir: Optional[str] = None,
+    fault_retries: int = 2,
+    backoff_s: float = 30.0,
+    **kw,
+):
+    """`posttrain` with device-fault handling: the weights are copied to the
+    host once, each attempt builds a fresh pipeline from `make_pipeline()`
+    and resumes from the last epoch in `state_dir`; a recoverable CUDA fault
+    is retried up to `fault_retries` times, a sticky one re-raised at once (a
+    new process resumes from `state_dir`)."""
+    from safediffcon_torch.utils.faults import resilient_phase
+
+    return resilient_phase(
+        make_pipeline,
+        lambda pipe, p: posttrain(cfg, pipe, p, finetune_data, cal_data, test_data,
+                                  state_dir=state_dir, **kw),
+        params, retries=fault_retries, backoff_s=backoff_s, describe="burgers posttrain",
+        state_dir=state_dir)
+
+
+def inference_finetune_resilient(
+    cfg: BurgersInfFTConfig,
+    make_pipeline,
+    params: Params,
+    cal_data: BurgersDataset,
+    test_data: BurgersDataset,
+    state_dir: Optional[str] = None,
+    fault_retries: int = 2,
+    backoff_s: float = 30.0,
+):
+    """`inference_finetune` with device-fault handling (see
+    `posttrain_resilient`)."""
+    from safediffcon_torch.utils.faults import resilient_phase
+
+    return resilient_phase(
+        make_pipeline,
+        lambda pipe, p: inference_finetune(cfg, pipe, p, cal_data, test_data,
+                                           state_dir=state_dir),
+        params, retries=fault_retries, backoff_s=backoff_s, describe="burgers InfFT",
+        state_dir=state_dir)

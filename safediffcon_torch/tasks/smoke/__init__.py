@@ -19,4 +19,5 @@ from safediffcon_torch.tasks.smoke.pipeline import (
     make_finetune_steps,
     pretrain,
     run_inference,
+    run_inference_resilient,
 )

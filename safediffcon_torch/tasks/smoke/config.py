@@ -2,8 +2,9 @@
 
 Same fields and defaults as `safediffcon_tpu/tasks/smoke/config.py`, which
 mirror the reference reproduce runs (reference: 2d/train_2d.py:26-76,
-2d/scripts/{train,posttrain,finetune}.sh). The port does not take every
-value yet: device_pool > 0 raises where it is used.
+2d/scripts/{train,posttrain,finetune}.sh). `device_pool` > 0 holds a
+bfloat16 pool of train sims on the device in post-training
+(`pipeline.run_inference`).
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ class SmokeInferenceConfig:
     finetune_steps: int = 4000
     finetune_batch_size: int = 14
     seed: int = 42
-    device_pool: int = 0
+    device_pool: int = 0  # post-training: train sims held on the device in bf16
 
 
 def posttrain_config() -> SmokeInferenceConfig:

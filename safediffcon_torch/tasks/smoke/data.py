@@ -21,7 +21,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +65,51 @@ def _velocity_program(rng: np.random.Generator, xs, ys, n_frames: int,
     return np.asarray(vxs)[phase], np.asarray(vys)[phase]
 
 
+def _generate_batch(masks, dens0: np.ndarray, vxs: np.ndarray, vys: np.ndarray,
+                    noise: torch.Tensor, *, time_scale: int, space_scale: int, accuracy: float,
+                    max_iter: int, backend: str, device, phase) -> Tuple[np.ndarray, np.ndarray]:
+    """One batch of sims: the controls N(v, |v|/10) from `noise` (b, T-1, 128,
+    128, 2), the rollout, and the (b, n_rec, size, size, 7) records on the
+    host; returns (records, mass ratio mass[:, -1] / mass[:, 0] per sim)."""
+    b, n_frames = vxs.shape
+    size = S.N // space_scale
+    lo, hi = 16 // space_scale, 112 // space_scale
+    with phase("inputs"):
+        v0 = torch.zeros((b, S.N, S.N, 2), device=device)
+        v0[..., 1] = 0.8
+        vx_t = torch.as_tensor(vxs, device=device)
+        vy_t = torch.as_tensor(vys, device=device)
+        ctrl = torch.stack([
+            vx_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 0]),
+            vy_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 1]),
+        ], dim=-1)
+        del noise
+    with phase("rollout"):
+        rec = S.smoke_rollout(masks, torch.as_tensor(dens0, device=device), v0, ctrl,
+                              accuracy, max_iter, backend=backend)
+    with phase("records"):
+        ctrl_full = torch.cat([torch.zeros_like(ctrl[:, :1]), ctrl], dim=1)
+        # subsample on the device; only the (b, n_rec, size, size) record crosses
+        dsub = rec.density[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+        vel = rec.velocity[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+        c_rec = ctrl_full[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
+        smoke = rec.smoke_rate[:, ::time_scale].cpu().numpy()
+        safe = rec.smoke_safe_rate[:, ::time_scale].cpu().numpy()
+        mass_ratio = (rec.mass[:, -1] / rec.mass[:, 0]).cpu().numpy()
+        del rec, ctrl, ctrl_full
+
+        c_rec[:, :, lo:hi, lo:hi, :] = 0.0  # indirect control band
+        out = np.zeros((b, dsub.shape[1], size, size, 7), np.float32)
+        out[:, :, : dsub.shape[2], : dsub.shape[3], 0] = dsub
+        out[..., 1] = vel[..., 0]
+        out[..., 2] = vel[..., 1]
+        out[..., 3] = c_rec[..., 0]
+        out[..., 4] = c_rec[..., 1]
+        out[..., 5] = smoke[:, :, None, None]
+        out[..., 6] = safe[:, :, None, None]
+    return out, mass_ratio
+
+
 def generate_smoke_dataset(
     path: str,
     n_train: int = 512,
@@ -78,17 +123,25 @@ def generate_smoke_dataset(
     accuracy: float = 1e-6,
     max_iter: int = 500,
     backend: str = "auto",
+    conservation_min: Optional[float] = None,
+    conservation_max: Optional[float] = None,
     device="cuda",
     phase_seconds: Optional[Dict[str, float]] = None,
-) -> None:
+) -> np.ndarray:
     """Generate all splits with the batched rollout on `device` and save one
     npz. backend "auto" is kernel K1 (`solvers.smoke.resolve_backend`).
     Controls are full-field N(v, |v|/10) noise recorded every time_scale
-    frames with the interior
-    zeroed (reference: get_envolve, 2d/apps/a_gen_dataset_128.py:287-313).
-    The JAX version's mass-conservation filter (`conservation_min` /
-    `conservation_max`, safediffcon_tpu/tasks/smoke/data.py:94-202) is not
-    ported yet (ROADMAP.md section 1, item 5): every generated sim is kept.
+    frames with the interior zeroed (reference: get_envolve,
+    2d/apps/a_gen_dataset_128.py:287-313).
+
+    `conservation_min` / `conservation_max`, when set, reject sims whose
+    final total mass (bucket-absorbed + in-domain) over the initial one lies
+    outside the open interval (min, max): the reference writer's density-sum
+    filter (min_sum_rate / max_sum_rate, 2d/apps/a_gen_dataset_128.py:731-741).
+    Rejected sims are regenerated until every split is full; after
+    20 * total + gen_batch attempted sims it raises RuntimeError. With no
+    bound set every sim is kept. Returns the mass ratio of each kept sim, in
+    the order of the saved records.
 
     When `phase_seconds` is a dict, adds the seconds of each phase to it,
     summed over batches, each phase ending in a sync: "inputs" (waypoints,
@@ -108,18 +161,22 @@ def generate_smoke_dataset(
 
     masks = S.build_masks(device)
     time_scale = max(n_frames // record_frames, 1)
-    n_rec = n_frames // time_scale
-    size = S.N // space_scale
-    lo, hi = 16 // space_scale, 112 // space_scale
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     total = n_train + n_cal + n_test
+    filtered = conservation_min is not None or conservation_max is not None
 
     t0 = time.time()
-    recs = []
-    done = 0
+    recs, ratios = [], []
+    done = attempted = 0
     while done < total:
+        if attempted >= 20 * total + gen_batch:
+            raise RuntimeError(
+                f"smoke datagen: conservation filter ({conservation_min}, {conservation_max}) "
+                f"rejected nearly all of {attempted} generated sims ({done}/{total} kept) — "
+                f"bounds too tight")
         b = min(gen_batch, total - done)
+        attempted += b
         with phase("inputs"):
             dens0 = np.zeros((b, S.CELLS, S.CELLS), np.float32)
             vxs = np.zeros((b, n_frames), np.float32)
@@ -128,41 +185,23 @@ def generate_smoke_dataset(
                 xs, ys = _waypoints(rng)
                 dens0[i, ys[0] : ys[0] + 10, xs[0] : xs[0] + 10] = 1.0
                 vxs[i], vys[i] = _velocity_program(rng, xs, ys, n_frames)
-
-            v0 = torch.zeros((b, S.N, S.N, 2), device=device)
-            v0[..., 1] = 0.8
-            vx_t = torch.as_tensor(vxs, device=device)
-            vy_t = torch.as_tensor(vys, device=device)
             noise = torch.randn((b, n_frames - 1, S.N, S.N, 2), generator=gen, device=device)
-            ctrl = torch.stack([
-                vx_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 0]),
-                vy_t[:, :-1, None, None] * (1 + 0.1 * noise[..., 1]),
-            ], dim=-1)
-            del noise
-        with phase("rollout"):
-            rec = S.smoke_rollout(masks, torch.as_tensor(dens0, device=device), v0, ctrl,
-                                  accuracy, max_iter, backend=backend)
-        with phase("records"):
-            ctrl_full = torch.cat([torch.zeros_like(ctrl[:, :1]), ctrl], dim=1)
-            # subsample on the device; only the (b, n_rec, size, size) record crosses
-            dsub = rec.density[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
-            vel = rec.velocity[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
-            c_rec = ctrl_full[:, ::time_scale, ::space_scale, ::space_scale].cpu().numpy()
-            smoke = rec.smoke_rate[:, ::time_scale].cpu().numpy()
-            safe = rec.smoke_safe_rate[:, ::time_scale].cpu().numpy()
-            del rec, ctrl, ctrl_full
-
-            c_rec[:, :, lo:hi, lo:hi, :] = 0.0  # indirect control band
-            out = np.zeros((b, n_rec, size, size, 7), np.float32)
-            out[:, :, : dsub.shape[2], : dsub.shape[3], 0] = dsub
-            out[..., 1] = vel[..., 0]
-            out[..., 2] = vel[..., 1]
-            out[..., 3] = c_rec[..., 0]
-            out[..., 4] = c_rec[..., 1]
-            out[..., 5] = smoke[:, :, None, None]
-            out[..., 6] = safe[:, :, None, None]
+        out, mass_ratio = _generate_batch(
+            masks, dens0, vxs, vys, noise, time_scale=time_scale, space_scale=space_scale,
+            accuracy=accuracy, max_iter=max_iter, backend=backend, device=device, phase=phase)
+        if filtered:
+            keep = np.ones(b, bool)
+            if conservation_min is not None:
+                keep &= mass_ratio > conservation_min
+            if conservation_max is not None:
+                keep &= mass_ratio < conservation_max
+            if not keep.all():
+                log.info("smoke datagen: rejected %d/%d sims (mass ratio outside (%s, %s))",
+                         int((~keep).sum()), b, conservation_min, conservation_max)
+            out, mass_ratio = out[keep], mass_ratio[keep]
         recs.append(out)
-        done += b
+        ratios.append(mass_ratio)
+        done += len(out)
         log.info("smoke datagen %d/%d sims (%.2f s/sim)", done, total,
                  (time.time() - t0) / max(done, 1))
 
@@ -175,6 +214,7 @@ def generate_smoke_dataset(
         }
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         np.savez_compressed(path, **{f"{k}_data": v for k, v in splits.items()})
+    return np.concatenate(ratios)
 
 
 def _read_reference_sim(base: str, sim_id: int, frames: int = FRAMES) -> np.ndarray:

@@ -4,8 +4,8 @@ solver evaluation, with post-training or InfFT epochs between them.
 Port of `safediffcon_tpu/tasks/smoke/pipeline.py` (reference:
 2d/ddpm/diffusion_2d.py:462-643 Trainer, 2d/inference_2d.py): `build_model`,
 `init_params`, `SmokePipeline` (`calibrate`, `evaluate`, `reweights`),
-`multistep_lr`, `pretrain`, `make_finetune_steps` and `run_inference`.
-`run_inference_resilient` (TPU worker-fault recovery) is not ported.
+`multistep_lr`, `pretrain`, `make_finetune_steps`, `run_inference` and
+`run_inference_resilient` (CUDA fault handling, `utils/faults.py`).
 
 The model's weights live in a torch module (load flax weights with
 `models.convert.load_flax_params`, or seed them with `init_params`); training
@@ -222,14 +222,20 @@ class SmokePipeline:
     def calibrate(self, cal: SmokeDataset, Q, generator: Optional[torch.Generator] = None,
                   noise: Optional[Iterator[Noise]] = None) -> torch.Tensor:
         """Q-hat from the calibration split, with the inverted-alpha rank
-        convention (reference: 2d/inference_2d.py:150-165)."""
+        convention (reference: 2d/inference_2d.py:150-165). A split smaller
+        than num_cal_batch * cal_batch_size is taken whole, as the Burgers and
+        tokamak pipelines take theirs."""
         generator = generator or torch.Generator(device=self.device).manual_seed(0)
         bs = self.ccfg.cal_batch_size
         chunk = min(self.cal_chunk or bs, bs)
+        n = len(cal)
         scores, weights = [], []
         for i in range(self.ccfg.num_cal_batch):
             for lo in range(0, bs, chunk):
-                sl = slice(i * bs + lo, i * bs + lo + chunk)
+                base = i * bs + lo
+                if base >= n:  # cal set smaller than the configured batches
+                    break
+                sl = slice(base, min(base + chunk, n))
                 state = torch.as_tensor(cal.data[sl], device=self.device)
                 s, w = self._cal_batch(state, Q, **self._sampler_kw(noise, generator))
                 scores.append(s)
@@ -319,7 +325,8 @@ def pretrain(
     seeds them from cfg.seed. `resume_dir` restores step, weights, Adam
     moments and EMA from its latest checkpoint. Timesteps and noise come from
     a generator seeded with cfg.seed, or from `noise`, which yields each
-    micro-batch's (t, noise) in order. `losses`: see `run_train_loop`."""
+    micro-batch's (t, noise) in order. `steps_per_call`, `device_pool`,
+    `pool_refresh_every` and `losses`: see `run_train_loop`."""
     num_steps = num_steps or cfg.train_num_steps
     model = build_model(cfg.dim, cfg.dim_mults, cfg.compute_dtype, cfg.remat_policy,
                         cfg.conv_impl, cfg.attn_impl, device=device)
@@ -388,8 +395,8 @@ def make_finetune_steps(cfg: SmokeInferenceConfig, pipeline: SmokePipeline):
           267-284); noise = the two sampler calls' (init_noise, step_noise).
 
     Adam(finetune_lr, betas (0.9, 0.99)), no clipping, no EMA (reference:
-    2d/inference_2d.py:79). JAX's `weighted_step_pool` (device_pool) is not
-    ported."""
+    2d/inference_2d.py:79). JAX's `weighted_step_pool` is `weighted_step` on
+    a batch gathered from `run_inference`'s device pool."""
     ccfg = cfg.conformal
     tc = pipeline.task_cfg
     sched = pipeline.sched
@@ -437,6 +444,7 @@ def run_inference(
     on_epoch=None,
     deadline: Optional[float] = None,
     state_dir: Optional[str] = None,
+    noise: Optional[Iterator] = None,
 ):
     """Reference run() loop (2d/inference_2d.py:286-368): per epoch
     fine-tune (posttrain, or InfFT with `backward_finetune`) -> recalibrate
@@ -447,13 +455,20 @@ def run_inference(
     `on_epoch(record)` fires after each epoch; `deadline` (time.time()
     seconds) stops starting new epochs. `state_dir` persists (weights, Adam
     moments, Q-hat) and the records after every epoch and resumes from the
-    latest saved epoch, bit-identically to an uninterrupted run."""
+    latest saved epoch, bit-identically to an uninterrupted run. `noise`
+    yields, in the order they are consumed, each post-training step's
+    (t, noise) or each InfFT step's two sampler calls' draws (a pair), then
+    each calibrate and evaluate sampler call's (init_noise, step_noise).
+
+    With `cfg.device_pool` > 0, post-training draws a pool of min(pool, n)
+    train sims per epoch (`default_rng(seed + 31 + epoch)`, as JAX), holds
+    them on the device in bfloat16 with their reweights, and gathers each
+    batch there by index, cast to float32; the pool is freed before the
+    epoch's calibrate and evaluate."""
     from safediffcon_torch.utils.checkpoint import (
         load_phase_history, load_phase_state, save_phase_history, save_phase_state,
     )
 
-    if cfg.device_pool:
-        raise NotImplementedError("device_pool is not ported; leave it at 0")
     ccfg = cfg.conformal
     model = pipeline.model
     if params is not None:
@@ -480,6 +495,24 @@ def run_inference(
         for rec in history:  # restored records, so external result files converge
             on_epoch(rec)
 
+    stage: Dict[str, object] = {}  # pool staging buffers, allocated once
+
+    def draw_pool(epoch: int, w_all: np.ndarray):
+        n = len(train_data)
+        pool = min(cfg.device_pool, n)
+        ids = np.random.default_rng(cfg.seed + 31 + epoch).choice(n, pool, replace=False)
+        if not stage:
+            shape = (pool,) + train_data.data.shape[1:]
+            stage["f32"] = np.empty(shape, np.float32)
+            stage["bf16"] = torch.empty(shape, dtype=torch.bfloat16,
+                                        pin_memory=device.type == "cuda")
+        np.take(np.asarray(train_data.data), ids, axis=0, out=stage["f32"])
+        stage["bf16"].copy_(torch.from_numpy(stage["f32"]))  # round to nearest even
+        log.info("smoke finetune: pinned %d/%d samples (%.2f GB bf16) on device",
+                 pool, n, stage["bf16"].nbytes / 1e9)
+        return (stage["bf16"].to(device, non_blocking=True),
+                torch.as_tensor(w_all[ids], device=device))
+
     for epoch in range(start_epoch, cfg.finetune_epoch):
         if deadline is not None and time.time() > deadline:
             log.info("smoke finetune: deadline reached before epoch %d, returning %d "
@@ -494,22 +527,37 @@ def run_inference(
                 batch = torch.as_tensor(test_data.data[lo : lo + ccfg.test_batch_size],
                                         device=device)
                 for _ in range(cfg.finetune_steps):
-                    losses.append(backward_step(opt_state, batch, Q, generator=gen))
+                    draws = next(noise) if noise is not None else None
+                    losses.append(backward_step(opt_state, batch, Q, gen, draws))
         else:
             w_train = pipeline.reweights(train_data, Q)
-            n = len(train_data)
+            if cfg.device_pool:
+                # re-drawn per epoch (the weights change with Q anyway), so
+                # every sim is eventually trained on
+                data_dev, w_dev = draw_pool(epoch, w_train)
+                m = data_dev.shape[0]
+            else:
+                m = len(train_data)
             pos = 0
             for _ in range(cfg.finetune_steps):
-                sel = np.arange(pos, pos + cfg.finetune_batch_size) % n
-                pos = (pos + cfg.finetune_batch_size) % n
-                batch = torch.as_tensor(train_data.data[sel], device=device)
-                w = torch.as_tensor(w_train[sel], device=device)
-                losses.append(weighted_step(opt_state, batch, w, generator=gen))
+                sel = np.arange(pos, pos + cfg.finetune_batch_size) % m
+                pos = (pos + cfg.finetune_batch_size) % m
+                if cfg.device_pool:  # only the (B,) indices cross to the device
+                    idx = torch.as_tensor(sel, device=device)
+                    batch, w = data_dev[idx].float(), w_dev[idx]
+                else:
+                    batch = torch.as_tensor(train_data.data[sel], device=device)
+                    w = torch.as_tensor(w_train[sel], device=device)
+                draws = next(noise) if noise is not None else None
+                losses.append(weighted_step(opt_state, batch, w, gen, draws))
+            if cfg.device_pool:
+                # free the pool before the sampling-heavy calibrate / evaluate
+                data_dev = w_dev = batch = w = None
 
         losses = [float(v) for v in losses]  # one sync per epoch
-        Q = pipeline.calibrate(cal_data, Q, generator=gen)
+        Q = pipeline.calibrate(cal_data, Q, generator=gen, noise=noise)
         log.info("smoke epoch %d calibrated Q %.5f", epoch, float(Q))
-        metrics = pipeline.evaluate(test_data, Q, generator=gen)
+        metrics = pipeline.evaluate(test_data, Q, generator=gen, noise=noise)
         loss = float(np.mean(losses)) if losses else None
         log.info("smoke epoch %d Q %.5f loss %s metrics %s", epoch, float(Q), loss, metrics)
         history.append({"epoch": epoch, "quantile": float(Q), "loss": loss, "eval": metrics})
@@ -522,3 +570,32 @@ def run_inference(
             on_epoch(history[-1])
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
     return params, Q, history
+
+
+def run_inference_resilient(
+    cfg: SmokeInferenceConfig,
+    make_pipeline,
+    params: Optional[Mapping[str, torch.Tensor]],
+    train_data: Optional[SmokeDataset],
+    cal_data: SmokeDataset,
+    test_data: SmokeDataset,
+    on_epoch=None,
+    deadline: Optional[float] = None,
+    state_dir: Optional[str] = None,
+    fault_retries: int = 2,
+    backoff_s: float = 30.0,
+):
+    """`run_inference` with device-fault handling (`utils/faults.py`): the
+    weights are copied to the host once, each attempt builds a fresh pipeline
+    from `make_pipeline()` and resumes from the last epoch in `state_dir`; a
+    recoverable CUDA fault is retried up to `fault_retries` times, a sticky
+    one re-raised at once (a new process resumes from `state_dir`)."""
+    from safediffcon_torch.utils.faults import resilient_phase
+
+    return resilient_phase(
+        make_pipeline,
+        lambda pipe, p: run_inference(cfg, pipe, p, train_data, cal_data, test_data,
+                                      on_epoch=on_epoch, deadline=deadline,
+                                      state_dir=state_dir),
+        params, retries=fault_retries, backoff_s=backoff_s, describe="smoke finetune",
+        state_dir=state_dir)

@@ -20,4 +20,5 @@ from safediffcon_torch.tasks.tokamak.pipeline import (
     make_finetune_steps,
     pretrain,
     run_inference,
+    run_inference_resilient,
 )

@@ -4,8 +4,9 @@ post-train / backward-finetune loop.
 Port of `safediffcon_tpu/tasks/tokamak/pipeline.py` (reference:
 tokamak/inference/pipeline.py:21-465, tokamak/model/trainer.py):
 `build_model`, `init_params`, `TokamakPipeline` (`calibrate`, `reweights`,
-`evaluate`), `pretrain`, and `run_inference` with the steps it takes
-(`make_finetune_steps`).
+`evaluate`), `pretrain`, `run_inference` with the steps it takes
+(`make_finetune_steps`), and `run_inference_resilient` (CUDA fault handling,
+`utils/faults.py`).
 
 Per reference semantics (run_epoch, pipeline.py:270-323), every epoch of
 `run_inference` FIRST recalibrates Q-hat, then either
@@ -15,8 +16,9 @@ Per reference semantics (run_epoch, pipeline.py:270-323), every epoch of
     gradients through the final denoise step, minimizing the
     objective+safety loss of the samples w.r.t. the weights,
 then evaluates by rolling the diffused actions through the KSTAR surrogate.
-The optimizer is plain Adam(0.99, 0.999) with no EMA and no grad clip
-(reference: tokamak/inference/pipeline.py:150-163).
+The optimizer is the config's `optimizer`: plain Adam(0.99, 0.999) by
+default, or SGD with momentum 0.9, with no EMA and no grad clip (reference:
+tokamak/inference/pipeline.py:150-163).
 
 Weights are passed as `params`, a state_dict of the UNet1D (the pipeline
 runs its model on them through `torch.func.functional_call`), or None for
@@ -27,10 +29,6 @@ each training step's (t, noise) and each sampler call's (init_noise,
 step_noise), where step_noise is the noise of DDIM's stochastic steps and
 is empty for DPM. Calibration, test sampling and InfFT take the config's
 `sampler`: "ddim" or "dpm" (DPM-Solver++(2M)).
-
-Not ported yet (they raise): `steps_per_call > 1`, and the
-`run_inference_resilient` wrapper of the JAX module (TPU worker-fault
-recovery).
 """
 from __future__ import annotations
 
@@ -306,7 +304,8 @@ def pretrain(
     seeds them from cfg.seed. `resume_dir` restores step, weights, Adam
     moments and EMA from its latest checkpoint. Timesteps and noise come from
     a generator seeded with cfg.seed, or from `noise`, which yields each
-    micro-batch's (t, noise) in order. `losses`: see `run_train_loop`."""
+    micro-batch's (t, noise) in order. `steps_per_call` and `losses`: see
+    `run_train_loop`."""
     num_steps = num_steps or cfg.train_num_steps
     model = build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups, cfg.compute_dtype,
                         device=device)
@@ -375,8 +374,8 @@ def make_finetune_steps(cfg: TokamakInferenceConfig, pipeline: TokamakPipeline):
           samples (reference: pipeline.py:238-268); noise = the sampler
           call's (init_noise, step_noise).
 
-    Plain Adam(finetune_lr, betas (0.99, 0.999)), no clip, no EMA
-    (reference: pipeline.py:150-163)."""
+    `cfg.optimizer` ("adam": plain Adam(finetune_lr, betas (0.99, 0.999));
+    "sgd": momentum 0.9), no clip, no EMA (reference: pipeline.py:150-163)."""
     ccfg = cfg.conformal
     tc = pipeline.task_cfg
     sched = pipeline.sched
@@ -500,3 +499,30 @@ def run_inference(
             on_epoch(history[-1])
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
     return params, Q, history
+
+
+def run_inference_resilient(
+    cfg: TokamakInferenceConfig,
+    make_pipeline,
+    params: Params,
+    train_data: Optional[TokamakDataset],
+    cal_data: TokamakDataset,
+    test_data: TokamakDataset,
+    on_epoch=None,
+    state_dir: Optional[str] = None,
+    fault_retries: int = 2,
+    backoff_s: float = 30.0,
+):
+    """`run_inference` with device-fault handling (`utils/faults.py`): the
+    weights are copied to the host once, each attempt builds a fresh pipeline
+    from `make_pipeline()` and resumes from the last epoch in `state_dir`; a
+    recoverable CUDA fault is retried up to `fault_retries` times, a sticky
+    one re-raised at once (a new process resumes from `state_dir`)."""
+    from safediffcon_torch.utils.faults import resilient_phase
+
+    return resilient_phase(
+        make_pipeline,
+        lambda pipe, p: run_inference(cfg, pipe, p, train_data, cal_data, test_data,
+                                      on_epoch=on_epoch, state_dir=state_dir),
+        params, retries=fault_retries, backoff_s=backoff_s, describe="tokamak finetune",
+        state_dir=state_dir)

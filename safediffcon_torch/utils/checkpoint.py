@@ -42,11 +42,11 @@ def _load(path: str) -> dict:
 
 
 def _cpu(tree):
-    """A copy of a nest of dicts/lists of tensors on the CPU."""
+    """A copy of a nest of dicts/lists/tuples of tensors on the CPU."""
     if isinstance(tree, dict):
         return {k: _cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_cpu(v) for v in tree]
+        return type(tree)(_cpu(v) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     return tree

@@ -2,7 +2,7 @@
 dim 16, a few sims at the task's 128 cells): `BurgersPipeline.calibrate` +
 guided `evaluate` (DDIM of UNet2D -> FD solver -> metrics) from the same
 weights, with the JAX key chain's draws replayed into the port; the exact
-`state_dir` resume of post-training; the option that is not ported."""
+`state_dir` resume of post-training; the loop options (`steps_per_call`)."""
 import os
 
 import numpy as np
@@ -78,10 +78,23 @@ def test_posttrain_state_dir_resume_is_exact(data, tmp_path):
 def test_unported_options_raise(data):
     with pytest.raises(ValueError):  # a sampler the package does not have
         BurgersPipeline(BurgersConformalConfig(**CONF, sampler="unipc"), device="cpu", **PIPE)
-    with pytest.raises(NotImplementedError):
-        pretrain(BurgersPretrainConfig(**PIPE), data["train"], num_steps=1, steps_per_call=4,
-                 device="cpu")
+    # steps_per_call is ported: each step draws its own (t, noise), so
+    # chunks of 4 give the weights of single steps where no reshuffle falls
+    # inside a chunk (one step of batch 16 over the 16 train sims)
+    states = [pretrain(BurgersPretrainConfig(**PIPE), data["train"], num_steps=1,
+                       steps_per_call=k, device="cpu") for k in (4, 1)]
+    assert states[0].step == states[1].step == 1
+    for name, v in states[0].model.state_dict().items():
+        assert torch.equal(v, states[1].model.state_dict()[name]), name
+    # post-training chunks (3 steps, no evaluation point inside the epoch)
     tp = BurgersPipeline(BurgersConformalConfig(**CONF), device="cpu", **PIPE)
-    with pytest.raises(NotImplementedError):
-        posttrain(BurgersPostTrainConfig(steps_per_call=4), tp, None, data["train"],
-                  data["cal"], data["test"])
+    init_params(tp.model, seed=3)
+    runs = [posttrain(BurgersPostTrainConfig(conformal=BurgersConformalConfig(**CONF),
+                                             steps_per_call=k, finetune_epoch=1,
+                                             finetune_steps=3, finetune_batch_size=4,
+                                             finetune_subset_size=10**6),
+                      tp, None, data["train"], data["cal"], data["test"]) for k in (4, 2, 1)]
+    for state, _, hist in runs:
+        assert state.step == 3 and hist[0]["loss"] == runs[-1][2][0]["loss"]
+        for name, v in state.model.state_dict().items():
+            assert torch.equal(v, runs[-1][0].model.state_dict()[name]), name

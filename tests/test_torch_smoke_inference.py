@@ -1,7 +1,7 @@
 """The port's `run_inference` (per epoch: posttrain or InfFT steps ->
 recalibrate Q-hat -> evaluate through the solver) on a tiny config: a resumed
 run equals an uninterrupted one bit for bit, an InfFT epoch trains and stays
-finite, the deadline and the unported options, `reweights` against the JAX
+finite, the deadline and the device pool, `reweights` against the JAX
 package's, and the fine-tuned checkpoint."""
 import math
 
@@ -99,8 +99,11 @@ def test_deadline_and_unported_options(tiny_data, pipe_and_params):
     p, q, hist = _run(_cfg(), pipe, params, tiny_data, deadline=0.0)
     assert hist == [] and float(q) == 0.0
     assert all(torch.equal(p[k], params[k]) for k in p)
-    with pytest.raises(NotImplementedError):
-        _run(_cfg(device_pool=4), pipe, params, tiny_data)
+    # device_pool is ported: an epoch trains from a bfloat16 pool of 2 of the
+    # 3 train sims (its parity with JAX: tests/test_torch_loop_pipelines.py)
+    p, q, hist = _run(_cfg(device_pool=2, finetune_epoch=1), pipe, params, tiny_data)
+    assert len(hist) == 1 and math.isfinite(hist[0]["loss"]) and math.isfinite(float(q))
+    assert any(not torch.equal(p[k], params[k]) for k in p)
 
 
 @pytest.mark.parametrize("Q", [0.0, 0.07])

@@ -106,8 +106,11 @@ def test_adam_without_clip_matches_optax():
         opt.step(tp, [torch.from_numpy(x) for x in g], ts)
     for a, b in zip(tp, jp):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-8)
-    with pytest.raises(NotImplementedError):
-        TT.make_optimizer("sgd")
+    # the factory's other kinds: SGD (tests/test_torch_train_loop_options.py
+    # holds it against optax) and an unknown name
+    assert isinstance(TT.make_optimizer("sgd"), TT.SGD)
+    with pytest.raises(ValueError):
+        TT.make_optimizer("rmsprop")
 
 
 @pytest.mark.parametrize("milestones", [(50_000, 150_000, 300_000), (3, 7)])
@@ -175,9 +178,14 @@ def test_accumulated_grads_match_jax():
 
 
 def test_unported_loop_options_raise():
+    """The loop options of the JAX loop are ported: each runs the one step
+    asked for, on batches of the asked size (their semantics against JAX are
+    in tests/test_torch_train_loop_options.py)."""
     model = nn.Linear(2, 2)
     state = TT.TrainState.create(model, TT.Adam(1e-3))
-    data = np.zeros((4, 2), np.float32)
+    data = np.arange(8, dtype=np.float32).reshape(4, 2)
     for kw in (dict(steps_per_call=4), dict(device_pool=2), dict(pool_refresh_every=3)):
-        with pytest.raises(NotImplementedError):
-            TT.run_train_loop(lambda s, b: b.sum(), state, data, batch_take=2, num_steps=1, **kw)
+        seen = []
+        TT.run_train_loop(lambda s, b: seen.append(b.clone()) or b.sum(), state, data,
+                          batch_take=2, num_steps=1, **kw)
+        assert len(seen) == 1 and seen[0].shape == (2, 2) and seen[0].dtype == torch.float32

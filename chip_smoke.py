@@ -21,7 +21,7 @@ fails ends the run with a non-zero exit.
      mults (1, 2, 4), 7 channels, 32 frames of 64^2, seeded weights):
      generate 16 train, 50 cal and 50 test sims with the port's solver (256
      frames at 128^2, CG 1e-6; its phases timed, K1 by CUDA events), then
-     SmokePipeline.calibrate on 25 of the cal sims (the script's budget
+     SmokePipeline.calibrate on 10 of the cal sims (the script's budget
      cut) and guided evaluate on the 50 test sims with the
      SmokeConformalConfig defaults (DDIM 100, eta 1, solver 1e-8 / 500,
      backend "auto" = K1) and the pipeline's default chunks, so each runs
@@ -51,7 +51,7 @@ fails ends the run with a non-zero exit.
      launch counts are zeroed just before and must read 90 per step on the
      tensor-core kernel and 0 on the SIMT kernel just after;
   9. one posttrain epoch and one InfFT epoch through run_inference from
-     the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 25 (the
+     the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 15 (the
      reference's 100 cut to keep the script inside its budget; the
      SmokePipeline model, framework conv; K1 in evaluate), then one InfFT
      step at Q = 1, where its loss has a gradient;
@@ -71,7 +71,7 @@ fails ends the run with a non-zero exit.
           and in bf16 compute: ms per step and peak memory;
  11. the serving path with sampler "dpm" (DPM-Solver++(2M), 25 steps, inside
      the JAX docstring's ~20-50) at phase 4's width, weights and data:
-     SmokePipeline.calibrate on 25 of the cal sims and guided evaluate on
+     SmokePipeline.calibrate on 10 of the cal sims and guided evaluate on
      the 50 test sims, each one batch, the solver on K1; K1's launch count
      is zeroed just before calibrate and must read 255 just after evaluate,
      K2's must read 0; seconds per DPM step and peak memory.
@@ -198,6 +198,47 @@ The command line (phase 12; `python -m safediffcon_torch.cli.main <task>
 Depth cut to make room for phase 12: phase 11's calibrate on 25 cal sims
 (50 before), B4's and B7(d)'s on 100 (250), B7(c) at DDIM 100 (200).
 
+Data parallelism and frame-axis sequence parallelism (phase 13;
+safediffcon_torch/parallel/mesh.py), each run's card count checked and its
+backend named in its log line:
+
+ 13a. `python -m torch.distributed.run --standalone --nproc_per_node=1
+      chip_smoke.py --cli-rank smoke pretrain --steps 2 --conv-impl pallas`
+      (12b's data): the rank joins a one-rank NCCL group, all-reduces and
+      all-gathers through it, then runs the command line on its card;
+      rc 0 and 90 tensor-core K2 launches per step (TF32), 0 SIMT;
+ 13b-e run on two ranks spawned on the one card over gloo (NCCL refuses two
+      ranks on one device; gloo's all-gather and reduce-scatter are
+      all-reduces of zero-filled buffers there, exact), TF32 off, each held
+      against the same work in this process:
+ 13b. two smoke pretrain steps at the reference width, global batch 16 (8
+      per rank), K2 in 3xTF32, from one seed: the losses within 1e-5
+      relative, every weight within 2.5 lr (an Adam first step moves an
+      entry with a near-zero gradient by up to 2 lr either way), the
+      ranks' weights equal; 90 K2 launches per step on each rank;
+ 13c. one forward and backward of the reference UNet3D (conv_impl
+      "pallas", remat "full", B = 2, seeded weights) split over sp = 2
+      frame ranks (K2 on 16 + 2 frames): the output and every weight's
+      gradient within 1e-4 of their largest entry; 90 K2 launches per
+      rank, 0 SIMT; peak memory per rank against unsharded;
+ 13d. smoke calibrate on 8 cal sims and guided evaluate on 8 test sims,
+      DDIM 10, the reference width, seeded weights: Q-hat within 1e-5
+      relative; each rank's rollout on K1 (255 launches per rank, as in one
+      process; K1 solves each chunk of up to 8 samples as one system, so the
+      metrics agree within 1e-3 relative and a threshold rate within one
+      sample); K2 idle;
+ 13e. Burgers and tokamak calibrate at the turbo widths on 50 cal sims,
+      DDIM 20: Q-hat within 1e-5 relative; K1 and K2 idle.
+      With more than one card visible, 13b and 13d run again over NCCL
+      across two cards. Times of two ranks sharing one card are a
+      correctness check and say nothing of scaling over NVLink.
+
+Depth cut to make room for phase 13: phase 4's and phase 11's calibrate on
+10 cal sims (25 before), phase 9 at DDIM 15 (25).
+
+`python3 chip_smoke.py --cli-rank <command line>` is 13a's rank under
+torchrun, not a way to run the script.
+
 Its last three lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -226,7 +267,7 @@ BF16_FLOPS_PER_S = 989e12
 CG_FLOPS_PER_CELL = 23
 CELLS = 127
 N_CAL, N_TEST = 50, 50  # sims per split (reference: 200 cal, 50 test)
-SERVE_CAL = 25  # cal sims of phase 4's calibrate, to keep the script in its budget
+SERVE_CAL = 10  # cal sims of phase 4's calibrate, to keep the script in its budget
 N_TRAIN = 16  # one pretrain batch (reference: 19,800 train sims)
 GEN_BATCH = 50
 K1_REPS = 20  # timed K1 calls per case
@@ -245,7 +286,7 @@ K2_REPS = 10  # timed calls of K2 and F.conv3d per case (the plain version: 1)
 PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 FT_SIMS = 8  # cal and test sims of the posttrain / InfFT epochs
 POSTTRAIN_STEPS = 3
-FT_DDIM = 25  # DDIM steps of phase 9 (reference 100), to keep the script in its budget
+FT_DDIM = 15  # DDIM steps of phase 9 (reference 100), to keep the script in its budget
 DPM_STEPS = 25  # DPM-Solver++(2M) steps of phases 11, B7 and T7 (JAX docstring: ~20-50)
 # Burgers: the reference "turbo" UNet2D; sims per split (reference 40,000
 # train, 1,000 cal, 50 test; the train split cut to what B5-B6 read)
@@ -2067,7 +2108,8 @@ def phase_cli_subprocess() -> dict:
         f"included); {len(modules)} modules imported, of JAX or the JAX package: {forbidden} "
         f"(jax importable on this host: {jax_here}); last line "
         f"{proc.stdout.strip().splitlines()[-1:]}")
-    if proc.returncode != 0 or not (out / "burgers.npz").exists() or not modules or forbidden:
+    if ("safediffcon_torch.parallel.mesh" not in modules or proc.returncode != 0
+            or not (out / "burgers.npz").exists() or forbidden):
         raise AssertionError(f"12a: the command line failed or imported {forbidden}:\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     return dict(seconds=seconds, modules_imported=len(modules), jax_importable=jax_here)
@@ -2219,6 +2261,410 @@ def phase_cli_burgers_tokamak(K, C) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: data parallelism and frame-axis sequence parallelism
+# (safediffcon_torch/parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+P13_DIR = ROOT / "build" / "chip_smoke" / "p13"
+P13_STEPS = 2  # pretrain steps of 13(a) and 13(b)
+P13_SMOKE_DDIM, P13_SMOKE_SIMS = 10, 8  # 13(d): DDIM steps; cal and test sims
+P13_CAL_DDIM, P13_CAL_SIMS = 20, 50  # 13(e)
+P13_SP_BATCH = 2  # 13(c)
+
+
+def _p13_rank(rank: int, world: int, backend: str, init_file: str, parts: list,
+              out_dir: str) -> None:
+    """One spawned rank of phase 13 (its card, TF32 off): joins the group,
+    runs each (name, (dp, sp)) part on that mesh and saves what it measured
+    to out_dir/rank<r>.pt."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    results = {}
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                                world_size=world)
+        for name, (dp, sp) in parts:
+            mesh = pmesh.get_mesh_2d(dp, sp) if sp > 1 else pmesh.get_mesh()
+            pmesh.activate_mesh(mesh)
+            results[name] = P13_PARTS[name]()
+            results[name]["route"] = pmesh.describe(mesh)
+            pmesh.activate_mesh(None)
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        torch.save({"ok": results}, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException as e:
+        torch.save({"error": f"{type(e).__name__}: {e}"}, os.path.join(out_dir, f"rank{rank}.pt"))
+        raise
+
+
+def _p13_counts():
+    from safediffcon_torch.ops import conv3d_mxu as C
+    from safediffcon_torch.ops import pressure_cg as K
+
+    return dict(k2=dict(C.conv3d_fused_cuda.launches), k2_simt=C.conv3d_fused_simt_cuda.launches,
+                k1=K.pressure_cg_cuda.launches)
+
+
+def _p13_zero():
+    from safediffcon_torch.ops import conv3d_mxu as C
+    from safediffcon_torch.ops import pressure_cg as K
+
+    zero_k2_counts(C)
+    K.pressure_cg_cuda.launches = 0
+
+
+def p13_pretrain() -> dict:
+    """13(b): P13_STEPS smoke pretrain steps at the reference width, K2 in
+    3xTF32, global batch 16 (this rank's rows of each)."""
+    import safediffcon_torch.tasks.smoke as smoke
+
+    data = np.load(P13_DIR / "train.npy", mmap_mode="r")
+    train = smoke.SmokeDataset(data=data, raw=data)
+    cfg = smoke.SmokePretrainConfig(conv_impl="pallas")
+    losses = []
+    _p13_zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = smoke.pretrain(cfg, train, num_steps=P13_STEPS, device="cuda", losses=losses)
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0, losses=[float(v) for v in losses],
+                counts=_p13_counts(), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                params={k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+
+
+def _p13_sp_inputs():
+    rng = np.random.default_rng(13)
+    shape = (P13_SP_BATCH, FRAMES, 64, 64, 7)
+    x = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+    cot = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+    return x, torch.tensor([100, 900], device="cuda")[:P13_SP_BATCH], cot
+
+
+def p13_unet3d() -> dict:
+    """13(c) and its unsharded reference: one forward and backward of the
+    reference UNet3D (conv_impl "pallas", remat "full") on seeded weights,
+    loss = sum(out * cot), gradients summed over the frame ranks."""
+    from safediffcon_torch.parallel import mesh as pmesh
+    from safediffcon_torch.tasks.smoke.pipeline import build_model, init_params
+
+    net = init_params(build_model(conv_impl="pallas", device="cuda"), seed=3)
+    x, t, cot = _p13_sp_inputs()
+    sh = pmesh.batch_shard(P13_SP_BATCH, frames=FRAMES)
+    params = list(net.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _p13_zero()
+    t0 = time.perf_counter()
+    y = net(x, t)
+    loss = (y * cot).sum()
+    loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0, counts=_p13_counts(),
+                frames=None if sh.frames is None else sh.frames.length,
+                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9, out=y.detach().cpu(),
+                loss=float(loss), grads=[g.cpu() for g in grads])
+
+
+def p13_smoke_serving() -> dict:
+    """13(d): calibrate on P13_SMOKE_SIMS cal sims and guided evaluate on as
+    many test sims at DDIM P13_SMOKE_DDIM, the reference width, seeded
+    weights, the solver on K1."""
+    import safediffcon_torch.tasks.smoke as smoke
+    from safediffcon_torch.tasks.smoke.pipeline import init_params
+
+    cal = np.load(P13_DIR / "smoke_cal.npy")
+    test, test_raw = np.load(P13_DIR / "smoke_test.npy"), np.load(P13_DIR / "smoke_test_raw.npy")
+    ccfg = smoke.SmokeConformalConfig(ddim_sampling_steps=P13_SMOKE_DDIM)
+    pipe = smoke.SmokePipeline(ccfg)
+    init_params(pipe.model, seed=3)
+    _p13_zero()
+    t0 = time.perf_counter()
+    q = pipe.calibrate(smoke.SmokeDataset(data=cal, raw=cal), 0.0,
+                       generator=torch.Generator(device="cuda").manual_seed(1))
+    calibrate_counts = _p13_counts()
+    m = pipe.evaluate(smoke.SmokeDataset(data=test, raw=test_raw), q,
+                      generator=torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0, q=float(q), metrics=m,
+                calibrate_counts=calibrate_counts, counts=_p13_counts())
+
+
+def p13_calibrate() -> dict:
+    """13(e): Burgers and tokamak calibrate at their turbo widths on
+    P13_CAL_SIMS cal sims, DDIM P13_CAL_DDIM, with torch's default init of
+    the weights from one seed (flax's lecun-normal init of 200 M weights on
+    the CPU generator would take most of the part's time)."""
+    import safediffcon_torch.tasks.burgers as burgers
+    import safediffcon_torch.tasks.tokamak as tokamak
+
+    _p13_zero()
+    clock = [time.perf_counter()]
+
+    def lap() -> float:
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        return clock[-1] - clock[-2]
+
+    torch.manual_seed(3)
+    bp = burgers.BurgersPipeline(burgers.BurgersConformalConfig(
+        ddim_sampling_steps=P13_CAL_DDIM))
+    laps = dict(burgers_build=lap())
+    qb = bp.calibrate(None, np.load(P13_DIR / "burgers_cal.npy"), 0.0,
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    laps["burgers_calibrate"] = lap()
+    tp = tokamak.TokamakPipeline(tokamak.TokamakConformalConfig(
+        ddim_sampling_steps=P13_CAL_DDIM))
+    laps["tokamak_build"] = lap()
+    cal = tokamak.TokamakDataset(np.load(P13_DIR / "tokamak_cal.npy"),
+                                 np.load(P13_DIR / "tokamak_cal_state.npy"))
+    qt = tp.calibrate(None, cal, 0.0, generator=torch.Generator(device="cuda").manual_seed(1))
+    laps["tokamak_calibrate"] = lap()
+    return dict(seconds=clock[-1] - clock[0], laps=laps, q_burgers=float(qb),
+                q_tokamak=float(qt), counts=_p13_counts())
+
+
+P13_PARTS = {"b": p13_pretrain, "c": p13_unet3d, "d": p13_smoke_serving, "e": p13_calibrate}
+
+
+def p13_spawn(parts: list, world: int, backend: str) -> list:
+    """Run the parts on `world` spawned ranks of one group per part; returns
+    each rank's results. A rank that fails or hangs fails the phase."""
+    import multiprocessing as mp
+    import shutil
+
+    out_dir = P13_DIR / f"ranks-{backend}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_p13_rank, args=(r, world, backend, str(out_dir / "rendezvous"),
+                                                 parts, str(out_dir)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    out = []
+    for r in range(world):
+        path = out_dir / f"rank{r}.pt"
+        got = torch.load(path, weights_only=False) if path.exists() else {
+            "error": "no result"}
+        if "error" in got or hung:
+            raise AssertionError(f"phase 13 rank {r} of {world} ({backend}): "
+                                 f"{got.get('error', 'hung')}")
+        out.append(got["ok"])
+    return out
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_p13_torchrun(C) -> dict:
+    """13(a): `torchrun --nproc_per_node=1` of `smoke pretrain` at the
+    reference width, K2 (TF32, the command line's defaults), in a process of
+    its own that joins a one-rank NCCL group (`--cli-rank` below)."""
+    data = CLI_DIR / "smoke" / "smoke.npz"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           str(ROOT / "chip_smoke.py"), "--cli-rank", "smoke", "pretrain", "--data", str(data),
+           "--out", str(P13_DIR / "torchrun"), "--steps", str(P13_STEPS), "--conv-impl",
+           "pallas"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    seconds = time.perf_counter() - t0
+    (P13_DIR / "torchrun.log").write_text(proc.stdout + proc.stderr)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("P13A ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"13(a) torchrun exited {proc.returncode}:\n"
+                             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    rep = json.loads(lines[-1][5:])
+    tc = sum(rep["k2"].values())
+    log(f"13(a) torchrun --nproc_per_node=1 smoke pretrain --steps {P13_STEPS}: rc 0 in "
+        f"{seconds:.1f} s; {rep['group']}; K2 {tc} tensor-core launches {rep['k2']}, "
+        f"{rep['k2_simt']} SIMT")
+    n_convs = sum(n for *_, n in K2_SHAPES)
+    if tc != 3 * n_convs * P13_STEPS or rep["k2_simt"] or not rep["group"].startswith("nccl"):
+        raise AssertionError(f"13(a): K2 {rep}, expected {3 * n_convs} per step on the "
+                             f"tensor cores in an NCCL group")
+    return dict(seconds=seconds, k2=tc, group=rep["group"])
+
+
+def cli_rank(argv: list) -> int:
+    """`python3 chip_smoke.py --cli-rank <command line>` under torchrun: join
+    the launch's NCCL group, run an all-reduce and an all-gather through it,
+    then the command line on this rank's card; print the K2 counts."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from safediffcon_torch.cli.main import main as cli_main
+    from safediffcon_torch.ops import build
+    from safediffcon_torch.ops import conv3d_mxu as C
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    build.build_all(["conv3d_wgmma", "conv3d_simt"])  # the parent's build, found by hash
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    pmesh.init_distributed(backend="nccl")
+    x = torch.full((4,), float(pmesh.rank() + 1), device="cuda")
+    dist.all_reduce(x)
+    g = pmesh.all_gather(x, 0, None)
+    torch.cuda.synchronize()
+    group = (f"{dist.get_backend()} group of {pmesh.world_size()}, all-reduce {x.tolist()}, "
+             f"all-gather of {tuple(g.shape)} ({pmesh.collective_route(None)})")
+    zero_k2_counts(C)
+    rc = cli_main(argv)
+    print("P13A " + json.dumps(dict(k2=C.conv3d_fused_cuda.launches,
+                                    k2_simt=C.conv3d_fused_simt_cuda.launches, group=group)),
+          flush=True)
+    return rc
+
+
+def phase_p13(C, smoke, train, cal, test, b_data, t_data) -> dict:
+    """Phase 13: (a) torchrun with one NCCL rank; (b)-(e) two gloo ranks on
+    the one card against the same work in this process, TF32 off."""
+    P13_DIR.mkdir(parents=True, exist_ok=True)
+    res = dict(a=phase_p13_torchrun(C))
+    np.save(P13_DIR / "train.npy", np.ascontiguousarray(train.data[:K2_BATCH]))
+    np.save(P13_DIR / "smoke_cal.npy", np.ascontiguousarray(cal.data[:P13_SMOKE_SIMS]))
+    np.save(P13_DIR / "smoke_test.npy", np.ascontiguousarray(test.data[:P13_SMOKE_SIMS]))
+    np.save(P13_DIR / "smoke_test_raw.npy", np.ascontiguousarray(test.raw[:P13_SMOKE_SIMS]))
+    np.save(P13_DIR / "burgers_cal.npy", np.ascontiguousarray(b_data["cal"].data[:P13_CAL_SIMS]))
+    np.save(P13_DIR / "tokamak_cal.npy", np.ascontiguousarray(t_data["cal"].data[:P13_CAL_SIMS]))
+    np.save(P13_DIR / "tokamak_cal_state.npy",
+            np.ascontiguousarray(t_data["cal"].state_phys[:P13_CAL_SIMS]))
+
+    # the references: the same work in this process, no mesh
+    ref = {}
+    with tf32_flag(False):
+        for name in ("b", "c", "d", "e"):
+            ref[name] = P13_PARTS[name]()
+            torch.cuda.empty_cache()
+    parts = [("b", (2, 1)), ("c", (1, 2)), ("d", (2, 1)), ("e", (2, 1))]
+    t0 = time.perf_counter()
+    ranks = p13_spawn(parts, 2, "gloo")
+    res["spawn_s"] = time.perf_counter() - t0
+    n_convs = sum(n for *_, n in K2_SHAPES)
+
+    # (b) two ranks' pretrain against one process's
+    rb = ref["b"]
+    for r, got in enumerate(ranks):
+        g = got["b"]
+        tc = g["counts"]["k2"]["3xtf32"]
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], rb["losses"]))
+        werr = max(_rel(g["params"][k], v) for k, v in rb["params"].items())
+        lr = smoke.SmokePretrainConfig().lr
+        wabs = max(float((g["params"][k] - v).abs().max()) for k, v in rb["params"].items())
+        log(f"13(b) rank {r} ({g['route']}): losses {g['losses']} against {rb['losses']} "
+            f"(rel {lerr:.2e}); weights max |diff| {wabs:.3e} = {wabs / lr:.3f} lr "
+            f"(rel {werr:.2e}); K2 {tc} 3xTF32 launches, {g['counts']['k2_simt']} SIMT; "
+            f"{g['seconds']:.2f} s, peak {g['peak_gb']:.2f} GB (one process "
+            f"{rb['seconds']:.2f} s, {rb['peak_gb']:.2f} GB)")
+        # the mean of two half-batch means in float32 (3xTF32 K2): 1e-5 of the
+        # loss; one Adam step from gradients equal to rounding moves an entry
+        # whose gradient is near 0 by up to 2 lr
+        if not (lerr <= 1e-5 and wabs <= 2.5 * lr):
+            raise AssertionError(f"13(b): two ranks' pretrain disagrees with one process's")
+        if tc != 3 * n_convs * P13_STEPS or g["counts"]["k2_simt"] or sum(
+                g["counts"]["k2"].values()) != tc:
+            raise AssertionError(f"13(b): rank {r} K2 counts {g['counts']}")
+    for k, v in ranks[0]["b"]["params"].items():
+        if not torch.equal(v, ranks[1]["b"]["params"][k]):
+            raise AssertionError("13(b): the ranks' weights differ")
+    res["b"] = dict(k2_per_rank=[g["b"]["counts"]["k2"]["3xtf32"] for g in ranks],
+                    seconds=[g["b"]["seconds"] for g in ranks], ref_s=rb["seconds"],
+                    peak_gb=[g["b"]["peak_gb"] for g in ranks], ref_peak_gb=rb["peak_gb"])
+
+    # (c) SP = 2 against unsharded
+    rc = ref["c"]
+    for r, got in enumerate(ranks):
+        g = got["c"]
+        oerr = _rel(g["out"], rc["out"])
+        gerr = max(_rel(a, b) for a, b in zip(g["grads"], rc["grads"]))
+        tc = g["counts"]["k2"]["3xtf32"]
+        log(f"13(c) rank {r} ({g['route']}): {g['frames']} + 2 frames per rank; out rel "
+            f"{oerr:.2e}, gradients rel {gerr:.2e} (each of max |g|); K2 {tc} 3xTF32 "
+            f"launches, {g['counts']['k2_simt']} SIMT; {g['seconds']:.2f} s, peak "
+            f"{g['peak_gb']:.2f} GB above the weights and inputs (unsharded "
+            f"{rc['seconds']:.2f} s, {rc['peak_gb']:.2f} GB)")
+        # float32 (3xTF32 K2, cuDNN without TF32), sums in another order: 1e-4
+        # of each tensor's largest entry, phase 7's tolerance
+        if g["frames"] != FRAMES // 2 or not (oerr <= 1e-4 and gerr <= 1e-4):
+            raise AssertionError("13(c): the frame-parallel UNet3D disagrees with unsharded")
+        if tc != 3 * n_convs or g["counts"]["k2_simt"]:
+            raise AssertionError(f"13(c): rank {r} K2 counts {g['counts']}")
+    res["c"] = dict(k2_per_rank=[g["c"]["counts"]["k2"]["3xtf32"] for g in ranks],
+                    peak_gb=[g["c"]["peak_gb"] for g in ranks], ref_peak_gb=rc["peak_gb"],
+                    seconds=[g["c"]["seconds"] for g in ranks], ref_s=rc["seconds"])
+
+    # (d) smoke calibrate + guided evaluate
+    rd = ref["d"]
+    log(f"13(d) one process: metrics {json.dumps(rd['metrics'])}")
+    for r, got in enumerate(ranks):
+        g = got["d"]
+        qerr = abs(g["q"] - rd["q"]) / abs(rd["q"])
+        log(f"13(d) rank {r} ({g['route']}): Q {g['q']:.6g} against {rd['q']:.6g} (rel "
+            f"{qerr:.2e}); K1 {g['counts']['k1']} launches (one process "
+            f"{rd['counts']['k1']}), K2 {sum(g['counts']['k2'].values())}; "
+            f"{g['seconds']:.2f} s (one process {rd['seconds']:.2f} s); metrics "
+            f"{json.dumps(g['metrics'])}")
+        if (not qerr <= 1e-5 or g["counts"]["k1"] != SOLVER_STEPS
+                or sum(g["counts"]["k2"].values())):
+            raise AssertionError(f"13(d): rank {r}: Q {g['q']} vs {rd['q']}, {g['counts']}")
+        for name, v in rd["metrics"].items():
+            # K1 solves each chunk of 8 samples as one system; a rank's chunk
+            # holds 4: the rollout agrees within the solver's 1e-8 stopping
+            # test, not to the bit; a threshold rate may move by one sample
+            if "percentage" in name:
+                ok = abs(g["metrics"][name] - v) <= 100 / P13_SMOKE_SIMS + 1e-9
+            else:
+                ok = abs(g["metrics"][name] - v) <= 1e-3 * abs(v) + 1e-9
+            if not ok:
+                raise AssertionError(f"13(d): {name} {g['metrics'][name]} against {v}")
+    res["d"] = dict(k1_per_rank=[g["d"]["counts"]["k1"] for g in ranks],
+                    k1_one_process=rd["counts"]["k1"], q=[g["d"]["q"] for g in ranks],
+                    q_ref=rd["q"], seconds=[g["d"]["seconds"] for g in ranks],
+                    ref_s=rd["seconds"])
+
+    # (e) Burgers and tokamak calibrate
+    re_ = ref["e"]
+    for r, got in enumerate(ranks):
+        g = got["e"]
+        errs = {t: abs(g[f"q_{t}"] - re_[f"q_{t}"]) / abs(re_[f"q_{t}"])
+                for t in ("burgers", "tokamak")}
+        log(f"13(e) rank {r} ({g['route']}): Q-hat Burgers {g['q_burgers']:.6g} / tokamak "
+            f"{g['q_tokamak']:.6g} against {re_['q_burgers']:.6g} / {re_['q_tokamak']:.6g} "
+            f"(rel {errs['burgers']:.2e} / {errs['tokamak']:.2e}); K1 / K2 "
+            f"{g['counts']['k1']} / {sum(g['counts']['k2'].values())}; {g['seconds']:.2f} s "
+            f"{json.dumps(g['laps'])} (one process {re_['seconds']:.2f} s "
+            f"{json.dumps(re_['laps'])})")
+        if (not all(math.isfinite(g[f"q_{t}"]) for t in ("burgers", "tokamak"))
+                or not max(errs.values()) <= 1e-5 or g["counts"]["k1"]
+                or sum(g["counts"]["k2"].values())):
+            raise AssertionError(f"13(e): rank {r} {errs} {g['counts']}")
+    res["e"] = dict(q=[(g["e"]["q_burgers"], g["e"]["q_tokamak"]) for g in ranks],
+                    q_ref=(re_["q_burgers"], re_["q_tokamak"]),
+                    seconds=[g["e"]["seconds"] for g in ranks], ref_s=re_["seconds"])
+
+    if torch.cuda.device_count() > 1:  # (b) and (d) over NCCL across two cards
+        for r, got in enumerate(p13_spawn([("b", (2, 1)), ("d", (2, 1))], 2, "nccl")):
+            log(f"13 NCCL rank {r} ({got['b']['route']}): losses {got['b']['losses']}, "
+                f"Q {got['d']['q']:.6g}")
+            if (max(abs(a - b) / abs(b) for a, b in zip(got["b"]["losses"], rb["losses"]))
+                    > 1e-5 or abs(got["d"]["q"] - rd["q"]) > 1e-5 * abs(rd["q"])):
+                raise AssertionError("13: the NCCL ranks disagree with one process")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2320,14 +2766,21 @@ def main() -> int:
     log(f"phase 12 in {time.perf_counter() - t_cli:.1f} s; launches {json.dumps(cli_launches)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
+    # phase 13: data parallelism and frame-axis sequence parallelism
+    t_p13 = time.perf_counter()
+    p13 = phase_p13(C, smoke, data[0], data[1], data[2], b_data, t_data)
+    log(f"phase 13 in {time.perf_counter() - t_p13:.1f} s (ranks {p13['spawn_s']:.1f} s); "
+        f"total {time.perf_counter() - t_start:.1f} s")
+
     kernels = [dict(
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",
         replaces="safediffcon_tpu/ops/pressure_cg.py:42",
         also_replaces="safediffcon_tpu/ops/pressure_cg.py:119",
-        launches=launches + dpm_launches + cli_launches["k1_eval"],
+        launches=launches + dpm_launches + cli_launches["k1_eval"] + sum(p13["d"]["k1_per_rank"]),
         main_path_launches={"phase 4 DDIM serving": launches,
                             "phase 11 DPM serving": dpm_launches,
-                            "phase 12 smoke eval --checkpoints": cli_launches["k1_eval"]},
+                            "phase 12 smoke eval --checkpoints": cli_launches["k1_eval"],
+                            "phase 13(d) DP serving, per rank": p13["d"]["k1_per_rank"]},
         max_abs_err=max(c["max_diff"] for c in cases),
         ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
@@ -2354,14 +2807,20 @@ def main() -> int:
         name="conv3d_fused", route="cuda", source="safediffcon_torch/csrc/conv3d_wgmma.cu",
         replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
         launches=(conv_launches + bf16_launches + cli_launches["k2_cli_pretrain"]
-                  + cli_launches["k2_pool_pretrain"]),
+                  + cli_launches["k2_pool_pretrain"] + p13["a"]["k2"]
+                  + sum(p13["b"]["k2_per_rank"]) + sum(p13["c"]["k2_per_rank"])),
         main_path_modes={train_times["k2_mode"]: conv_launches + cli_launches["k2_cli_pretrain"]
                          + cli_launches["k2_pool_pretrain"], "bf16": bf16_launches},
         main_path_launches={"phase 8 pretrain": conv_launches, "phase 10b bf16": bf16_launches,
                             "phase 12 smoke pretrain --steps-per-call 2":
                                 cli_launches["k2_cli_pretrain"],
                             "phase 12 pretrain with a device pool":
-                                cli_launches["k2_pool_pretrain"]},
+                                cli_launches["k2_pool_pretrain"],
+                            "phase 13(a) torchrun pretrain, one NCCL rank": p13["a"]["k2"],
+                            "phase 13(b) DP pretrain, per rank (3xTF32)":
+                                p13["b"]["k2_per_rank"],
+                            "phase 13(c) SP forward + backward, per rank (3xTF32)":
+                                p13["c"]["k2_per_rank"]},
         max_abs_err=max(c["max_diff"] for c in f32_cases),
         ms=conv_main["kernel_ms"], plain_ms=conv_main["plain_ms"],
         bound_ms=conv_main["bound_ms"], bound_by=conv_main["bound_by"],
@@ -2386,4 +2845,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:  # a rank of phase 13(a)'s torchrun
+        sys.exit(cli_rank(sys.argv[2:]))
     sys.exit(main())

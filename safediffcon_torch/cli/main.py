@@ -22,10 +22,14 @@ default, so a command line carries over unchanged, except:
                  "elsewhere").
   --eval-chunk   50 by default (JAX: 10, sized for a 16 GB chip; an 80 GB
                  H100 holds the reference test set of 50 in one chunk).
-  --no-dp, --sp  data parallelism lives in parallel/mesh.py, which the port
-                 does not have yet: --no-dp is accepted, --sp > 1 exits with
-                 an error, and with several cards visible the command runs on
-                 one of them and says so.
+  --no-dp, --sp  as in JAX, every phase but generate-data runs data-parallel
+                 when more than one card is visible (parallel/mesh.py), but
+                 as one process per card: under `torchrun --nproc_per_node=N`
+                 each rank joins the NCCL group and runs on cuda:LOCAL_RANK;
+                 with no launcher, the command starts one worker per visible
+                 card on localhost itself. --sp N splits the UNet3D's frames
+                 over N ranks of a 2-D (data, frames) mesh; --no-dp runs each
+                 process alone. Only rank 0 writes files and logs INFO lines.
   random draws   a torch.Generator seeded with --seed on the device, where
                  JAX uses PRNGKey(seed).
   checkpoints    the port's own torch.save format (utils/checkpoint.py); the
@@ -38,7 +42,9 @@ conformal quantile (the reference convention).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import logging
 import os
@@ -46,6 +52,8 @@ import sys
 import time
 
 import torch
+
+from safediffcon_torch.parallel import mesh as pmesh
 
 
 def _setup_logging():
@@ -56,10 +64,11 @@ def _setup_logging():
 
 
 def _save_results(out_dir: str, name: str, payload) -> str:
-    os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, name)
-    with open(path, "w") as f:
-        json.dump(payload, f, indent=2, default=float)
+    if pmesh.is_writer():
+        os.makedirs(out_dir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=2, default=float)
     return path
 
 
@@ -95,11 +104,12 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--n-cal", type=int, default=None, help="generate-data: cal size")
     p.add_argument("--n-test", type=int, default=None, help="generate-data: test size")
     p.add_argument("--no-dp", action="store_true",
-                   help="accepted for the JAX command line's sake: the port runs on one "
-                        "device (data parallelism, parallel/mesh.py, is not ported)")
+                   help="disable automatic data parallelism over multiple devices "
+                        "(every process then runs alone)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel devices on the video frame axis; only 1 is "
-                        "taken (parallel/mesh.py is not ported)")
+                   help="sequence-parallel ranks on the video frame axis "
+                        "(smoke/UNet3D): builds a 2-D (data, frames) mesh "
+                        "with world_size//sp x sp ranks")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest saved state in --out: "
                         "pretrain restores the latest step milestone; "
@@ -586,30 +596,91 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _device(args) -> torch.device:
     """The device to run on: a CUDA card must be visible for --device cuda
-    (there is no fall-back to the CPU); with several, the first given runs."""
-    if args.sp > 1:
-        raise SystemExit(f"--sp {args.sp}: sequence parallelism needs parallel/mesh.py, "
-                         "which the port does not have yet; run with --sp 1")
+    (there is no fall-back to the CPU); a rank of a launch takes
+    cuda:LOCAL_RANK."""
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit(f"--device {args.device}: no CUDA device is visible; pass "
                              "--device cpu to run on the CPU")
-        if device.index is None:
+        if "LOCAL_RANK" in os.environ:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        elif device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        n = torch.cuda.device_count()
-        if n > 1:
-            logging.info("%d CUDA devices visible; running on %s only (data parallelism, "
-                         "parallel/mesh.py, is not ported)", n, device)
+        torch.cuda.set_device(device)
     return device
 
 
+def _data_parallel(args) -> bool:
+    return not args.no_dp and args.phase != "generate-data"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _worker(local_rank: int, argv, world: int, port: int) -> None:
+    """One rank of `_spawn_workers`: torchrun's environment, then `main`."""
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
+                      WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    rc = main(argv)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _spawn_workers(argv, world: int) -> int:
+    """Run the command as `world` ranks on this host, one per card: the
+    JAX command line's data parallelism by default over every visible
+    device. A rank that fails ends the others; returns 1 then."""
+    import torch.multiprocessing as mp
+
+    logging.info("%d CUDA devices visible: starting one rank per card", world)
+    try:
+        mp.start_processes(_worker, args=(list(argv), world, _free_port()), nprocs=world,
+                           start_method="spawn")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        logging.error("a rank failed, every rank was stopped: %s", e)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     _setup_logging()
+    launched = "WORLD_SIZE" in os.environ  # a rank of torchrun (or of _spawn_workers)
+    if (_data_parallel(args) and not launched and args.device == "cuda"
+            and torch.cuda.is_available() and torch.cuda.device_count() > 1):
+        return _spawn_workers(argv, torch.cuda.device_count())
+    if launched and args.phase == "generate-data" and int(os.environ.get("RANK", 0)):
+        return 0  # rank 0 generates the data
     device = _device(args)
-    _register_run(args.out, args)
-    return TASKS[args.task](args, device)
+    joined = launched and _data_parallel(args) and pmesh.init_distributed(
+        backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        if not pmesh.is_writer():
+            logging.getLogger().setLevel(logging.WARNING)
+        if _data_parallel(args):
+            mesh = pmesh.auto_mesh(sp=args.sp)
+            if mesh is not None:
+                logging.info("%s mesh active over %d ranks", pmesh.describe(mesh),
+                             pmesh.world_size())
+        if joined:
+            logging.info("rank %d of %d in the %s process group on %s", pmesh.rank(),
+                         pmesh.world_size(), torch.distributed.get_backend(), device)
+        if pmesh.is_writer():
+            _register_run(args.out, args)
+        with contextlib.nullcontext() if pmesh.is_writer() else contextlib.redirect_stdout(
+                io.StringIO()):
+            return TASKS[args.task](args, device)
+    finally:
+        pmesh.activate_mesh(None)
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ import torch
 
 from safediffcon_torch.core.conditioning import IdentityConditioner
 from safediffcon_torch.core.schedules import DiffusionSchedule, extract
+from safediffcon_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,11 +134,10 @@ def p_losses(
 def draw_t_noise(cfg: DiffusionConfig, x_start: torch.Tensor,
                  generator: Optional[torch.Generator] = None):
     """Uniform timesteps in [0, timesteps) and standard normal noise for a
-    batch, on x_start's device."""
-    t = torch.randint(0, cfg.timesteps, (x_start.shape[0],), generator=generator,
-                      device=x_start.device)
-    noise = torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
-                        device=x_start.device)
+    batch, on x_start's device; a rank's share of a data-parallel batch
+    takes its rows of the global draws (`parallel.mesh.SlicedGenerator`)."""
+    t = pmesh.randint(cfg.timesteps, (x_start.shape[0],), generator, device=x_start.device)
+    noise = pmesh.randn(x_start.shape, generator, dtype=x_start.dtype, device=x_start.device)
     return t, noise
 
 

@@ -30,6 +30,7 @@ from safediffcon_torch.core.diffusion import (
 )
 from safediffcon_torch.core.guidance import additive
 from safediffcon_torch.core.schedules import DiffusionSchedule
+from safediffcon_torch.parallel import mesh as pmesh
 
 
 class ModelPrediction(NamedTuple):
@@ -157,14 +158,24 @@ def _step_draws(shape, device, generator, step_noise, n: int):
         if len(step_noise) != n:
             raise ValueError(f"step_noise holds {len(step_noise)} draws, the sampler takes {n}")
         return iter(step_noise)
-    return (torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return (pmesh.randn(shape, generator, dtype=torch.float32, device=device)
             for _ in range(n))
+
+
+def draws_kw(noise, generator, shard: pmesh.BatchShard) -> dict:
+    """A sampler call's draw arguments: the next (init_noise, step_noise) of
+    the iterator `noise`, else `generator`; under a data-parallel `shard`,
+    this rank's rows of the global draws."""
+    if noise is None:
+        return dict(generator=shard.generator(generator))
+    init_noise, step_noise = shard.draws(next(noise))
+    return dict(init_noise=init_noise, step_noise=step_noise)
 
 
 def _initial_noise(shape, device, generator, init_noise):
     if init_noise is not None:
         return init_noise
-    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return pmesh.randn(shape, generator, dtype=torch.float32, device=device)
 
 
 def ddim_sample(

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from safediffcon_torch.parallel import mesh as pmesh
+
 Schedule = Union[float, Callable[[int], float]]
 
 
@@ -293,6 +295,7 @@ def run_train_loop(
     pool_refresh_every: int = 0,
     deadline: Optional[float] = None,
     losses: Optional[list] = None,
+    shard: Optional[pmesh.BatchShard] = None,
 ) -> TrainState:
     """The JAX package's epoch-less training loop (reference: Trainer loop,
     1D/model/trainer.py:150-210), one optimizer step per call of
@@ -319,7 +322,14 @@ def run_train_loop(
     gathered on the device and cast to float32. When the pool is smaller
     than the data it is re-drawn every `pool_refresh_every` steps (default
     max(1, 3 * pool // batch_take)) with salt = the step, and the order is
-    re-permuted from `default_rng(seed + step + 13)`."""
+    re-permuted from `default_rng(seed + step + 13)`.
+
+    `shard` (`parallel.mesh.batch_shard` of the micro-batch size) splits
+    each micro-batch over the data ranks: every rank draws the same global
+    indices and takes its rows of each micro-batch, so `step_fn` gets
+    batch_take / dp samples (micro-batch by micro-batch) and reduces its
+    gradients with the same shard. The device pool is whole on every rank.
+    The parameters and their EMA are broadcast from rank 0 first."""
     if checkpoint_dir:
         from safediffcon_torch.utils.checkpoint import save_checkpoint
     device = next(state.model.parameters()).device
@@ -328,6 +338,22 @@ def run_train_loop(
     n_data = data.shape[0]
     sample_shape = tuple(data.shape[1:])
     copied: Optional[torch.cuda.Event] = None
+    split = shard is not None and shard.split
+    if split:
+        if batch_take % shard.n:
+            raise ValueError(f"batch_take {batch_take} is not a whole number of "
+                             f"{shard.n}-sample micro-batches")
+        pmesh.maybe_replicate(list(state.model.parameters()) + list(state.ema_params.values()))
+        if logger:
+            logger.info("%s: data-parallel over %d ranks (batch %d, %d per rank)", log_prefix,
+                        shard.dp, batch_take, batch_take // shard.dp)
+    take = batch_take // shard.dp if split else batch_take
+
+    def rows(sel: np.ndarray) -> np.ndarray:
+        """This rank's rows of each micro-batch of the drawn indices."""
+        if not split:
+            return sel
+        return sel.reshape(-1, shard.n)[:, shard.lo : shard.hi].reshape(-1)
 
     pool_dev = None
     if device_pool and device_pool > 0 and start_step < num_steps:
@@ -359,7 +385,7 @@ def run_train_loop(
         n = pool
     else:
         n = n_data
-        host = torch.empty((k * batch_take,) + sample_shape, dtype=torch.float32,
+        host = torch.empty((k * take,) + sample_shape, dtype=torch.float32,
                            pin_memory=cuda)
         host_np = host.numpy()
 
@@ -420,9 +446,9 @@ def run_train_loop(
             last_pool = step
             if logger:
                 logger.info("%s: refreshed device pool at step %d", log_prefix, step)
-        batches = to_device(draw(batch_take * kk))
+        batches = to_device(rows(draw(batch_take * kk)))
         for i in range(kk):
-            loss = step_fn(state, batches[i * batch_take : (i + 1) * batch_take])
+            loss = step_fn(state, batches[i * take : (i + 1) * take])
             if losses is not None:
                 losses.append(loss)
             if logger:

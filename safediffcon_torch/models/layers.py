@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from safediffcon_torch.parallel import mesh as pmesh
+
 
 # compute_dtype names of the U-Nets -> the dtype their blocks take (None:
 # float32, the promoted type of float32 inputs and parameters)
@@ -112,10 +114,20 @@ class GroupNormCL(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x):
+    def forward(self, x, fs: Optional[pmesh.FrameShard] = None):
+        """`fs`: x holds this rank's frames of a video split over a frame
+        group; the statistics then span every frame, the mean first and the
+        biased variance about it after, each a float32 sum all-reduced over
+        the group (the two passes `var_mean` takes on the whole)."""
         b, c = x.shape[0], x.shape[-1]
         g = x.reshape(b, -1, self.groups, c // self.groups).float()
-        var, mean = torch.var_mean(g, dim=(1, 3), keepdim=True, unbiased=False)
+        if fs is None:
+            var, mean = torch.var_mean(g, dim=(1, 3), keepdim=True, unbiased=False)
+        else:
+            count = g.shape[1] * g.shape[3] * fs.size
+            mean = pmesh.all_reduce_sum(g.sum(dim=(1, 3), keepdim=True), fs) / count
+            var = pmesh.all_reduce_sum((g - mean).square().sum(dim=(1, 3), keepdim=True),
+                                       fs) / count
         g = (g - mean) * torch.rsqrt(var + self.eps)
         y = g.reshape(x.shape) * self.weight + self.bias
         return y if self.compute_dtype is None else y.to(self.compute_dtype)

@@ -29,6 +29,23 @@ acts only while autograd records. `remat_policy="full"` keeps only each
 block's inputs; `"save_heavy"` also keeps the outputs of the convolutions
 and matmuls autograd records (`SAVED_OPS`) and recomputes the rest, as the
 JAX policy saves `conv_general_dilated` and `dot_general`.
+
+Under a mesh with a frame axis that divides F (`parallel/mesh.py`), the
+forward takes the whole input on every rank and computes its F/sp frames of
+every activation (sequence parallelism; the JAX package leaves it to XLA's
+partitioner). The layers that see across frames exchange what they need:
+the 7x7x7 `init_conv` cuts its window of 3 frames either side from the whole
+input, each 3x3x3 conv of a `Block3D` (cuDNN or K2, the latter on F/sp + 2
+frames, its two edge outputs dropped) takes a halo of one frame from each
+neighbour, `GroupNormCL` all-reduces its statistics, and `TemporalAttention`
+gathers the keys and values of every frame, with RoPE at the global
+positions and this rank's rows of the relative-position bias. The output is
+gathered along frames, so the loss sees the whole of it; its backward keeps
+this rank's slice, and the weights' gradients are summed over the frame
+ranks afterwards (`BatchShard.reduce`). Under remat the collectives inside a
+block run again in the backward pass, in the same order on every rank, and
+"save_heavy" does not keep their outputs (they run inside autograd
+Functions, which its policy does not see), so they are recomputed too.
 """
 from __future__ import annotations
 
@@ -54,6 +71,7 @@ from safediffcon_torch.models.layers import (
     _compute_dtype,
 )
 from safediffcon_torch.ops.conv3d_mxu import conv3d_fused_fn
+from safediffcon_torch.parallel import mesh as pmesh
 
 ATTN_IMPLS = ("heads", "packed")
 CONV_IMPLS = ("xla", "pallas")
@@ -102,12 +120,13 @@ def _rel_pos_buckets(n: int, num_buckets: int = 32, max_distance: int = 128) -> 
     return ret + np.where(is_small, nabs, val_if_large)
 
 
-def _rope(x: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
-    """Interleaved rotary position embedding over the token axis (axis -2);
-    the angle table is built in float64 numpy and cast, as in JAX."""
+def _rope(x: torch.Tensor, theta: float = 10000.0, offset: int = 0) -> torch.Tensor:
+    """Interleaved rotary position embedding over the token axis (axis -2),
+    whose first token sits at position `offset`; the angle table is built in
+    float64 numpy and cast, as in JAX."""
     n, d = x.shape[-2], x.shape[-1]
     freqs = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
-    angles = np.arange(n)[:, None] * freqs[None, :]
+    angles = (np.arange(n) + offset)[:, None] * freqs[None, :]
     cos = torch.as_tensor(np.cos(angles), dtype=x.dtype, device=x.device)
     sin = torch.as_tensor(np.sin(angles), dtype=x.dtype, device=x.device)
     x1 = x[..., 0::2]
@@ -125,10 +144,16 @@ class Conv3dCL(nn.Conv3d):
         super().__init__(dim_in, dim_out, kernel_size, stride=stride, padding=padding)
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, halo: bool = False):
+        """`halo`: x's frame axis already carries the frame padding on
+        either side (a halo exchange or a window of the whole video), so
+        the frames are not padded again."""
         dt = _compute_dtype(self.compute_dtype, x, self.weight)
-        y = self._conv_forward(x.permute(0, 4, 1, 2, 3).to(dt), self.weight.to(dt),
-                               self.bias.to(dt))
+        xt, w, b = x.permute(0, 4, 1, 2, 3).to(dt), self.weight.to(dt), self.bias.to(dt)
+        if halo:
+            y = F.conv3d(xt, w, b, self.stride, (0,) + tuple(self.padding[1:]))
+        else:
+            y = self._conv_forward(xt, w, b)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -189,7 +214,11 @@ class TemporalAttention(nn.Module):
         self.to_qkv = Linear(dim, hidden * 3, bias=False, dtype=dtype)
         self.to_out = Linear(hidden, dim, bias=False, dtype=dtype)
 
-    def forward(self, x, pos_bias=None):
+    def forward(self, x, pos_bias=None, fs: Optional[pmesh.FrameShard] = None):
+        """`fs`: x holds this rank's frames of a video split over a frame
+        group. Its queries attend to the keys and values of every frame
+        (gathered, at their global RoPE positions), and `pos_bias` holds
+        this rank's rows (H, F/sp, F)."""
         b, f, hh, ww, c = x.shape
         t = x.permute(0, 2, 3, 1, 4).reshape(b, hh * ww, f, c)
         q, k, v = self.to_qkv(t).chunk(3, dim=-1)
@@ -199,8 +228,12 @@ class TemporalAttention(nn.Module):
 
         q, k, v = heads(q), heads(k), heads(v)
         q = q * (self.dim_head ** -0.5)
-        q = _rope(q)
-        k = _rope(k)
+        offset = 0 if fs is None else fs.lo
+        q = _rope(q, offset=offset)
+        k = _rope(k, offset=offset)
+        if fs is not None:
+            k = pmesh.gather_kv(k, fs, dim=-2)
+            v = pmesh.gather_kv(v, fs, dim=-2)
         sim = q @ k.transpose(-1, -2)
         if pos_bias is not None:
             sim = sim + pos_bias  # (H, F, F) broadcast over (B, HW)
@@ -287,9 +320,15 @@ class FusedConv3x3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim_out))
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, halo: bool = False):
+        """`halo`: x carries one frame of padding on either side (a halo
+        exchange): K2 runs on all of them and the two edge outputs, whose
+        frame padding was K2's own zeros, are dropped."""
         dt = self.compute_dtype or x.dtype
-        return conv3d_fused_fn(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = conv3d_fused_fn(x.to(dt), self.weight.to(dt))
+        if halo:
+            y = y[:, 1:-1]
+        return y + self.bias.to(dt)
 
 
 class Block3D(nn.Module):
@@ -302,8 +341,11 @@ class Block3D(nn.Module):
             self.conv = Conv3dCL(dim_in, dim_out, kernel_size=3, padding=1, dtype=dtype)
         self.norm = GroupNormCL(groups, dim_out, dtype=dtype)
 
-    def forward(self, x, scale_shift=None):
-        x = self.norm(self.conv(x))
+    def forward(self, x, scale_shift=None, fs: Optional[pmesh.FrameShard] = None):
+        if fs is None:
+            x = self.norm(self.conv(x))
+        else:  # this rank's frames: a halo of one frame for the 3x3x3 conv
+            x = self.norm(self.conv(pmesh.halo_exchange(x, 1, fs), halo=True), fs)
         if scale_shift is not None:
             scale, shift = scale_shift
             x = x * (scale + 1) + shift
@@ -323,14 +365,14 @@ class ResnetBlock3D(nn.Module):
         self.res_conv = (Conv3dCL(dim_in, dim_out, kernel_size=1, dtype=dtype)
                          if dim_in != dim_out else None)
 
-    def forward(self, x, time_emb=None):
+    def forward(self, x, time_emb=None, fs: Optional[pmesh.FrameShard] = None):
         scale_shift = None
         if self.mlp is not None and time_emb is not None:
             h_t = self.mlp(F.silu(time_emb))
             h_t = h_t.reshape(h_t.shape[0], 1, 1, 1, h_t.shape[-1])
             scale_shift = h_t.chunk(2, dim=-1)
-        h = self.block1(x, scale_shift)
-        h = self.block2(h)
+        h = self.block1(x, scale_shift, fs=fs)
+        h = self.block2(h, fs=fs)
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x
@@ -426,13 +468,20 @@ class UNet3D(nn.Module):
         self.final_conv = Conv3dCL(dim, channels, kernel_size=1, dtype=dt)
 
     def forward(self, x, t):
+        """x: the whole (B, F, H, W, C) input on every rank. Under a mesh
+        whose frame axis divides F (`parallel.mesh.frame_shard`), each rank
+        computes its F/sp frames of every activation and the output is
+        gathered along frames, so every rank returns the whole output."""
         dt = self.compute_dtype
         x = x.to(dt)
         f = x.shape[1]
+        fs = pmesh.frame_shard(f)
         buckets = torch.as_tensor(_rel_pos_buckets(f, num_buckets=32, max_distance=32),
                                   device=x.device)
         pos_bias = self.time_rel_pos_bias(buckets).permute(2, 0, 1).to(dt)  # (H, F, F)
         time_emb = self.time_mlp(t).to(dt)
+        if fs is not None:
+            pos_bias = pos_bias[:, fs.lo : fs.lo + fs.length]  # this rank's query rows
 
         if self.use_remat and torch.is_grad_enabled():
             # each residual / pre-norm block keeps its inputs ("full") and
@@ -448,32 +497,38 @@ class UNet3D(nn.Module):
             def run(block, *args, **kw):
                 return block(*args, **kw)
 
-        x = self.init_conv(x)
-        x = run(self.init_temporal_attn, x, pos_bias=pos_bias)
+        if fs is None:
+            x = self.init_conv(x)
+        else:  # the 7x7x7 conv's window of the whole input: 3 frames each side
+            pad = self.init_conv.padding[0]
+            x = F.pad(x, (0, 0, 0, 0, 0, 0, pad, pad)).narrow(1, fs.lo, fs.length + 2 * pad)
+            x = self.init_conv(x, halo=True)
+        x = run(self.init_temporal_attn, x, pos_bias=pos_bias, fs=fs)
         r = x
 
         h = []
         for res1, res2, spatial_attn, temporal_attn, downsample in self.downs:
-            x = run(res1, x, time_emb)
-            x = run(res2, x, time_emb)
+            x = run(res1, x, time_emb, fs=fs)
+            x = run(res2, x, time_emb, fs=fs)
             x = run(spatial_attn, x)
-            x = run(temporal_attn, x, pos_bias=pos_bias)
+            x = run(temporal_attn, x, pos_bias=pos_bias, fs=fs)
             h.append(x)
             x = downsample(x)
 
-        x = run(self.mid_block1, x, time_emb)
+        x = run(self.mid_block1, x, time_emb, fs=fs)
         x = run(self.mid_spatial_attn, x)
-        x = run(self.mid_temporal_attn, x, pos_bias=pos_bias)
-        x = run(self.mid_block2, x, time_emb)
+        x = run(self.mid_temporal_attn, x, pos_bias=pos_bias, fs=fs)
+        x = run(self.mid_block2, x, time_emb, fs=fs)
 
         for res1, res2, spatial_attn, temporal_attn, upsample in self.ups:
             x = torch.cat([x, h.pop()], dim=-1)
-            x = run(res1, x, time_emb)
-            x = run(res2, x, time_emb)
+            x = run(res1, x, time_emb, fs=fs)
+            x = run(res2, x, time_emb, fs=fs)
             x = run(spatial_attn, x)
-            x = run(temporal_attn, x, pos_bias=pos_bias)
+            x = run(temporal_attn, x, pos_bias=pos_bias, fs=fs)
             x = upsample(x)
 
         x = torch.cat([x, r], dim=-1)
-        x = run(self.final_block, x)
-        return self.final_conv(x).to(torch.float32)
+        x = run(self.final_block, x, fs=fs)
+        x = self.final_conv(x).to(torch.float32)
+        return x if fs is None else pmesh.gather_frames(x, fs)

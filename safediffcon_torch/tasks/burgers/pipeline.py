@@ -27,6 +27,13 @@ the JAX key chain: each training step's (t, noise) and each sampler call's
 (`core.sampling`): DDIM's stochastic steps, the ancestral steps' draws, or
 nothing for DPM (its noise-matched impositions with
 `dpm_noise_matched_cond`).
+
+Under an active mesh (`parallel/mesh.py`) every batch of calibrate,
+evaluate and the training steps is split over the data ranks: each takes
+its rows of the global batch and of the global random draws, scores,
+weights, samples and rollouts are gathered (Q-hat and the metrics are
+computed whole on every rank), and gradients are averaged before each
+optimizer step. `reweights` stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_lo
 from safediffcon_torch.core.sampling import (
     compose_two_model_apply,
     dpm_solver_sample,
+    draws_kw,
     get_sampler,
     sample,
 )
@@ -61,6 +69,7 @@ from safediffcon_torch.core.train import (
 )
 from safediffcon_torch.models.layers import Conv2dCL, Linear, lecun_normal_
 from safediffcon_torch.models.unet2d import UNet2D
+from safediffcon_torch.parallel import mesh as pmesh
 from safediffcon_torch.tasks.burgers.config import (
     BurgersConformalConfig,
     BurgersInfFTConfig,
@@ -202,12 +211,6 @@ class BurgersPipeline:
             torch.cuda.synchronize(self.device)
         self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) + time.perf_counter() - t0
 
-    def _sampler_kw(self, noise: Optional[Iterator], generator) -> dict:
-        if noise is None:
-            return dict(generator=generator)
-        init_noise, step_noise = next(noise)
-        return dict(init_noise=init_noise, step_noise=step_noise)
-
     def _generator(self, generator):
         return generator or torch.Generator(device=self.device).manual_seed(0)
 
@@ -247,11 +250,13 @@ class BurgersPipeline:
                 base = i * bs + lo
                 if base >= n:  # cal set smaller than the configured batches
                     break
-                state = torch.as_tensor(cal_data[base : min(base + chunk, n)],
+                sh = pmesh.batch_shard(min(base + chunk, n) - base)
+                state = torch.as_tensor(sh.take(cal_data[base : min(base + chunk, n)]),
                                         device=self.device)
-                s, w = self._cal_batch(params, state, Q, **self._sampler_kw(noise, generator))
-                scores.append(s)
-                weights.append(w)
+                s, w = self._cal_batch(params, state, Q,
+                                       **draws_kw(noise, generator, sh))
+                scores.append(sh.gather(s))
+                weights.append(sh.gather(w))
         weights = normalize_weights(torch.cat(weights))
         return weighted_quantile(weights * torch.cat(scores), self.ccfg.alpha)
 
@@ -280,23 +285,30 @@ class BurgersPipeline:
 
     @torch.no_grad()
     def _evaluate(self, params: Params, state, u_target, Q, guided=True,
+                  sh: Optional[pmesh.BatchShard] = None,
                   **sampler_kw) -> Dict[str, torch.Tensor]:
         """Sample -> solver rollout -> metrics (reference:
-        1D/posttrain/post_train.py:313-351)."""
+        1D/posttrain/post_train.py:313-351). Under a data-parallel shard
+        `sh`, `state` is this rank's rows: the samples and their rollouts
+        are gathered, and the metrics of the whole batch computed on every
+        rank."""
         with self._phase("sampling"):
             pred = self._sample_test(params, state, Q, guided=guided, **sampler_kw)
         with self._phase("rollout"):
             controlled = control_trajectories(pred, NT)
+        if sh is not None:
+            pred, controlled = sh.gather(pred), sh.gather(controlled)
         return evaluate_samples(pred, controlled, u_target, self.task_cfg.u_bound)
 
     def evaluate(self, params: Params, test: BurgersDataset, Q,
                  generator: Optional[torch.Generator] = None, guided: bool = True,
                  noise: Optional[Iterator[Noise]] = None) -> Dict[str, float]:
         """Metrics of guided sampling over the whole test split, one batch."""
-        state = torch.as_tensor(test.data, device=self.device)
+        sh = pmesh.batch_shard(len(test.data))
+        state = torch.as_tensor(sh.take(test.data), device=self.device)
         u_target = torch.as_tensor(test.u_phys, device=self.device)
-        metrics = self._evaluate(params, state, u_target, Q, guided=guided,
-                                 **self._sampler_kw(noise, self._generator(generator)))
+        metrics = self._evaluate(params, state, u_target, Q, guided=guided, sh=sh,
+                                 **draws_kw(noise, self._generator(generator), sh))
         return {k: float(v) for k, v in metrics.items()}
 
 
@@ -368,17 +380,19 @@ def pretrain(
             log.info("resumed from %s step %d", resume_dir, start_step)
 
     accum = max(cfg.gradient_accumulate_every, 1)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    sh = pmesh.batch_shard(cfg.batch_size)  # each micro-batch split over the data ranks
+    generator = sh.generator(torch.Generator(device=device).manual_seed(cfg.seed))
     params_list = list(model.parameters())
 
     def loss_fn(i, batch):
-        t, n = next(noise) if noise is not None else draw_t_noise(dcfg, batch, generator)
+        t, n = sh.draws(next(noise)) if noise is not None else draw_t_noise(dcfg, batch,
+                                                                             generator)
         return p_losses(apply_fn, sched, dcfg, batch, t, n, cond).mean()
 
     def step_fn(state, batch):
         # batch: (accum * batch_size, ...) -> (accum, batch_size, ...)
         batches = batch.reshape(accum, -1, *batch.shape[1:])
-        loss, grads = accumulated_grads(loss_fn, params_list, batches)
+        loss, grads = sh.reduce(*accumulated_grads(loss_fn, params_list, batches))
         state.apply_gradients(grads)
         return loss
 
@@ -387,7 +401,7 @@ def pretrain(
         batch_take=cfg.batch_size * accum, num_steps=num_steps, start_step=start_step,
         seed=cfg.seed, steps_per_call=steps_per_call, log_every=log_every,
         checkpoint_every=cfg.checkpoint_every, checkpoint_dir=checkpoint_dir, logger=log,
-        log_prefix="burgers pretrain", deadline=deadline, losses=losses,
+        log_prefix="burgers pretrain", deadline=deadline, losses=losses, shard=sh,
     )
 
 
@@ -412,13 +426,19 @@ def weighted_step(pipeline: BurgersPipeline, state: TrainState, batch: torch.Ten
                   w: torch.Tensor, generator=None, noise: Optional[TrainNoise] = None):
     """One post-training step: the denoising loss at full T, weighted per
     sample by `w` (reference: 1D/posttrain/post_train.py:206-210); noise =
-    the batch's (t, noise), else drawn from `generator`. Returns the loss."""
+    the batch's (t, noise), else drawn from `generator`. Returns the loss.
+    Under a data mesh each rank takes its rows of the batch and the draws,
+    and the gradients are averaged over the ranks."""
     dcfg = DiffusionConfig(timesteps=pipeline.ccfg.timesteps, beta_schedule="cosine")
-    t, n = noise if noise is not None else draw_t_noise(dcfg, batch, generator)
+    sh = pmesh.batch_shard(batch.shape[0])
+    batch, w = sh.take(batch), sh.take(w)
+    t, n = (sh.draws(noise) if noise is not None
+            else draw_t_noise(dcfg, batch, sh.generator(generator)))
     per = p_losses(state.model, pipeline.sched, dcfg, batch, t, n, train_conditioner())
     loss = (w * per).mean()
-    state.apply_gradients(torch.autograd.grad(loss, list(state.model.parameters())))
-    return loss.detach()
+    loss, grads = sh.reduce(loss, torch.autograd.grad(loss, list(state.model.parameters())))
+    state.apply_gradients(grads)
+    return loss
 
 
 def infft_step(pipeline: BurgersPipeline, state: TrainState, test_batch: torch.Tensor, Q,
@@ -427,16 +447,19 @@ def infft_step(pipeline: BurgersPipeline, state: TrainState, test_batch: torch.T
     denoise step only, then the safety objective backpropagated into the
     weights (reference: 1D/inference/inference_ft.py:193-201,316-347); noise
     = the sampler call's (init_noise, step_noise), else drawn from
-    `generator`. Returns the loss."""
-    kw = (dict(generator=generator) if noise is None
-          else dict(init_noise=noise[0], step_noise=noise[1]))
+    `generator`. Returns the loss. Under a data mesh each rank samples its
+    rows of the batch and the gradients are averaged over the ranks."""
+    sh = pmesh.batch_shard(test_batch.shape[0])
+    test_batch = sh.take(test_batch)
+    kw = draws_kw(None if noise is None else iter([noise]), generator, sh)
     cond = BurgersConditioner(u0=test_batch[:, 0, :, 0], uT=test_batch[:, COND_IDX, :, 0])
     out = pipeline._sampler(state.model, pipeline.sched, pipeline.diff_cfg, test_batch.shape,
                             cond=cond, guidance_grad=guidance_grad_fn(Q, pipeline.task_cfg),
                             j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
     loss = infft_loss(out * SCALER, Q, pipeline.task_cfg)
-    state.apply_gradients(torch.autograd.grad(loss, list(state.model.parameters())))
-    return loss.detach()
+    loss, grads = sh.reduce(loss, torch.autograd.grad(loss, list(state.model.parameters())))
+    state.apply_gradients(grads)
+    return loss
 
 
 def _restore_phase(state_dir: Optional[str], state: TrainState, cfg, device):

@@ -7,6 +7,13 @@ Port of `safediffcon_tpu/tasks/smoke/pipeline.py` (reference:
 `multistep_lr`, `pretrain`, `make_finetune_steps`, `run_inference` and
 `run_inference_resilient` (CUDA fault handling, `utils/faults.py`).
 
+Under an active mesh (`parallel/mesh.py`) every batch of calibrate,
+evaluate and the training steps is split over the data ranks (each takes
+its rows of the global batch and of the global random draws) and the
+UNet3D splits its frames over the frame ranks; scores and weights are
+gathered, so Q-hat is computed whole on every rank, and gradients are
+reduced before each optimizer step.
+
 The model's weights live in a torch module (load flax weights with
 `models.convert.load_flax_params`, or seed them with `init_params`); training
 updates them in place. The sampler of calibration, test sampling and InfFT
@@ -31,7 +38,7 @@ from torch import nn
 
 from safediffcon_torch.core.conformal import normalize_weights, weighted_quantile
 from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
-from safediffcon_torch.core.sampling import get_sampler
+from safediffcon_torch.core.sampling import draws_kw, get_sampler
 from safediffcon_torch.core.schedules import make_schedule
 from safediffcon_torch.core.train import (
     TrainState,
@@ -41,6 +48,7 @@ from safediffcon_torch.core.train import (
 )
 from safediffcon_torch.models.layers import lecun_normal_
 from safediffcon_torch.models.unet3d import ConvTransposeCL, FusedConv3x3x3, UNet3D
+from safediffcon_torch.parallel import mesh as pmesh
 from safediffcon_torch.solvers import smoke as S
 from safediffcon_torch.tasks.smoke.config import (
     SmokeConformalConfig,
@@ -175,12 +183,6 @@ class SmokePipeline:
             torch.cuda.synchronize(self.device)
         self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) + time.perf_counter() - t0
 
-    def _sampler_kw(self, noise: Optional[Iterator[Noise]], generator) -> dict:
-        if noise is None:
-            return dict(generator=generator)
-        init_noise, step_noise = next(noise)
-        return dict(init_noise=init_noise, step_noise=step_noise)
-
     @torch.no_grad()
     def _cal_batch(self, state, Q, **sampler_kw):
         """Calibration: sample conditioned on (init density, control); score
@@ -236,10 +238,11 @@ class SmokePipeline:
                 if base >= n:  # cal set smaller than the configured batches
                     break
                 sl = slice(base, min(base + chunk, n))
-                state = torch.as_tensor(cal.data[sl], device=self.device)
-                s, w = self._cal_batch(state, Q, **self._sampler_kw(noise, generator))
-                scores.append(s)
-                weights.append(w)
+                sh = pmesh.batch_shard(sl.stop - sl.start)
+                state = torch.as_tensor(sh.take(cal.data[sl]), device=self.device)
+                s, w = self._cal_batch(state, Q, **draws_kw(noise, generator, sh))
+                scores.append(sh.gather(s))
+                weights.append(sh.gather(w))
         scores = torch.cat(scores)
         weights = normalize_weights(torch.cat(weights))
         return weighted_quantile(weights * scores, self.ccfg.alpha, "one_minus_alpha")
@@ -270,18 +273,24 @@ class SmokePipeline:
                  noise: Optional[Iterator[Noise]] = None) -> Dict[str, float]:
         """Metrics over the test split, chunked by `eval_chunk`; every metric
         is a per-sample mean, so the length-weighted mean over chunks equals
-        the whole-batch value."""
+        the whole-batch value. Under a data mesh each rank samples and rolls
+        out its rows of a chunk and the sums are all-reduced; K1 solves each
+        group of 8 samples as one system, so a rank's rollout agrees with one
+        process's within the solver's stopping test, not to the bit."""
         generator = generator or torch.Generator(device=self.device).manual_seed(0)
         guided = self.ccfg.use_guidance if guided is None else guided
         n = len(test.raw)
         chunk = min(self.eval_chunk or n, n)
         totals: Dict[str, float] = {}
         for lo in range(0, n, chunk):
-            raw = torch.as_tensor(np.asarray(test.raw[lo : lo + chunk]), device=self.device)
-            m = self._evaluate(raw, Q, guided=guided, **self._sampler_kw(noise, generator))
-            k = raw.shape[0]
-            for name, v in m.items():
-                totals[name] = totals.get(name, 0.0) + float(v) * k
+            raw = np.asarray(test.raw[lo : lo + chunk])
+            sh = pmesh.batch_shard(raw.shape[0])
+            raw = torch.as_tensor(sh.take(raw), device=self.device)
+            m = self._evaluate(raw, Q, guided=guided, **draws_kw(noise, generator, sh))
+            # per-sample means over this rank's rows, summed over the ranks
+            sums = sh.sum(torch.stack([v.double() for v in m.values()]) * raw.shape[0])
+            for name, v in zip(m, sums.tolist()):
+                totals[name] = totals.get(name, 0.0) + v
         return {name: v / n for name, v in totals.items()}
 
 
@@ -353,17 +362,21 @@ def pretrain(
             log.info("resumed from %s step %d", resume_dir, start_step)
 
     accum = max(cfg.gradient_accumulate_every, 1)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    # each micro-batch split over the data ranks, and over the frame ranks
+    # inside the UNet3D
+    sh = pmesh.batch_shard(cfg.batch_size, frames=train_data.data.shape[1])
+    generator = sh.generator(torch.Generator(device=device).manual_seed(cfg.seed))
     params_list = list(model.parameters())
 
     def loss_fn(i, batch):
-        t, n = next(noise) if noise is not None else draw_t_noise(dcfg, batch, generator)
+        t, n = sh.draws(next(noise)) if noise is not None else draw_t_noise(dcfg, batch,
+                                                                             generator)
         return p_losses(model, sched, dcfg, batch, t, n, cond).mean()
 
     def step_fn(state, batch):
         # batch: (accum * batch_size, ...) -> (accum, batch_size, ...)
         batches = batch.reshape(accum, -1, *batch.shape[1:])
-        loss, grads = accumulated_grads(loss_fn, params_list, batches)
+        loss, grads = sh.reduce(*accumulated_grads(loss_fn, params_list, batches))
         state.apply_gradients(grads)
         return loss
 
@@ -373,7 +386,7 @@ def pretrain(
         seed=cfg.seed, steps_per_call=steps_per_call, log_every=log_every,
         checkpoint_every=cfg.checkpoint_every, checkpoint_dir=checkpoint_dir, logger=log,
         log_prefix="smoke pretrain", device_pool=device_pool,
-        pool_refresh_every=pool_refresh_every, deadline=deadline, losses=losses,
+        pool_refresh_every=pool_refresh_every, deadline=deadline, losses=losses, shard=sh,
     )
 
 
@@ -406,30 +419,36 @@ def make_finetune_steps(cfg: SmokeInferenceConfig, pipeline: SmokePipeline):
     params = list(pipeline.model.parameters())
 
     def weighted_step(opt_state, batch, w, generator=None, noise=None):
-        t, n = noise if noise is not None else draw_t_noise(dcfg_train, batch, generator)
+        sh = pmesh.batch_shard(batch.shape[0], frames=batch.shape[1])
+        batch, w = sh.take(batch), sh.take(w)
+        t, n = (sh.draws(noise) if noise is not None
+                else draw_t_noise(dcfg_train, batch, sh.generator(generator)))
         per = p_losses(pipeline.apply_fn, sched, dcfg_train, batch, t, n, cond_train)
         loss = (w * per).mean()
-        tx.step(params, torch.autograd.grad(loss, params), opt_state)
-        return loss.detach()
+        loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
+        tx.step(params, grads, opt_state)
+        return loss
 
     def backward_step(opt_state, test_batch, Q, generator=None, noise=None):
+        sh = pmesh.batch_shard(test_batch.shape[0], frames=test_batch.shape[1])
+        test_batch = sh.take(test_batch)
         draws = iter(noise) if noise is not None else None
-        kw = pipeline._sampler_kw
         init = test_batch[:, 0, :, :, 0]
         g = guidance_grad_fn(Q, tc) if ccfg.use_guidance else None
         sampler = pipeline.sampler_fn
         with torch.no_grad():
             first = sampler(pipeline.apply_fn, sched, pipeline.diff_cfg, test_batch.shape,
                             cond=SmokeConditioner(init=init), guidance_grad=g,
-                            **kw(draws, generator))
+                            **draws_kw(draws, generator, sh))
         control = first[..., CX : CY + 1]
         out = sampler(pipeline.apply_fn, sched, pipeline.diff_cfg, test_batch.shape,
                       cond=SmokeConditioner(init=init, control=control),
-                      final_step_grad=True, **kw(draws, generator))
+                      final_step_grad=True, **draws_kw(draws, generator, sh))
         out = torch.cat([out[..., :CX], control, out[..., CY + 1 :]], dim=-1)
         loss = backward_loss(out * rescaler(out), Q, tc)
-        tx.step(params, torch.autograd.grad(loss, params), opt_state)
-        return loss.detach()
+        loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
+        tx.step(params, grads, opt_state)
+        return loss
 
     return tx, weighted_step, backward_step
 

@@ -29,6 +29,13 @@ each training step's (t, noise) and each sampler call's (init_noise,
 step_noise), where step_noise is the noise of DDIM's stochastic steps and
 is empty for DPM. Calibration, test sampling and InfFT take the config's
 `sampler`: "ddim" or "dpm" (DPM-Solver++(2M)).
+
+Under an active mesh (`parallel/mesh.py`) every batch of calibrate,
+evaluate and the training steps is split over the data ranks: each takes
+its rows of the global batch and of the global random draws, scores,
+weights, samples and rollouts are gathered (Q-hat and the metrics are
+computed whole on every rank), and gradients are averaged before each
+optimizer step. `reweights` stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ from torch.func import functional_call
 
 from safediffcon_torch.core.conformal import normalize_weights, weighted_quantile
 from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
-from safediffcon_torch.core.sampling import get_sampler
+from safediffcon_torch.core.sampling import draws_kw, get_sampler
 from safediffcon_torch.core.schedules import get_J_scheduler, make_schedule
 from safediffcon_torch.core.train import (
     TrainState,
@@ -55,6 +62,7 @@ from safediffcon_torch.core.train import (
 )
 from safediffcon_torch.models.layers import Conv1dCL, Linear, lecun_normal_
 from safediffcon_torch.models.unet1d import UNet1D
+from safediffcon_torch.parallel import mesh as pmesh
 from safediffcon_torch.solvers.kstar import load_kstar_params
 from safediffcon_torch.tasks.tokamak.config import (
     TokamakConformalConfig,
@@ -166,12 +174,6 @@ class TokamakPipeline:
             torch.cuda.synchronize(self.device)
         self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) + time.perf_counter() - t0
 
-    def _sampler_kw(self, noise: Optional[Iterator[Noise]], generator) -> dict:
-        if noise is None:
-            return dict(generator=generator)
-        init_noise, step_noise = next(noise)
-        return dict(init_noise=init_noise, step_noise=step_noise)
-
     def _generator(self, generator):
         return generator or torch.Generator(device=self.device).manual_seed(0)
 
@@ -222,11 +224,12 @@ class TokamakPipeline:
                 if base >= n:  # cal set smaller than the configured batches
                     break
                 sl = slice(base, min(base + chunk, n))
-                s, w = self._cal_batch(params, self._tensor(cal.data[sl]),
-                                       self._tensor(cal.state_phys[sl]), Q,
-                                       **self._sampler_kw(noise, generator))
-                scores.append(s)
-                weights.append(w)
+                sh = pmesh.batch_shard(sl.stop - sl.start)
+                s, w = self._cal_batch(params, self._tensor(sh.take(cal.data[sl])),
+                                       self._tensor(sh.take(cal.state_phys[sl])), Q,
+                                       **draws_kw(noise, generator, sh))
+                scores.append(sh.gather(s))
+                weights.append(sh.gather(w))
         weights = normalize_weights(torch.cat(weights))
         return weighted_quantile(weights * torch.cat(scores), self.ccfg.alpha)
 
@@ -256,14 +259,21 @@ class TokamakPipeline:
 
     @torch.no_grad()
     def _evaluate(self, params: Params, state, state_target, Q, guided=False,
+                  sh: Optional[pmesh.BatchShard] = None,
                   **sampler_kw) -> Dict[str, torch.Tensor]:
         """Sample -> surrogate rollout -> metrics (reference:
-        tokamak/inference/pipeline.py:325-359)."""
+        tokamak/inference/pipeline.py:325-359). Under a data-parallel shard
+        `sh`, `state` and `state_target` are this rank's rows: the samples
+        and their rollouts are gathered, and the metrics of the whole batch
+        computed on every rank."""
         with self._phase("sampling"):
             pred = self._sample_test(params, state, state_target, Q, guided=guided,
                                      **sampler_kw)
         with self._phase("rollout"):
             controlled = control_trajectories(self.solver_params, pred)
+        if sh is not None:
+            pred, controlled = sh.gather(pred), sh.gather(controlled)
+            state_target = sh.gather(state_target)
         return evaluate_samples(pred, controlled, state_target, self.task_cfg.safety_threshold)
 
     def evaluate(self, params: Params, test: TokamakDataset, Q,
@@ -272,9 +282,10 @@ class TokamakPipeline:
         """Metrics of (by default unguided: `use_guidance`) sampling over the
         whole test split, one batch."""
         guided = self.ccfg.use_guidance if guided is None else guided
-        metrics = self._evaluate(params, self._tensor(test.data), self._tensor(test.state_phys),
-                                 Q, guided=guided,
-                                 **self._sampler_kw(noise, self._generator(generator)))
+        sh = pmesh.batch_shard(len(test.data))
+        metrics = self._evaluate(params, self._tensor(sh.take(test.data)),
+                                 self._tensor(sh.take(test.state_phys)), Q, guided=guided, sh=sh,
+                                 **draws_kw(noise, self._generator(generator), sh))
         return {k: float(v) for k, v in metrics.items()}
 
 
@@ -332,17 +343,19 @@ def pretrain(
             log.info("resumed from %s step %d", resume_dir, start_step)
 
     accum = max(cfg.gradient_accumulate_every, 1)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    sh = pmesh.batch_shard(cfg.batch_size)  # each micro-batch split over the data ranks
+    generator = sh.generator(torch.Generator(device=device).manual_seed(cfg.seed))
     params_list = list(model.parameters())
 
     def loss_fn(i, batch):
-        t, n = next(noise) if noise is not None else draw_t_noise(dcfg, batch, generator)
+        t, n = sh.draws(next(noise)) if noise is not None else draw_t_noise(dcfg, batch,
+                                                                             generator)
         return p_losses(model, sched, dcfg, batch, t, n, cond).mean()
 
     def step_fn(state, batch):
         # batch: (accum * batch_size, ...) -> (accum, batch_size, ...)
         batches = batch.reshape(accum, -1, *batch.shape[1:])
-        loss, grads = accumulated_grads(loss_fn, params_list, batches)
+        loss, grads = sh.reduce(*accumulated_grads(loss_fn, params_list, batches))
         state.apply_gradients(grads)
         return loss
 
@@ -351,7 +364,7 @@ def pretrain(
         batch_take=cfg.batch_size * accum, num_steps=num_steps, start_step=start_step,
         seed=cfg.seed, steps_per_call=steps_per_call, log_every=log_every,
         checkpoint_every=cfg.checkpoint_every, checkpoint_dir=checkpoint_dir, logger=log,
-        log_prefix="tokamak pretrain", deadline=deadline, losses=losses,
+        log_prefix="tokamak pretrain", deadline=deadline, losses=losses, shard=sh,
     )
 
 
@@ -386,22 +399,28 @@ def make_finetune_steps(cfg: TokamakInferenceConfig, pipeline: TokamakPipeline):
     params = list(model.parameters())
 
     def weighted_step(opt_state, batch, w, generator=None, noise=None):
-        t, n = noise if noise is not None else draw_t_noise(dcfg_train, batch, generator)
+        sh = pmesh.batch_shard(batch.shape[0])
+        batch, w = sh.take(batch), sh.take(w)
+        t, n = (sh.draws(noise) if noise is not None
+                else draw_t_noise(dcfg_train, batch, sh.generator(generator)))
         per = p_losses(model, sched, dcfg_train, batch, t, n, cond_train)
         loss = cfg.loss_weight_train * (w * per).mean()
-        tx.step(params, torch.autograd.grad(loss, params), opt_state)
-        return loss.detach()
+        loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
+        tx.step(params, grads, opt_state)
+        return loss
 
     def backward_step(opt_state, test_batch, state_target, Q, generator=None, noise=None):
-        kw = (dict(generator=generator) if noise is None
-              else dict(init_noise=noise[0], step_noise=noise[1]))
+        sh = pmesh.batch_shard(test_batch.shape[0])
+        test_batch, state_target = sh.take(test_batch), sh.take(state_target)
+        kw = draws_kw(None if noise is None else iter([noise]), generator, sh)
         g = guidance_grad_fn(state_target, Q, tc) if ccfg.use_guidance else None
         out = pipeline.sampler_fn(model, sched, pipeline.diff_cfg, test_batch.shape,
                                   cond=sampling_conditioner(test_batch), guidance_grad=g,
                                   j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
         loss = backward_loss(out * scaler(out), state_target, Q, tc)
-        tx.step(params, torch.autograd.grad(loss, params), opt_state)
-        return loss.detach()
+        loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
+        tx.step(params, grads, opt_state)
+        return loss
 
     return tx, weighted_step, backward_step
 

@@ -14,6 +14,10 @@ weight bridge `models/convert.py` carries weights across).
                    "opt_state" an `AdamState.state_dict()`.
   history.json     save_phase_history: the epoch records and a config
                    fingerprint.
+
+Under a process group only rank 0 writes, and every rank waits at a barrier
+after each write, so a rank that reads next finds the file; every rank
+reads.
 """
 from __future__ import annotations
 
@@ -24,16 +28,21 @@ from typing import Any, Optional
 
 import torch
 
+from safediffcon_torch.parallel import mesh as pmesh
+
 
 def _ckpt_path(directory: str, step: int) -> str:
     return os.path.join(os.path.abspath(directory), f"ckpt-{step}.pt")
 
 
-def _save(path: str, payload: dict) -> str:
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+def _save(path: str, payload) -> str:
+    """Write `payload()` to `path` atomically, on rank 0 only."""
+    if pmesh.is_writer():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload(), tmp)
+        os.replace(tmp, path)
+    pmesh.barrier()
     return path
 
 
@@ -55,9 +64,12 @@ def _cpu(tree):
 def save_checkpoint(directory: str, state, step: int, Q: Optional[Any] = None) -> str:
     """Save a `core.train.TrainState` (+ optional conformal quantile) at a
     milestone."""
-    payload = _cpu(state.state_dict())
-    if Q is not None:
-        payload["Q"] = float(Q)
+    def payload():
+        out = _cpu(state.state_dict())
+        if Q is not None:
+            out["Q"] = float(Q)
+        return out
+
     return _save(_ckpt_path(directory, step), payload)
 
 
@@ -98,9 +110,9 @@ def save_phase_state(directory: str, params, opt_state, Q, epoch: int) -> str:
     """Persist a fine-tuning epoch's state (weights, optimizer moments,
     Q-hat) so a posttrain/InfFT run resumes after a crash mid-phase.
     `params` is a state_dict, `opt_state` an `AdamState`."""
-    payload = {"params": _cpu(dict(params)), "opt_state": _cpu(opt_state.state_dict()),
-               "Q": float(Q), "epoch": int(epoch)}
-    return _save(_ckpt_path(directory, epoch), payload)
+    return _save(_ckpt_path(directory, epoch), lambda: {
+        "params": _cpu(dict(params)), "opt_state": _cpu(opt_state.state_dict()),
+        "Q": float(Q), "epoch": int(epoch)})
 
 
 def load_phase_state(directory: str, epoch: Optional[int] = None):
@@ -118,15 +130,17 @@ def save_phase_history(directory: str, history, config_repr: Optional[str] = Non
     """Atomically persist the epoch-metrics history (and a config
     fingerprint) beside the phase state, so a resumed run returns the full
     metrics list and a config mismatch is detectable."""
-    os.makedirs(directory, exist_ok=True)
-    payload = {"history": history}
-    if config_repr is not None:
-        payload["config"] = config_repr
     path = os.path.join(directory, "history.json")
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(payload, f, default=float)
-    os.replace(tmp, path)
+    if pmesh.is_writer():
+        os.makedirs(directory, exist_ok=True)
+        payload = {"history": history}
+        if config_repr is not None:
+            payload["config"] = config_repr
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f, default=float)
+        os.replace(tmp, path)
+    pmesh.barrier()
     return path
 
 
@@ -155,5 +169,5 @@ def load_phase_history(directory: str, max_epoch: Optional[int] = None,
 def save_finetuned(directory: str, params, Q, step: int = 0) -> str:
     """Save a fine-tuned model (state_dict + conformal quantile), the
     SafeDiffCon checkpoint convention (reference: 2d/inference_2d.py:381-382)."""
-    payload = {"params": _cpu(dict(params)), "Q": float(Q), "step": int(step)}
-    return _save(_ckpt_path(directory, step), payload)
+    return _save(_ckpt_path(directory, step), lambda: {
+        "params": _cpu(dict(params)), "Q": float(Q), "step": int(step)})

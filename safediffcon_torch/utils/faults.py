@@ -23,6 +23,12 @@ can be retried inside the process:
 Out-of-memory is not a device fault, as in JAX: it propagates at once, like
 every program error. Nothing falls back to the CPU.
 
+Under a process group of more than one rank no fault is retried: the
+faulting rank re-raises at once and exits non-zero, and its launcher
+(torchrun, or the command line's own spawner) then stops every other rank,
+which would otherwise wait for it in a collective. `--resume` restarts them
+all from the last saved state.
+
 `fault_kind` recognises torch's CUDA runtime errors: `torch.AcceleratorError`
 where torch raises it (2.11 on), a RuntimeError whose message starts
 "CUDA error: " (older torch), and the kernel wrappers' "CUDA error <code>"
@@ -36,6 +42,8 @@ import time
 from typing import Callable, Optional, TypeVar
 
 import torch
+
+from safediffcon_torch.parallel import mesh as pmesh
 
 log = logging.getLogger(__name__)
 
@@ -124,7 +132,8 @@ def retry_on_device_fault(
     """Run `fn()`; re-call it after a recoverable device fault, at most
     `retries` times, and re-raise the last one after that. A sticky fault is
     re-raised at once, with a log line that says where a new process resumes;
-    any other exception propagates at once."""
+    any other exception propagates at once. Under a process group of more
+    than one rank every device fault is re-raised at once."""
     for attempt in range(retries + 1):
         try:
             return fn()
@@ -133,6 +142,12 @@ def retry_on_device_fault(
             if kind is None:
                 raise
             first = str(e).splitlines()[0][:200]
+            if pmesh.world_size() > 1:
+                log.error("%s: %s CUDA fault on rank %d of %d (%s); no rank retries alone, so "
+                          "every rank stops: run the command again with --resume%s", describe,
+                          kind, pmesh.rank(), pmesh.world_size(), first,
+                          f" to continue from {state_dir}" if state_dir else "")
+                raise
             if kind == "sticky":
                 where = (f"run it again with --resume to continue from {state_dir}"
                          if state_dir else "it has no state_dir, so a new run starts at epoch 0")

@@ -163,12 +163,15 @@ def test_flags_and_defaults_equal_jax():
 
 def test_device_checks(tmp_path, monkeypatch):
     """Without a card, --device cuda exits with an error (there is no
-    fall-back to the CPU); --sp > 1 exits until parallel/mesh.py is ported."""
+    fall-back to the CPU); --sp 2 in one process exits with the JAX command
+    line's message (sequence parallelism needs sp ranks on the frame axis)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = ["--out", str(tmp_path)]
     with pytest.raises(SystemExit, match="--device cpu"):
         M.main(["burgers", "generate-data", "--n-train", "2"] + out)
-    with pytest.raises(SystemExit, match="parallel/mesh.py"):
+    with pytest.raises(SystemExit, match=re.escape(
+            "--sp 2 exceeds the 1 visible device(s); sequence parallelism needs at least "
+            "sp devices on the frame axis")):
         M.main(["burgers", "eval", "--sp", "2", "--device", "cpu"] + out)
     assert not os.path.exists(tmp_path / "burgers.npz")
     with pytest.raises(SystemExit):
@@ -292,3 +295,44 @@ def test_burgers_two_model(tmp_path, tiny_burgers):
     assert np.isfinite(half)
     assert one == pytest.approx(single, rel=1e-4)
     assert half != pytest.approx(single, rel=1e-6)
+
+
+def test_burgers_pretrain_on_two_ranks(tmp_path, tiny_burgers):
+    """`burgers pretrain` as two gloo ranks of a launch on the CPU: the
+    command line builds the data mesh over them, only rank 0 writes the
+    checkpoint and the run registry, and both ranks end with the same
+    weights, which are the checkpoint's."""
+    import torch_parallel_workers as W
+
+    out = str(tmp_path / "run")
+    c = ["--out", out, "--device", "cpu", "--dim", "8"]
+    assert M.main(["burgers", "generate-data", "--n-train", "8", "--n-cal", "4",
+                   "--n-test", "2"] + c) == 0
+    ranks = W.run_ranks(W.cli_burgers_pretrain, 2, tmp_path, out, mesh_shape=None)
+    assert [r["rc"] for r in ranks] == [0, 0]
+    assert ranks[0]["saves"] and all(name.startswith("ckpt-2.pt.") for name in
+                                     ranks[0]["saves"])
+    assert ranks[1]["saves"] == []
+    assert sorted(os.listdir(os.path.join(out, "burgers-pretrain"))) == ["ckpt-2.pt"]
+    saved = torch.load(os.path.join(out, "burgers-pretrain", "ckpt-2.pt"))
+    assert saved["step"] == 2
+    for k, v in ranks[0]["params"].items():
+        np.testing.assert_array_equal(ranks[1]["params"][k], v)
+        np.testing.assert_array_equal(saved["params"][k].numpy(), v)
+    assert list(_json(os.path.join(out, "metadata", "pretrain.json"))) == ["burgers-pretrain-0"]
+
+
+def test_spawned_workers_run_and_a_failing_rank_fails_the_command(tmp_path, monkeypatch):
+    """The spawner the command line uses with several cards and no launcher
+    (`_spawn_workers`), driven here with --device cpu: two ranks join over
+    localhost and train, rank 0 writes the checkpoint; a command every rank
+    fails on returns 1 after the ranks are stopped."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # each spawned rank: one thread
+    out = str(tmp_path)
+    c = ["--out", out, "--device", "cpu", "--dim", "8"]
+    assert M.main(["burgers", "generate-data", "--n-train", "8", "--n-cal", "4",
+                   "--n-test", "2"] + c) == 0
+    assert M._spawn_workers(["burgers", "pretrain", "--steps", "1"] + c, 2) == 0
+    assert sorted(os.listdir(tmp_path / "burgers-pretrain")) == ["ckpt-1.pt"]
+    assert M._spawn_workers(["burgers", "pretrain", "--steps", "1", "--data",
+                             str(tmp_path / "missing.npz")] + c, 2) == 1

@@ -115,6 +115,25 @@ def test_retries_exhausted_reraise_the_last_fault():
     assert torch.equal(calls[0]["w"], params["w"])
 
 
+def test_no_rank_retries_alone_under_a_process_group(caplog, monkeypatch):
+    """With more than one rank, even a recoverable fault is re-raised at
+    once: a rank that retried alone would leave the others waiting in a
+    collective, so it exits and its launcher stops them all."""
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "world_size", lambda: 2)
+    monkeypatch.setattr(pmesh, "rank", lambda: 1)
+    make = Counter(lambda: object())
+    run, calls = _raise_each_time(RuntimeError("CUDA error: CUDA-capable device(s) is/are "
+                                               "busy or unavailable"))
+    with caplog.at_level(logging.ERROR, logger=faults.__name__):
+        with pytest.raises(RuntimeError, match="busy or unavailable"):
+            faults.resilient_phase(make, run, None, retries=3, backoff_s=0.0,
+                                   describe="smoke finetune", state_dir="out/state")
+    assert make.n == len(calls) == 1
+    assert "rank 1 of 2" in caplog.text and "--resume" in caplog.text
+
+
 CONF = dict(cal_batch_size=4, num_cal_batch=1, n_cal_samples=4, n_test_samples=2,
             test_batch_size=2, ddim_sampling_steps=3, timesteps=6)
 PIPE = dict(dim=8, dim_mults=(1, 2))

@@ -1,0 +1,306 @@
+"""Multi-process helpers of the port's parallel tests (not a test module).
+
+`run_ranks(fn, world, tmp_path, *args)` starts `world` spawned processes
+that join one gloo process group (a file:// rendezvous under tmp_path, so
+concurrent test workers never share a TCP port), run `fn(*args)` on each
+rank and return every rank's result, in rank order. The functions the ranks
+run live here, so that a spawned process imports them by name; they import
+torch and the port only, never JAX.
+"""
+from __future__ import annotations
+
+import multiprocessing
+import os
+import traceback
+
+import numpy as np
+import torch
+
+TIMEOUT_S = 240
+
+
+def _entry(rank, world, init_file, fn, args, out_dir, mesh_shape):
+    import torch.distributed as dist
+
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    torch.set_num_threads(1)
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    try:
+        if mesh_shape == "env":  # torchrun's variables only: fn joins the group
+            os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
+            args = (init_file,) + tuple(args)
+        else:
+            dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                    world_size=world)
+        if mesh_shape not in (None, "env"):
+            dp, sp = mesh_shape
+            pmesh.activate_mesh(pmesh.get_mesh_2d(dp, sp) if sp > 1 else pmesh.get_mesh())
+        result = fn(*args)
+        torch.save({"ok": result}, path)
+    except BaseException:  # reported to the parent, which fails the test
+        torch.save({"error": traceback.format_exc()}, path)
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world, tmp_path, *args, mesh_shape=(None, None)):
+    """fn(*args) on `world` gloo ranks; mesh_shape (dp, sp) activates that
+    mesh first ((dp, 1): the 1-D data mesh), None activates none, and "env"
+    joins no group but sets torchrun's RANK / WORLD_SIZE and passes the
+    rendezvous file to fn first."""
+    if mesh_shape == (None, None):
+        mesh_shape = (world, 1)
+    out_dir = str(tmp_path / f"ranks-{fn.__name__}-{os.getpid()}")
+    os.makedirs(out_dir, exist_ok=True)
+    init_file = os.path.join(out_dir, "rendezvous")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(r, world, init_file, fn, args, out_dir,
+                                                mesh_shape))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(TIMEOUT_S)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    results = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"rank{r}.pt")
+        got = torch.load(path, weights_only=False) if os.path.exists(path) else {
+            "error": f"rank {r} wrote no result"}
+        if "error" in got:
+            raise AssertionError(f"rank {r} failed:\n{got['error']}")
+        results.append(got["ok"])
+    if alive:
+        raise AssertionError(f"{len(alive)} rank(s) did not finish in {TIMEOUT_S} s")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# mesh helpers
+# ---------------------------------------------------------------------------
+
+def mesh_helpers():
+    """What the mesh helpers return on this rank."""
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    x = torch.arange(8 * 4 * 3, dtype=torch.float32).reshape(8, 4, 3)
+    mesh = pmesh.active_mesh()
+    sh = pmesh.batch_shard(8, frames=4)
+    local = pmesh.maybe_shard(x)
+    video = pmesh.maybe_shard(x, video=True)
+    odd = pmesh.maybe_shard(x[:7])
+    kb = pmesh.maybe_shard(x.reshape(2, 4, 4, 3)[:, :, :3], axis=1)
+    gathered = pmesh.gather(local * 2, 8)
+    bcast = [torch.full((3,), float(pmesh.rank())), torch.full((2, 2), 10.0 + pmesh.rank())]
+    pmesh.maybe_replicate(bcast)
+    g = pmesh.randn((sh.hi - sh.lo, 5), sh.generator(torch.Generator().manual_seed(3)))
+    ti = pmesh.randint(10, (sh.hi - sh.lo,), sh.generator(torch.Generator().manual_seed(4)))
+    return dict(
+        rank=pmesh.rank(), data=pmesh.axis_size(mesh, pmesh.DATA_AXIS),
+        frames=pmesh.axis_size(mesh, pmesh.FRAME_AXIS), rows=(sh.lo, sh.hi),
+        frame_lo=None if sh.frames is None else sh.frames.lo,
+        local=local.numpy(), video=video.numpy(), odd=odd.numpy(), kb=kb.numpy(),
+        gathered=gathered.numpy(), bcast=[b.numpy() for b in bcast], randn=g.numpy(),
+        randint=ti.numpy(), route=pmesh.collective_route(None))
+
+
+def collectives(seed):
+    """The differentiable collectives against their single-process forms,
+    each with a backward, on the frame group of the active mesh."""
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(seed)
+    full = torch.as_tensor(rng.normal(size=(2, 8, 3, 2)).astype(np.float32))
+    cot = torch.as_tensor(rng.normal(size=(2, 8 + 2, 3, 2)).astype(np.float32))
+    fs = pmesh.frame_shard(8)
+    lo, fl = fs.lo, fs.length
+    x = full.narrow(1, lo, fl).clone().requires_grad_(True)
+    y = pmesh.halo_exchange(x, 1, fs)
+    # the rank's output rows of the padded whole: frames lo .. lo + fl + 1
+    y.backward(cot.narrow(1, lo, fl + 2))
+    s = pmesh.all_reduce_sum(x.square().sum(dim=(1, 3), keepdim=True), fs)
+    xs = x.detach().clone().requires_grad_(True)
+    g_kv = pmesh.gather_kv(xs, fs, 1)
+    (g_kv * full).sum().backward()
+    xo = x.detach().clone().requires_grad_(True)
+    out = pmesh.gather_frames(xo, fs)
+    (out * full).sum().backward()
+    return dict(lo=lo, fl=fl, halo=y.detach().numpy(), halo_grad=x.grad.numpy(),
+                sum=s.detach().numpy(), kv=g_kv.detach().numpy(), kv_grad=xs.grad.numpy(),
+                out=out.detach().numpy(), out_grad=xo.grad.numpy())
+
+
+# ---------------------------------------------------------------------------
+# UNet3D under frame-axis sequence parallelism (and data parallelism)
+# ---------------------------------------------------------------------------
+
+def unet3d_step(variants, state_dict, x, t, cot):
+    """For each (name, UNet3D kwargs): the whole output and the global loss
+    and gradients of loss = mean over the batch of sum(out * cot), from this
+    rank's rows and frames (`BatchShard.reduce`)."""
+    from safediffcon_torch.models.unet3d import UNet3D
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    x, t, cot = torch.as_tensor(x), torch.as_tensor(t), torch.as_tensor(cot)
+    sh = pmesh.batch_shard(x.shape[0], frames=x.shape[1])
+    out = {}
+    for name, kw in variants:
+        net = UNet3D(**kw)
+        net.load_state_dict(state_dict)
+        params = list(net.parameters())
+        y = net(sh.take(x), sh.take(t))
+        c = sh.take(cot)
+        loss = (y * c).sum() / c.shape[0]
+        loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
+        out[name] = dict(out=sh.gather(y.detach()).numpy(), loss=float(loss),
+                         grads={k: g.numpy() for (k, _), g in
+                                zip(net.named_parameters(), grads)},
+                         frames=None if sh.frames is None else sh.frames.length)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: the training loop and the pipelines
+# ---------------------------------------------------------------------------
+
+FEAT, BATCH = 4, 4  # the toy model of tests/test_torch_train_loop_options.py
+
+
+class Toy(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.eye(FEAT) * 0.5)
+        self.b = torch.nn.Parameter(torch.zeros(FEAT))
+
+
+def train_loop(data, draws, k, num_steps, loop_kw):
+    """`run_train_loop` on the toy model: each step's loss takes its rows of
+    the step's global draw, and the gradients are reduced over the ranks."""
+    from safediffcon_torch.core import train as TT
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    sh = pmesh.batch_shard(BATCH)
+    model = Toy()
+    state = TT.TrainState.create(model, TT.make_optimizer("adam", 1e-2), ema_decay=0.9,
+                                 ema_update_every=2)
+    it, seen, losses = iter(draws), [], []
+
+    def step_fn(state, batch):
+        seen.append(batch.numpy().copy())
+        x = batch + 0.1 * sh.draws(next(it))
+        loss = torch.mean((x @ model.w + model.b - 1.0) ** 2)
+        loss, grads = sh.reduce(loss, torch.autograd.grad(loss, [model.w, model.b]))
+        state.apply_gradients(grads)
+        return loss
+
+    TT.run_train_loop(step_fn, state, data, batch_take=BATCH, num_steps=num_steps, seed=9,
+                      steps_per_call=k, shard=sh, losses=losses, **loop_kw)
+    return dict(w=model.w.detach().numpy(), b=model.b.detach().numpy(),
+                ema={n: v.numpy() for n, v in state.ema_params.items()},
+                seen=seen, losses=[float(v) for v in losses])
+
+
+def burgers(conf, pipe, sd, cal, test, cal_noise, eval_noise, pretrain_kw, train, step_noise):
+    """Burgers calibrate and guided evaluate, from the replayed draws and
+    from a seeded generator, and one pretrain step from replayed draws."""
+    from safediffcon_torch.tasks.burgers import (
+        BurgersConformalConfig, BurgersDataset, BurgersPipeline, BurgersPretrainConfig, pretrain,
+    )
+
+    tp = BurgersPipeline(BurgersConformalConfig(**conf), device="cpu", **pipe)
+    test = BurgersDataset(*test)
+    q = tp.calibrate(sd, cal, 0.0, noise=iter(cal_noise))
+    m = tp.evaluate(sd, test, q, noise=iter(eval_noise))
+    q_gen = tp.calibrate(sd, cal, 0.0, generator=torch.Generator().manual_seed(5))
+    m_gen = tp.evaluate(sd, test, q_gen, generator=torch.Generator().manual_seed(6))
+    losses = []
+    state = pretrain(BurgersPretrainConfig(**pretrain_kw), BurgersDataset(*train), num_steps=1,
+                     params=sd, device="cpu", noise=iter(step_noise), losses=losses)
+    return dict(q=float(q), m=m, q_gen=float(q_gen), m_gen=m_gen,
+                loss=float(losses[0]),
+                params={k: v.detach().numpy() for k, v in state.model.state_dict().items()})
+
+
+def tokamak(conf, pipe, sd, cal, cal_noise):
+    """Tokamak calibrate from the replayed draws and from a generator."""
+    from safediffcon_torch.tasks.tokamak import (
+        TokamakConformalConfig, TokamakDataset, TokamakPipeline,
+    )
+
+    tp = TokamakPipeline(TokamakConformalConfig(**conf), device="cpu", **pipe)
+    cal = TokamakDataset(*cal)
+    q = tp.calibrate(sd, cal, 0.0, noise=iter(cal_noise))
+    q_gen = tp.calibrate(sd, cal, 0.0, generator=torch.Generator().manual_seed(5))
+    return dict(q=float(q), q_gen=float(q_gen))
+
+
+def smoke(conf, pipe, sd, cal, cal_noise):
+    """Smoke calibrate from the replayed draws and from a generator."""
+    from safediffcon_torch.tasks.smoke import SmokeConformalConfig, SmokeDataset, SmokePipeline
+
+    tp = SmokePipeline(SmokeConformalConfig(**conf), device="cpu", **pipe)
+    tp.model.load_state_dict(sd)
+    cal = SmokeDataset(*cal)
+    q = tp.calibrate(cal, 0.0, noise=iter(cal_noise))
+    q_gen = tp.calibrate(cal, 0.0, generator=torch.Generator().manual_seed(5))
+    return dict(q=float(q), q_gen=float(q_gen))
+
+
+def init_two_processes(init_file):
+    """`init_distributed` from torchrun's variables: the group forms, and
+    an all-reduce and a barrier go through it."""
+    import torch.distributed as dist
+
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    joined = pmesh.init_distributed(backend="gloo", init_method=f"file://{init_file}")
+    x = torch.tensor([float(pmesh.rank() + 1)])
+    dist.all_reduce(x)
+    pmesh.barrier()
+    mesh = pmesh.auto_mesh()
+    out = dict(joined=joined, world=pmesh.world_size(), rank=pmesh.rank(), sum=float(x),
+               mesh=pmesh.describe(mesh))
+    pmesh.activate_mesh(None)
+    dist.destroy_process_group()
+    return out
+
+
+def cli_burgers_pretrain(out):
+    """`burgers pretrain` through the command line as a rank of a launch
+    (torchrun's variables; the group is already joined), at the CLI tests'
+    tiny size: the files this rank saved and the weights it ends with."""
+    import functools
+
+    from safediffcon_torch.cli import main as M
+    from safediffcon_torch.parallel import mesh as pmesh
+    from safediffcon_torch.tasks.burgers import config as BC
+    from safediffcon_torch.tasks.burgers import pipeline as BP
+
+    r = pmesh.rank()
+    os.environ.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(pmesh.world_size()))
+    BC.BurgersPretrainConfig = functools.partial(BC.BurgersPretrainConfig, dim_mults=(1, 2),
+                                                 timesteps=20, batch_size=4)
+    real_pretrain, real_save, got, saves = BP.pretrain, torch.save, {}, []
+
+    def pretrain(*args, **kw):
+        state = real_pretrain(*args, **kw)
+        got.update({k: v.detach().numpy().copy() for k, v in state.model.state_dict().items()})
+        return state
+
+    def save(obj, f, *args, **kw):
+        saves.append(os.path.basename(str(f)))
+        return real_save(obj, f, *args, **kw)
+
+    BP.pretrain, torch.save = pretrain, save
+    try:
+        rc = M.main(["burgers", "pretrain", "--steps", "2", "--steps-per-call", "2", "--out", out,
+                     "--device", "cpu", "--dim", "8"])
+    finally:
+        BP.pretrain, torch.save = real_pretrain, real_save
+    return dict(rc=rc, rank=r, saves=saves, params=got)

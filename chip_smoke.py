@@ -227,14 +227,32 @@ backend named in its log line:
       process; K1 solves each chunk of up to 8 samples as one system, so the
       metrics agree within 1e-3 relative and a threshold rate within one
       sample); K2 idle;
- 13e. Burgers and tokamak calibrate at the turbo widths on 50 cal sims,
-      DDIM 20: Q-hat within 1e-5 relative; K1 and K2 idle.
+ 13e. Burgers and tokamak calibrate at the turbo widths on 24 cal sims,
+      DDIM 10: Q-hat within 1e-5 relative; K1 and K2 idle.
       With more than one card visible, 13b and 13d run again over NCCL
       across two cards. Times of two ranks sharing one card are a
       correctness check and say nothing of scaling over NVLink.
 
 Depth cut to make room for phase 13: phase 4's and phase 11's calibrate on
 10 cal sims (25 before), phase 9 at DDIM 15 (25).
+
+The round-1 validation runs (phase 14; safediffcon_torch/experiments/
+round1.py, the port of the JAX package's experiments/run_*_validation.py):
+
+ 14a. K2 in bfloat16 against its plain version (the forward, and dx and dW
+      through the autograd Function, within 1e-2 of max, as phase 6) at
+      every distinct conv shape of one forward of the smoke recipe's UNet3D
+      (dim 32, mults (1, 2), 4 x 32 frames of 64^2) and of its tiny cut
+      (dim 8, 2 x 2 frames of 32^2);
+ 14b. the four recipes (burgers, burgers_infft, tokamak, smoke) at --scale
+      tiny on the card, one evaluation per phase, K1 and K2 counts zeroed
+      before each and read after: each SUMMARY has exactly the keys of the
+      JAX run's results JSON and finite values, and prints its comparison
+      lines; the smoke recipe launches K1 in datagen and in evaluate and K2
+      in pretrain (bf16), the others neither.
+
+Depth cut to make room for phase 14: 13(e)'s calibrate at DDIM 10 on 24
+cal sims (DDIM 20 on 50 before).
 
 `python3 chip_smoke.py --cli-rank <command line>` is 13a's rank under
 torchrun, not a way to run the script.
@@ -2269,7 +2287,7 @@ def phase_cli_burgers_tokamak(K, C) -> dict:
 P13_DIR = ROOT / "build" / "chip_smoke" / "p13"
 P13_STEPS = 2  # pretrain steps of 13(a) and 13(b)
 P13_SMOKE_DDIM, P13_SMOKE_SIMS = 10, 8  # 13(d): DDIM steps; cal and test sims
-P13_CAL_DDIM, P13_CAL_SIMS = 20, 50  # 13(e)
+P13_CAL_DDIM, P13_CAL_SIMS = 10, 24  # 13(e); 20 and 50 before phase 14
 P13_SP_BATCH = 2  # 13(c)
 
 
@@ -2665,6 +2683,143 @@ def phase_p13(C, smoke, train, cal, test, b_data, t_data) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the round-1 validation runs (safediffcon_torch/experiments/round1.py)
+# ---------------------------------------------------------------------------
+
+R1_DIR = ROOT / "build" / "chip_smoke" / "round1"
+R1_EVAL_SEEDS = 1  # evaluations per phase of phase 14's tiny runs (the script's draw)
+
+
+def unet3d_conv_shapes(pre_kw: dict, batch: int, sample_shape: tuple) -> list:
+    """(x shape, Cin, Cout) of every distinct K2 call of one forward of the
+    smoke recipe's UNet3D (`pre_kw`: its SmokePretrainConfig fields)."""
+    from safediffcon_torch.models.unet3d import FusedConv3x3x3
+    from safediffcon_torch.tasks.smoke.pipeline import build_model
+
+    model = build_model(pre_kw["dim"], pre_kw.get("dim_mults", (1, 2, 4)),
+                        pre_kw.get("compute_dtype"), conv_impl="pallas", device="cuda")
+    seen = []
+
+    def hook(mod, args):
+        key = (tuple(args[0].shape), mod.weight.shape[1], mod.weight.shape[0])
+        if key not in seen:
+            seen.append(key)
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, FusedConv3x3x3)]
+    with torch.no_grad():
+        model(torch.zeros((batch, *sample_shape), device="cuda"),
+              torch.zeros((batch,), dtype=torch.long, device="cuda"))
+    for h in handles:
+        h.remove()
+    del model
+    return seen
+
+
+def check_k2_bf16(C, shapes: list) -> list:
+    """K2 in bf16 at each (x shape, Cin, Cout): the forward, and dx and dW
+    through the autograd Function, against the plain version and its
+    autograd on the same bf16 inputs, within 1e-2 of max (phase 6's
+    bf16 tolerance); returns the cases, with the kernel each call took."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cases = []
+    for shape, cin, cout in shapes:
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda")
+             / (27 * cin) ** 0.5).bfloat16()
+        g = torch.randn((*shape[:-1], cout), generator=gen, device="cuda").bfloat16()
+        xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+        ref = C.conv3d_fused_plain(xp, C.flatten_weight(wp))
+        ref.backward(g)
+        before = k2_launches(C), C.conv3d_fused_simt_cuda.launches
+        xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = C.conv3d_fused_fn(xk, wk)
+        out.backward(g)
+        torch.cuda.synchronize()
+        errs = [rel_err(out, ref), rel_err(xk.grad, xp.grad), rel_err(wk.grad, wp.grad)]
+        case = dict(shape=list(shape), cin=cin, cout=cout, dtype="bfloat16",
+                    tensor_core=k2_launches(C) - before[0],
+                    simt=C.conv3d_fused_simt_cuda.launches - before[1],
+                    max_diff=[e[0] for e in errs], max_abs=[e[1] for e in errs])
+        if not (all(d <= 1e-2 * m for d, m in errs) and case["tensor_core"] + case["simt"] == 2
+                and all(bool(torch.isfinite(t.float()).all()) for t in (out, xk.grad, wk.grad))):
+            raise AssertionError(f"K2 bf16 differs from its plain version: {case}")
+        cases.append(case)
+    return cases
+
+
+def _finite_numbers(x) -> bool:
+    if isinstance(x, dict):
+        return all(_finite_numbers(v) for v in x.values())
+    if isinstance(x, list):
+        return all(_finite_numbers(v) for v in x)
+    return not isinstance(x, float) or math.isfinite(x)
+
+
+def _key_structure(x):
+    if isinstance(x, dict):
+        return {k: _key_structure(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_key_structure(x[0])] if x else []
+    return None
+
+
+def phase_round1(K, C) -> dict:
+    """14: the four round-1 recipes (`python -m
+    safediffcon_torch.experiments.round1 <recipe> --scale tiny`) on the
+    card, K1 and K2 counts zeroed before each and read after; K2 in bf16
+    first held against its plain version at the tiny smoke model's conv
+    shapes and at the full smoke recipe's."""
+    from safediffcon_torch.experiments import round1 as R1
+
+    t0 = time.perf_counter()
+    tiny, full = R1.recipe("smoke", "tiny", "cuda"), R1.recipe("smoke", "full", "cuda")
+    rec_shape = lambda kw: (kw.get("record_frames", FRAMES),  # noqa: E731
+                            128 // kw.get("space_scale", 2), 128 // kw.get("space_scale", 2), 7)
+    shapes = [s for r in (tiny, full) for s in unet3d_conv_shapes(
+        r["SmokePretrainConfig"], r["SmokePretrainConfig"]["batch_size"],
+        rec_shape(r["generate_smoke_dataset"]))]
+    k2_cases = check_k2_bf16(C, shapes)
+    log(f"14: K2 bf16 = plain at {len(k2_cases)} conv shapes of the smoke recipe's UNet3D "
+        f"(tiny and full), tensor-core / SIMT calls "
+        f"{sum(c['tensor_core'] for c in k2_cases)} / {sum(c['simt'] for c in k2_cases)}, "
+        f"largest error {max(d / m for c in k2_cases for d, m in zip(c['max_diff'], c['max_abs'])):.2e} "
+        f"of max")
+    runs = {}
+    for name in ("burgers", "burgers_infft", "tokamak", "smoke"):
+        K.pressure_cg_cuda.launches = 0
+        zero_k2_counts(C)
+        t = time.perf_counter()
+        lines = []
+        res = R1.RUNS[name](scale="tiny", eval_seeds=R1_EVAL_SEEDS, device="cuda",
+                            out=str(R1_DIR / name), emit=lines.append)
+        counts = dict(k1=K.pressure_cg_cuda.launches, k2=dict(C.conv3d_fused_cuda.launches),
+                      k2_simt=C.conv3d_fused_simt_cuda.launches)
+        with open(ROOT / R1.JAX_RESULTS[name]) as f:
+            jax_keys = _key_structure(json.load(f))
+        if _key_structure(res["summary"]) != jax_keys:
+            raise AssertionError(f"14 {name}: SUMMARY keys differ from the JAX results'")
+        if not _finite_numbers(res["summary"]):
+            raise AssertionError(f"14 {name}: a SUMMARY value is not finite: {res['summary']}")
+        if sum(x.startswith("COMPARE ") for x in lines) != len(res["comparison"]):
+            raise AssertionError(f"14 {name}: the comparison lines are missing")
+        runs[name] = dict(seconds=time.perf_counter() - t, launches=counts,
+                          stages=res["stages"], per_stage=res["launches"])
+        k2_total = sum(counts["k2"].values()) + counts["k2_simt"]
+        log(f"14 {name} --scale tiny: {runs[name]['seconds']:.1f} s, K1 {counts['k1']}, "
+            f"K2 {counts['k2']} + SIMT {counts['k2_simt']}")
+        if name == "smoke":
+            st = res["launches"]
+            if not (st["datagen"]["K1"] > 0 and st["pretrain_evaluate"]["K1"] > 0
+                    and sum(st["pretrain"]["K2"].values()) + st["pretrain"]["K2_simt"] > 0):
+                raise AssertionError(f"14 smoke: K1 in datagen and evaluate and K2 in pretrain "
+                                     f"must launch: {st}")
+        elif counts["k1"] or k2_total:
+            raise AssertionError(f"14 {name}: a TPU-kernel counterpart ran off its path: {counts}")
+    return dict(seconds=time.perf_counter() - t0, k2_cases=k2_cases, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2772,15 +2927,23 @@ def main() -> int:
     log(f"phase 13 in {time.perf_counter() - t_p13:.1f} s (ranks {p13['spawn_s']:.1f} s); "
         f"total {time.perf_counter() - t_start:.1f} s")
 
+    # phase 14: the round-1 validation runs at --scale tiny
+    p14 = phase_round1(K, C)
+    p14_smoke = p14["runs"]["smoke"]["launches"]
+    log(f"phase 14 in {p14['seconds']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+
     kernels = [dict(
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",
         replaces="safediffcon_tpu/ops/pressure_cg.py:42",
         also_replaces="safediffcon_tpu/ops/pressure_cg.py:119",
-        launches=launches + dpm_launches + cli_launches["k1_eval"] + sum(p13["d"]["k1_per_rank"]),
+        launches=(launches + dpm_launches + cli_launches["k1_eval"]
+                  + sum(p13["d"]["k1_per_rank"]) + p14_smoke["k1"]),
         main_path_launches={"phase 4 DDIM serving": launches,
                             "phase 11 DPM serving": dpm_launches,
                             "phase 12 smoke eval --checkpoints": cli_launches["k1_eval"],
-                            "phase 13(d) DP serving, per rank": p13["d"]["k1_per_rank"]},
+                            "phase 13(d) DP serving, per rank": p13["d"]["k1_per_rank"],
+                            "phase 14 round-1 smoke recipe, tiny (datagen + evaluate)":
+                                p14_smoke["k1"]},
         max_abs_err=max(c["max_diff"] for c in cases),
         ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
@@ -2808,9 +2971,11 @@ def main() -> int:
         replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
         launches=(conv_launches + bf16_launches + cli_launches["k2_cli_pretrain"]
                   + cli_launches["k2_pool_pretrain"] + p13["a"]["k2"]
-                  + sum(p13["b"]["k2_per_rank"]) + sum(p13["c"]["k2_per_rank"])),
+                  + sum(p13["b"]["k2_per_rank"]) + sum(p13["c"]["k2_per_rank"])
+                  + sum(p14_smoke["k2"].values())),
         main_path_modes={train_times["k2_mode"]: conv_launches + cli_launches["k2_cli_pretrain"]
-                         + cli_launches["k2_pool_pretrain"], "bf16": bf16_launches},
+                         + cli_launches["k2_pool_pretrain"],
+                         "bf16": bf16_launches + p14_smoke["k2"]["bf16"]},
         main_path_launches={"phase 8 pretrain": conv_launches, "phase 10b bf16": bf16_launches,
                             "phase 12 smoke pretrain --steps-per-call 2":
                                 cli_launches["k2_cli_pretrain"],
@@ -2820,7 +2985,8 @@ def main() -> int:
                             "phase 13(b) DP pretrain, per rank (3xTF32)":
                                 p13["b"]["k2_per_rank"],
                             "phase 13(c) SP forward + backward, per rank (3xTF32)":
-                                p13["c"]["k2_per_rank"]},
+                                p13["c"]["k2_per_rank"],
+                            "phase 14 round-1 smoke recipe, tiny (pretrain)": p14_smoke["k2"]},
         max_abs_err=max(c["max_diff"] for c in f32_cases),
         ms=conv_main["kernel_ms"], plain_ms=conv_main["plain_ms"],
         bound_ms=conv_main["bound_ms"], bound_by=conv_main["bound_by"],
@@ -2830,7 +2996,8 @@ def main() -> int:
     kernels.append(dict(
         name="conv3d_fused_simt", route="cuda", source="safediffcon_torch/csrc/conv3d_simt.cu",
         replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
-        launches=train_times["simt_launches"], max_abs_err=simt_case["max_diff"],
+        launches=train_times["simt_launches"] + p14_smoke["k2_simt"],
+        max_abs_err=simt_case["max_diff"],
         ms=simt_case["kernel_ms"], plain_ms=simt_case["plain_ms"],
         bound_ms=simt_case["bound_ms"], bound_by=simt_case["bound_by"],
         library_ms=simt_case["library_ms"],

@@ -9,3 +9,13 @@ keeps a plain-PyTorch version beside it that runs for CPU tensors only.
 """
 
 __version__ = "0.1.0"
+
+from safediffcon_torch.core.schedules import DiffusionSchedule, make_schedule
+from safediffcon_torch.core.diffusion import GaussianDiffusion, DiffusionConfig
+
+__all__ = [
+    "DiffusionSchedule",
+    "make_schedule",
+    "GaussianDiffusion",
+    "DiffusionConfig",
+]

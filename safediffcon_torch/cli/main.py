@@ -213,9 +213,8 @@ def _dispatch_load(ds_cls, data_path: str, split: str, **kw):
                        files `burgers_{split}.h5` are resolved automatically,
                        reference: 1D/data/load_hdf5.py:6-57)
     HF dataset dir  -> reference tokamak datasets.load_from_disk layout
-                       (`load_hf`; the port has no such loader until the
-                       reference dataset's files are in the repository, so
-                       this exits with an error)
+                       (`load_hf`, reference: tokamak/data/tokamak_dataset.py:5-56;
+                       read by the port's numpy Arrow reader)
     other dir       -> reference smoke per-sim npy-dir layout
                        (`load_sim_dirs`, reference: 2d/ddpm/data_2d.py:43-113)
     """
@@ -235,10 +234,7 @@ def _dispatch_load(ds_cls, data_path: str, split: str, **kw):
             os.path.join(data_path, "state.json")
         ):
             if not hasattr(ds_cls, "load_hf"):
-                raise SystemExit(
-                    f"{ds_cls.__name__} has no HF-dataset loader: the port reads the "
-                    f"reference's HF dataset (load_hf) only once its files are in the "
-                    f"repository; generate the data with `generate-data` instead")
+                raise SystemExit(f"{ds_cls.__name__} has no HF-dataset loader")
             return ds_cls.load_hf(data_path, split, **kw)
         if not hasattr(ds_cls, "load_sim_dirs"):
             raise SystemExit(f"{ds_cls.__name__} has no sim-dir loader")

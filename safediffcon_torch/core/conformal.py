@@ -4,6 +4,8 @@ Port of `safediffcon_tpu/core/conformal.py`, with both rank conventions of
 the reference:
   - "alpha":           rank = min(ceil(alpha * (n+1)), n) - 1   (1D, tokamak)
   - "one_minus_alpha": rank = ceil((n+1) * (1-alpha)) - 1, clamped (2D smoke)
+
+`conformal_quantile` is the whole step: normalize, weight, rank.
 """
 from __future__ import annotations
 
@@ -42,3 +44,14 @@ def weighted_quantile(
     """Q-hat = sorted(scores)[rank]; scores are already weight-multiplied."""
     rank = quantile_rank(int(scores.shape[0]), alpha, convention)
     return torch.sort(scores).values[rank]
+
+
+def conformal_quantile(
+    scores: torch.Tensor,
+    weights: torch.Tensor,
+    alpha: float,
+    convention: str = "alpha",
+) -> torch.Tensor:
+    """Full step 4-5: normalize weights, weight the scores, take the rank
+    statistic. Returns a scalar Q-hat."""
+    return weighted_quantile(normalize_weights(weights) * scores, alpha, convention)

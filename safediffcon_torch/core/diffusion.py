@@ -161,3 +161,26 @@ def diffusion_loss(
     if weights is not None:
         per_sample = per_sample * weights
     return per_sample.mean()
+
+
+class GaussianDiffusion:
+    """Convenience bundle of (denoiser, schedule, config): a thin object
+    over the functional API, as the JAX class is. `apply_fn(x, t)` is the
+    denoiser with its weights bound (a model module will do). Timesteps and
+    noise are drawn from `generator`, or handed in (`t=`, `noise=`)."""
+
+    def __init__(self, apply_fn: Callable, sched: DiffusionSchedule, cfg: DiffusionConfig):
+        self.apply_fn = apply_fn
+        self.sched = sched
+        self.cfg = cfg
+
+    def loss(self, x_start, cond=None, weights=None,
+             generator: Optional[torch.Generator] = None, t=None, noise=None):
+        return diffusion_loss(self.apply_fn, self.sched, self.cfg, x_start, cond, weights,
+                              generator, t, noise)
+
+    def per_sample_loss(self, x_start, cond=None,
+                        generator: Optional[torch.Generator] = None, t=None, noise=None):
+        if t is None or noise is None:
+            t, noise = draw_t_noise(self.cfg, x_start, generator)
+        return p_losses(self.apply_fn, self.sched, self.cfg, x_start, t, noise, cond)

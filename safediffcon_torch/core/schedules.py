@@ -188,3 +188,9 @@ def get_J_scheduler(name):
     if name not in factories:
         raise ValueError(f"unknown J scheduler {name!r}")
     return factories[name]()
+
+
+# The reference threads a separate `w_scheduler` name through its sample
+# kwargs but resolves it with the same registry (1D/utils/common.py usage of
+# get_scheduler); the JAX package keeps that equivalence as an alias.
+get_w_scheduler = get_J_scheduler

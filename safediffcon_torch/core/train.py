@@ -19,6 +19,8 @@ Port of `safediffcon_tpu/core/train.py` (reference: 1D/model/trainer.py:21-210,
   - `TrainState`: the step, the model (whose parameters are the trained
     weights), the optimizer state and an EMA of the weights (0.995, applied
     when the new step count is a multiple of 10).
+  - `make_diffusion_train_step` (one optimizer update on the reweighted
+    denoising loss) and `chunked_train_steps` (k of them in one call).
   - `accumulated_grads`, `run_train_loop` (the numpy batch order of the JAX
     loop, checkpoint cadence, wall-clock deadline, `steps_per_call` chunks
     and the bfloat16 `device_pool`).
@@ -33,6 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
+from safediffcon_torch.core.schedules import DiffusionSchedule
 from safediffcon_torch.parallel import mesh as pmesh
 
 Schedule = Union[float, Callable[[int], float]]
@@ -250,6 +254,53 @@ class TrainState:
         self.opt_state.load_state_dict(d["opt_state"])
         for k, v in d["ema_params"].items():
             self.ema_params[k].copy_(v)
+
+
+def make_diffusion_train_step(apply_fn: Callable, sched: DiffusionSchedule,
+                              cfg: DiffusionConfig, cond=None) -> Callable:
+    """The step (state, batch, weights=None, generator=None, t=None,
+    noise=None) -> loss: one optimizer update of `state` in place on the
+    denoising loss of `batch`, each sample's loss times `weights` (the
+    conformal post-training loss, reference:
+    1D/posttrain/post_train.py:206-210; None for pretraining). `apply_fn(x,
+    t)` runs `state.model`. Timesteps and noise come from `generator`, or
+    are handed in."""
+
+    def step(state: TrainState, batch: torch.Tensor, weights: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None, t=None, noise=None) -> torch.Tensor:
+        if t is None or noise is None:
+            t, noise = draw_t_noise(cfg, batch, generator)
+        per_sample = p_losses(apply_fn, sched, cfg, batch, t, noise, cond)
+        if weights is not None:
+            per_sample = per_sample * weights
+        loss = per_sample.mean()
+        state.apply_gradients(torch.autograd.grad(loss, list(state.model.parameters())))
+        return loss.detach()
+
+    return step
+
+
+def chunked_train_steps(step_fn: Callable, k: int) -> Callable:
+    """k optimizer steps in one call: multi(state, batches, generator=None,
+    noise=None) runs `step_fn` (a `make_diffusion_train_step` step) on each
+    of the k batches of `batches` (k, B, ...) in order, the i-th with the
+    i-th (t, noise) of `noise` when given, and returns the mean of the k
+    losses. JAX fuses the k steps into one dispatch (`lax.scan`); here they
+    are k steps back to back, as `run_train_loop(steps_per_call=k)` runs
+    them."""
+
+    def multi(state: TrainState, batches: torch.Tensor,
+              generator: Optional[torch.Generator] = None, noise=None) -> torch.Tensor:
+        if batches.shape[0] != k:
+            raise ValueError(f"batches hold {batches.shape[0]} steps, not {k}")
+        draws = iter(noise) if noise is not None else None
+        losses = []
+        for i in range(k):
+            t, n = next(draws) if draws is not None else (None, None)
+            losses.append(step_fn(state, batches[i], generator=generator, t=t, noise=n))
+        return torch.stack(losses).mean()
+
+    return multi
 
 
 def accumulated_grads(loss_fn: Callable[[int, torch.Tensor], torch.Tensor],

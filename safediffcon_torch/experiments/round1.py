@@ -1,0 +1,713 @@
+"""The round-1 validation runs of the JAX package, on the port, held against
+the JAX package's recorded results.
+
+Port of `experiments/run_1d_validation.py`, `run_1d_infft_validation.py`,
+`run_tokamak_validation.py` and `run_2d_validation.py`: datagen, pretrain,
+calibrate and evaluate, then posttrain or InfFT, with each script's own
+arguments (the recipe dicts below), through the port's entry points:
+
+    python -m safediffcon_torch.experiments.round1 {burgers,burgers_infft,tokamak,smoke}
+        [--seed S] [--eval-seeds N] [--device cuda|cpu] [--scale full|tiny] [--out DIR]
+
+Each run prints the JAX script's `SUMMARY {...}` line (its keys and metric
+names), then the comparison with the JAX run's committed results
+(`experiments/validation_*_round1.json`, read as data):
+
+    COMPARE <phase> <metric>: port <mean> +- <across-seed std> | jax <value>
+            | band <b> | in/out
+    SIGN <metric>: port <+/-> jax <+/->      (pretrain -> posttrain / InfFT)
+
+After each phase the same weights are evaluated `--eval-seeds` times (the
+script's draw, then seeds 1001, 1002, ...), and the port's mean is held
+against the JAX value with the band
+
+  - a mean over samples (J, obj_mse_mean, safety_score_mean, J_target,
+    safe_target): 3 * max(across-seed std, per-sample std / sqrt(n_test));
+  - a ratio (R_p, R_s, R_t, time_below_ratio, sample_below_ratio,
+    unsafe_percentage / 100), a mean of per-sample rates in [0, 1]:
+    3 * max(across-seed std, sqrt(p (1 - p) / n_test)), p the port's mean;
+  - Q-hat, one weighted quantile over the n calibration samples:
+    3 * the std of the quantile over 200 bootstrap resamples of the
+    (score, weight) pairs (numpy seed 0).
+
+`--seed` replaces the training configs' seed (weights, batch order, draws);
+the data keep the scripts' seeds. On the card the full-scale runs take
+settings that change no result's distribution: smoke pretrain on kernel K2
+(conv_impl "pallas", the port of the Pallas conv; JAX's default is its XLA
+conv), and calibration in chunks of a whole calibration batch. `--scale
+tiny` cuts every count and width to seconds of work (the tests' and
+chip_smoke.py's size), not the recipes' shapes of data.
+
+Each run also prints the seconds and peak device memory of every stage, the
+card's `name, power.limit` (nvidia-smi), and, per stage, the launches of K1
+(`ops/pressure_cg.py`) and K2 (`ops/conv3d_mxu.py`, tensor-core modes and
+SIMT), and writes all of it to `<out>/round1_<recipe>.json`.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import copy
+import dataclasses
+import json
+import logging
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from safediffcon_torch.core.conformal import conformal_quantile
+
+REPO = Path(__file__).resolve().parents[2]
+
+# ---------------------------------------------------------------------------
+# Recipes: the keyword arguments of each script's calls, by callee; a callee
+# called with two argument sets holds a list, in the script's order; a
+# config built as another config's keyword argument is "Outer.keyword".
+# ---------------------------------------------------------------------------
+
+BURGERS = {
+    "generate_burgers_dataset": dict(n_train=20000, n_cal=1000, n_test=50, seed=0),
+    "BurgersPretrainConfig": dict(dim=128, batch_size=16, lr=1e-4, checkpoint_every=10**9,
+                                  compute_dtype="bfloat16"),
+    "pretrain": dict(num_steps=3000, log_every=500),
+    "BurgersConformalConfig": dict(w_score=500.0),
+    "BurgersPipeline": dict(dim=128, compute_dtype="bfloat16"),
+    "BurgersPostTrainConfig": dict(finetune_epoch=2, finetune_steps=300, finetune_batch_size=64,
+                                   finetune_subset_size=6400, finetune_lr=1e-4),
+    "BurgersPostTrainConfig.conformal": dict(w_score=2500.0),
+    "BurgersDataset.load": dict(subset=6400),
+    "posttrain": dict(eval_every_subset_epoch=False),
+}
+
+BURGERS_INFFT = {
+    "generate_burgers_dataset": dict(n_train=12000, n_cal=1000, n_test=50, seed=1),
+    "BurgersPretrainConfig": dict(dim=128, batch_size=16, lr=1e-4, checkpoint_every=10**9,
+                                  compute_dtype="bfloat16"),
+    "pretrain": dict(num_steps=2500, log_every=500),
+    "BurgersConformalConfig": dict(w_score=500.0),
+    # the dtype check's pipeline (compute_dtype per dtype), then InfFT's
+    "BurgersPipeline": [dict(dim=128), dict(dim=128, compute_dtype="bfloat16")],
+    "BurgersInfFTConfig": dict(InfFT_iters=3, finetune_lr=1e-5),
+}
+DTYPE_CHECK = ("bfloat16", "float32")
+
+TOKAMAK = {
+    "generate_tokamak_dataset": dict(n_train=5000, n_cal=1000, n_test=50, gen_batch=512),
+    "TokamakPretrainConfig": dict(dim=128, batch_size=16, checkpoint_every=10**9,
+                                  compute_dtype="bfloat16"),
+    "pretrain": dict(num_steps=2500, log_every=500),
+    "TokamakConformalConfig": dict(guidance_scaler=5.0),
+    "TokamakPipeline": dict(dim=128, compute_dtype="bfloat16"),
+    "TokamakInferenceConfig": dict(finetune_epoch=2, finetune_steps=20, train_batch_size=256,
+                                   finetune_lr=7e-6),
+}
+
+SMOKE = {
+    "generate_smoke_dataset": dict(n_train=96, n_cal=32, n_test=8, n_frames=256, gen_batch=16),
+    "SmokePretrainConfig": dict(dim=32, dim_mults=(1, 2), batch_size=4, checkpoint_every=10**9,
+                                compute_dtype="bfloat16"),
+    "pretrain": dict(num_steps=300, log_every=100),
+    "SmokeConformalConfig": dict(cal_batch_size=32, num_cal_batch=1, ddim_sampling_steps=50,
+                                 test_batch_size=8),
+    "SmokePipeline": dict(dim=32, dim_mults=(1, 2), compute_dtype="bfloat16"),
+}
+
+RECIPES = {"burgers": BURGERS, "burgers_infft": BURGERS_INFFT, "tokamak": TOKAMAK,
+           "smoke": SMOKE}
+SCRIPTS = {"burgers": "experiments/run_1d_validation.py",
+           "burgers_infft": "experiments/run_1d_infft_validation.py",
+           "tokamak": "experiments/run_tokamak_validation.py",
+           "smoke": "experiments/run_2d_validation.py"}
+JAX_RESULTS = {"burgers": "experiments/validation_1d_round1.json",
+               "burgers_infft": "experiments/validation_1d_infft_round1.json",
+               "tokamak": "experiments/validation_tokamak_round1.json",
+               "smoke": "experiments/validation_2d_round1.json"}
+
+# Settings of the full-scale runs on the card (module docstring).
+CARD = {
+    "burgers": {"BurgersPipeline": dict(cal_chunk=250)},
+    "burgers_infft": {"BurgersPipeline": dict(cal_chunk=250)},
+    "tokamak": {"TokamakPipeline": dict(cal_chunk=1000)},
+    "smoke": {"SmokePretrainConfig": dict(conv_impl="pallas")},
+}
+
+# --scale tiny: counts and widths cut, merged over the recipe (over each
+# entry of a list).
+_TINY_BURGERS_CONF = dict(ddim_sampling_steps=10, cal_batch_size=8, num_cal_batch=1)
+TINY = {
+    "burgers": {
+        "generate_burgers_dataset": dict(n_train=40, n_cal=8, n_test=4),
+        "BurgersPretrainConfig": dict(dim=8, dim_mults=(1, 2)),
+        "pretrain": dict(num_steps=4, log_every=2),
+        "BurgersConformalConfig": _TINY_BURGERS_CONF,
+        "BurgersPipeline": dict(dim=8, dim_mults=(1, 2)),
+        "BurgersPostTrainConfig": dict(finetune_steps=2, finetune_batch_size=4,
+                                       finetune_subset_size=16),
+        "BurgersPostTrainConfig.conformal": _TINY_BURGERS_CONF,
+        "BurgersDataset.load": dict(subset=16),
+    },
+    "burgers_infft": {
+        "generate_burgers_dataset": dict(n_train=16, n_cal=8, n_test=4),
+        "BurgersPretrainConfig": dict(dim=8, dim_mults=(1, 2)),
+        "pretrain": dict(num_steps=4, log_every=2),
+        "BurgersConformalConfig": _TINY_BURGERS_CONF,
+        "BurgersPipeline": dict(dim=8, dim_mults=(1, 2)),
+    },
+    "tokamak": {
+        "generate_tokamak_dataset": dict(n_train=16, n_cal=8, n_test=4, gen_batch=16),
+        "TokamakPretrainConfig": dict(dim=8, dim_mults=(1, 2)),
+        "pretrain": dict(num_steps=4, log_every=2),
+        "TokamakConformalConfig": dict(ddim_sampling_steps=10, cal_batch_size=8),
+        "TokamakPipeline": dict(dim=8, dim_mults=(1, 2)),
+        "TokamakInferenceConfig": dict(finetune_steps=2, train_batch_size=4),
+    },
+    "smoke": {
+        "generate_smoke_dataset": dict(n_train=8, n_cal=4, n_test=2, n_frames=16,
+                                       record_frames=2, space_scale=4, gen_batch=14,
+                                       accuracy=1e-4, max_iter=40),
+        "SmokePretrainConfig": dict(dim=8, timesteps=20, batch_size=2),
+        "pretrain": dict(num_steps=4, log_every=2),
+        "SmokeConformalConfig": dict(cal_batch_size=4, ddim_sampling_steps=5, test_batch_size=2,
+                                     timesteps=20),
+        "SmokePipeline": dict(dim=8, solver_accuracy=1e-4, solver_max_iter=40,
+                              solver_space_scale=4),
+    },
+}
+
+# Headline metrics: (name, kind, per-sample std key); kind "mean", "ratio"
+# or "percent" (a ratio times 100). The smoke means take their per-sample
+# values from the pipeline's record.
+HEADLINE = {
+    "burgers": [("control_mse_mean (J)", "mean", "control_mse_std"),
+                ("point_exceed_ratio (R_p)", "ratio", None),
+                ("sample_exceed_ratio (R_s)", "ratio", None),
+                ("time_exceed_ratio (R_t)", "ratio", None)],
+    "tokamak": [("obj_mse_mean", "mean", "obj_mse_std"),
+                ("safety_score_mean", "mean", "safety_score_std"),
+                ("time_below_ratio", "ratio", None),
+                ("sample_below_ratio", "ratio", None)],
+    "smoke": [("J_target", "mean", "record"),
+              ("safe_target", "mean", "record"),
+              ("unsafe_percentage", "percent", None)],
+}
+N_BOOTSTRAP = 200
+EVAL_SEED_BASE = 1000
+
+
+def recipe(name: str, scale: str = "full", device="cuda") -> dict:
+    """The recipe of run `name` with the tiny cuts (`scale` "tiny") and the
+    card's settings (a CUDA `device`) merged in."""
+    out = copy.deepcopy(RECIPES[name])
+    merged = [TINY[name]] if scale == "tiny" else []
+    if torch.device(device).type == "cuda":
+        merged.append(CARD[name])
+    for extra in merged:
+        for key, kw in extra.items():
+            if isinstance(out[key], list):
+                out[key] = [{**d, **kw} for d in out[key]]
+            else:
+                out[key] = {**out[key], **kw}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Bands and verdicts
+# ---------------------------------------------------------------------------
+
+def band(kind: str, seed_values: Sequence[float], n: int,
+         per_sample_std: Optional[float] = None) -> float:
+    """Half-width of the band a port mean must fall in around the JAX value
+    (module docstring): `seed_values` are the metric over the eval seeds,
+    `n` the test samples, `per_sample_std` a mean metric's per-sample std."""
+    vals = np.asarray(seed_values, np.float64)
+    across = float(vals.std(ddof=1)) if vals.size > 1 else 0.0
+    if kind == "mean":
+        within = float(per_sample_std) / math.sqrt(n)
+    elif kind in ("ratio", "percent"):
+        scale = 100.0 if kind == "percent" else 1.0
+        p = min(max(float(vals.mean()) / scale, 0.0), 1.0)
+        within = scale * math.sqrt(p * (1.0 - p) / n)
+    else:
+        raise ValueError(f"unknown metric kind {kind!r}")
+    return 3.0 * max(across, within)
+
+
+def verdict(port: float, jax: float, half_width: float) -> str:
+    return "in" if abs(port - jax) <= half_width else "out"
+
+
+def bootstrap_q_std(scores: torch.Tensor, weights: torch.Tensor, alpha: float, convention: str,
+                    n_boot: int = N_BOOTSTRAP, seed: int = 0) -> float:
+    """Std of the weighted conformal quantile over bootstrap resamples of the
+    (score, weight) pairs."""
+    rng = np.random.default_rng(seed)
+    n = scores.shape[0]
+    qs = [float(conformal_quantile(scores[idx], weights[idx], alpha, convention))
+          for idx in (torch.from_numpy(rng.integers(0, n, n)) for _ in range(n_boot))]
+    return float(np.std(qs, ddof=1))
+
+
+def sign(x: float) -> str:
+    return "+" if x > 0 else ("-" if x < 0 else "0")
+
+
+@dataclasses.dataclass
+class Phase:
+    """One phase's results: the evals of its weights over the eval seeds,
+    its Q-hat, the bootstrap std of Q-hat, the JAX values."""
+
+    name: str
+    evals: List[Dict[str, float]]
+    Q: float
+    q_std: float
+    jax: Dict[str, float]
+    jax_Q: float
+    per_sample: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
+
+
+def compare(phases: List[Phase], headline, n_test: int) -> List[dict]:
+    """One row per (phase, headline metric) and per phase's Q-hat."""
+    rows = []
+    for ph in phases:
+        for name, kind, std_key in headline:
+            vals = [m[name] for m in ph.evals]
+            if std_key == "record":
+                per_sample = float(np.mean([np.std(v, ddof=1) for v in ph.per_sample[name]]))
+            elif std_key is not None:
+                per_sample = float(np.mean([m[std_key] for m in ph.evals]))
+            else:
+                per_sample = None
+            b = band(kind, vals, n_test, per_sample)
+            mean = float(np.mean(vals))
+            rows.append(dict(phase=ph.name, metric=name, port=mean,
+                             port_std=float(np.std(vals, ddof=1)) if len(vals) > 1 else 0.0,
+                             seeds=len(vals), jax=float(ph.jax[name]), band=b,
+                             result=verdict(mean, float(ph.jax[name]), b)))
+        b = 3.0 * ph.q_std
+        rows.append(dict(phase=ph.name, metric="Q-hat", port=ph.Q, port_std=0.0, seeds=1,
+                         jax=ph.jax_Q, band=b, result=verdict(ph.Q, ph.jax_Q, b)))
+    return rows
+
+
+def signs(before: Phase, after: Phase, headline) -> List[dict]:
+    out = []
+    for name in [h[0] for h in headline] + ["Q-hat"]:
+        if name == "Q-hat":
+            port, jax = after.Q - before.Q, after.jax_Q - before.jax_Q
+        else:
+            port = np.mean([m[name] for m in after.evals]) - np.mean([m[name] for m in before.evals])
+            jax = after.jax[name] - before.jax[name]
+        out.append(dict(metric=name, port=sign(float(port)), jax=sign(float(jax)),
+                        agree=sign(float(port)) == sign(float(jax))))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The runner: stage timing, peak memory, kernel launches, the card
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "no nvidia-smi"
+
+
+def kernel_counts() -> Dict[str, object]:
+    from safediffcon_torch.ops import conv3d_mxu as K2
+    from safediffcon_torch.ops import pressure_cg as K1
+
+    return {"K1": K1.pressure_cg_cuda.launches,
+            "K2": dict(K2.conv3d_fused_cuda.launches),
+            "K2_simt": K2.conv3d_fused_simt_cuda.launches}
+
+
+def _launch_delta(before, after) -> Dict[str, object]:
+    return {"K1": after["K1"] - before["K1"],
+            "K2": {m: after["K2"][m] - before["K2"][m] for m in after["K2"]
+                   if after["K2"][m] - before["K2"][m]},
+            "K2_simt": after["K2_simt"] - before["K2_simt"]}
+
+
+class Run:
+    """One recipe's run on `device`: stages, the lines it prints, its
+    result."""
+
+    def __init__(self, name: str, device, scale: str, seed: Optional[int], eval_seeds: int,
+                 out: Optional[str], emit: Callable[[str], None] = print):
+        self.name, self.scale, self.seed = name, scale, seed
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.eval_seeds = max(int(eval_seeds), 1)
+        self.out = Path(out) if out else REPO / "build" / "round1" / name
+        self.out.mkdir(parents=True, exist_ok=True)
+        self.emit = emit
+        self.recipe = recipe(name, scale, device)
+        with open(REPO / JAX_RESULTS[name]) as f:
+            self.jax = json.load(f)
+        self.stages: Dict[str, float] = {}
+        self.peak_gb: Dict[str, float] = {}
+        self.launches: Dict[str, dict] = {}
+        self.t0 = time.perf_counter()
+
+    def gen(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def seeded(self, kw: dict) -> dict:
+        return kw if self.seed is None else {**kw, "seed": self.seed}
+
+    def tick(self, msg: str) -> None:
+        self.emit(f"[{time.perf_counter() - self.t0:7.1f}s] {msg}")
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+        before = kernel_counts()
+        t = time.perf_counter()
+        yield
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device) / 1e9
+            self.peak_gb[name] = max(self.peak_gb.get(name, 0.0), peak)
+        self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - t
+        delta = _launch_delta(before, kernel_counts())
+        prev = self.launches.setdefault(name, {"K1": 0, "K2": {}, "K2_simt": 0})
+        prev["K1"] += delta["K1"]
+        prev["K2_simt"] += delta["K2_simt"]
+        for m, c in delta["K2"].items():
+            prev["K2"][m] = prev["K2"].get(m, 0) + c
+
+    def evals(self, phase: str, evaluate: Callable[[torch.Generator], Dict[str, float]],
+              first_seed: Optional[int], record: Optional[dict] = None):
+        """Evaluations of one phase's weights: the script's draw
+        (`first_seed`, unless None), then the extra eval seeds up to
+        `eval_seeds` in all; with `record` (a pipeline's), also the per-sample
+        values each evaluation recorded."""
+        seeds = [first_seed] if first_seed is not None else []
+        seeds += [EVAL_SEED_BASE + i for i in range(1, self.eval_seeds)]
+        ms, per_sample = [], {}
+        for seed in seeds:
+            if record is not None:
+                for k in [k for k in record if not k.startswith("cal_")]:
+                    del record[k]
+            with self.stage(f"{phase}_evaluate"):
+                ms.append(evaluate(self.gen(seed)))
+            if record is not None:
+                for k, v in record.items():
+                    if not k.startswith("cal_"):
+                        per_sample.setdefault(k, []).append(torch.cat(v).numpy().tolist())
+        return ms, per_sample
+
+    def q_std(self, pipe, Q, alpha: float, convention: str) -> float:
+        """Bootstrap std of the last calibration's Q-hat, from the scores and
+        weights it recorded, after checking that they give its Q-hat (to a
+        few float32 ulps: the weights' sum runs in another order on the
+        CPU)."""
+        rec = pipe.record
+        again = float(conformal_quantile(rec["cal_scores"], rec["cal_weights"], alpha, convention))
+        if abs(again - float(Q)) > 1e-6 * abs(float(Q)):
+            raise AssertionError(f"recorded calibration gives Q-hat {again}, not {float(Q)}")
+        return bootstrap_q_std(rec["cal_scores"], rec["cal_weights"], alpha, convention)
+
+    def finish(self, summary: dict, phases: List[Phase], headline, n_test: int,
+               sign_pairs=(), extra: Optional[dict] = None) -> dict:
+        rows = compare(phases, headline, n_test)
+        sgn = [dict(pair=f"{a.name}->{b.name}", **s) for a, b in sign_pairs
+               for s in signs(a, b, headline)]
+        card = card_line() if self.cuda else "cpu"
+        self.emit("SUMMARY " + json.dumps(summary))
+        for r in rows:
+            self.emit(f"COMPARE {r['phase']} {r['metric']}: port {r['port']:.6g} +- "
+                      f"{r['port_std']:.3g} ({r['seeds']} eval seeds) | jax {r['jax']:.6g} | "
+                      f"band {r['band']:.3g} | {r['result']}")
+        for s in sgn:
+            self.emit(f"SIGN {s['pair']} {s['metric']}: port {s['port']} jax {s['jax']}"
+                      f"{'' if s['agree'] else ' (differs)'}")
+        self.emit("STAGES " + json.dumps({k: round(v, 3) for k, v in self.stages.items()}))
+        if self.cuda:
+            self.emit("PEAK_GB " + json.dumps({k: round(v, 3) for k, v in self.peak_gb.items()}))
+        self.emit("LAUNCHES " + json.dumps(self.launches))
+        self.emit(f"CARD {card}")
+        result = dict(recipe=self.name, scale=self.scale, seed=self.seed,
+                      eval_seeds=self.eval_seeds, device=str(self.device), card=card,
+                      summary=summary, comparison=rows, signs=sgn, stages=self.stages,
+                      peak_gb=self.peak_gb, launches=self.launches, **(extra or {}))
+        with open(self.out / f"round1_{self.name}.json", "w") as f:
+            json.dump(result, f, indent=1)
+        return result
+
+
+# ---------------------------------------------------------------------------
+# The four runs
+# ---------------------------------------------------------------------------
+
+def run_1d_validation(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
+                      emit=print) -> dict:
+    """experiments/run_1d_validation.py: Burgers datagen, pretrain at the
+    turbo width in bf16, calibrate + evaluate, posttrain, evaluate."""
+    from safediffcon_torch.tasks.burgers import (
+        BurgersConformalConfig, BurgersDataset, BurgersPipeline, BurgersPostTrainConfig,
+        BurgersPretrainConfig, generate_burgers_dataset, posttrain, pretrain)
+
+    run = Run("burgers", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    path = str(run.out / "burgers_val.npz")
+    with run.stage("datagen"):
+        generate_burgers_dataset(path, **R["generate_burgers_dataset"], device=dev)
+    data = {s: BurgersDataset.load(path, s) for s in ("train", "cal", "test")}
+    run.tick(f"dataset generated ({sum(len(d) for d in data.values())} trajectories)")
+
+    pre = BurgersPretrainConfig(**run.seeded(R["BurgersPretrainConfig"]))
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **R["pretrain"], device=dev)
+    run.tick(f"pretrain {R['pretrain']['num_steps']} steps done")
+
+    conf = BurgersConformalConfig(**R["BurgersConformalConfig"])
+    pipe = BurgersPipeline(conf, **R["BurgersPipeline"], device=dev)
+    pipe.record = {}
+    with run.stage("pretrain_calibrate"):
+        Q = pipe.calibrate(state.ema_params, data["cal"].data, torch.zeros((), device=dev),
+                           generator=run.gen(0))
+    run.tick(f"Q-hat = {float(Q):.5f}")
+    q_pre = run.q_std(pipe, Q, conf.alpha, "alpha")
+    m0s, _ = run.evals("pretrain", lambda g: pipe.evaluate(state.ema_params, data["test"], Q,
+                                                           generator=g), 1)
+    run.tick(f"eval after pretrain: {json.dumps(m0s[0])}")
+
+    pt = BurgersPostTrainConfig(
+        conformal=BurgersConformalConfig(**R["BurgersPostTrainConfig.conformal"]),
+        **run.seeded(R["BurgersPostTrainConfig"]))
+    finetune = BurgersDataset.load(path, "train", **R["BurgersDataset.load"])
+    with run.stage("posttrain"):
+        state2, Q2, hist = posttrain(pt, pipe, state.ema_params, finetune, data["cal"],
+                                     data["test"], **R["posttrain"])
+    run.tick(f"posttrain done, Q={float(Q2):.5f}")
+    q_post = run.q_std(pipe, Q2, conf.alpha, "alpha")
+    m1s, _ = run.evals("posttrain", lambda g: pipe.evaluate(state2.ema_params, data["test"], Q2,
+                                                            generator=g), 2)
+    run.tick(f"eval after posttrain: {json.dumps(m1s[0])}")
+
+    summary = {"pretrain_eval": m0s[0], "posttrain_eval": m1s[0], "Q_pre": float(Q),
+               "Q_post": float(Q2)}
+    j = run.jax
+    phases = [Phase("pretrain", m0s, float(Q), q_pre, j["pretrain_eval"], j["Q_pre"]),
+              Phase("posttrain", m1s, float(Q2), q_post, j["posttrain_eval"], j["Q_post"])]
+    return run.finish(summary, phases, HEADLINE["burgers"], len(data["test"]),
+                      sign_pairs=[(phases[0], phases[1])],
+                      extra=dict(posttrain_history=hist))
+
+
+def run_1d_infft_validation(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
+                            emit=print) -> dict:
+    """experiments/run_1d_infft_validation.py: Burgers datagen and pretrain,
+    bf16 and float32 calibrate + evaluate on the same weights, then InfFT."""
+    from safediffcon_torch.tasks.burgers import (
+        BurgersConformalConfig, BurgersDataset, BurgersInfFTConfig, BurgersPipeline,
+        BurgersPretrainConfig, generate_burgers_dataset, inference_finetune, pretrain)
+
+    run = Run("burgers_infft", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    path = str(run.out / "burgers_val2.npz")
+    with run.stage("datagen"):
+        generate_burgers_dataset(path, **R["generate_burgers_dataset"], device=dev)
+    run.tick("dataset generated")
+    data = {s: BurgersDataset.load(path, s) for s in ("train", "cal", "test")}
+
+    pre = BurgersPretrainConfig(**run.seeded(R["BurgersPretrainConfig"]))
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **R["pretrain"], device=dev)
+    run.tick(f"pretrain {R['pretrain']['num_steps']} steps done")
+
+    results, phases = {}, []
+    for dt in DTYPE_CHECK:
+        conf = BurgersConformalConfig(**R["BurgersConformalConfig"])
+        pipe = BurgersPipeline(conf, **{**R["BurgersPipeline"][0], "compute_dtype": dt},
+                               device=dev)
+        pipe.record = {}
+        with run.stage(f"{dt}_calibrate"):
+            Q = pipe.calibrate(state.ema_params, data["cal"].data, torch.zeros((), device=dev),
+                               generator=run.gen(0))
+        qs = run.q_std(pipe, Q, conf.alpha, "alpha")
+        ms, _ = run.evals(dt, lambda g: pipe.evaluate(state.ema_params, data["test"], Q,
+                                                      generator=g), 1)
+        results[dt] = {"Q": float(Q), **ms[0]}
+        jd = run.jax["dtype_check"][dt]
+        phases.append(Phase(dt, ms, float(Q), qs, jd, jd["Q"]))
+        run.tick(f"{dt}: Q={float(Q):.4f} J={ms[0]['control_mse_mean (J)']:.4f} "
+                 f"R_t={ms[0]['time_exceed_ratio (R_t)']:.4f}")
+        del pipe
+
+    conf = BurgersConformalConfig(**R["BurgersConformalConfig"])
+    pipe = BurgersPipeline(conf, **R["BurgersPipeline"][1], device=dev)
+    pipe.record = {}
+    cfg = BurgersInfFTConfig(**run.seeded(R["BurgersInfFTConfig"]))
+    with run.stage("infft"):
+        state2, Q2, hist = inference_finetune(cfg, pipe, state.ema_params, data["cal"],
+                                              data["test"])
+    run.tick(f"InfFT done, Q={float(Q2):.4f}")
+    q_ft = run.q_std(pipe, Q2, conf.alpha, "alpha")
+    mfs, _ = run.evals("infft", lambda g: pipe.evaluate(state2.ema_params, data["test"], Q2,
+                                                        generator=g), 2)
+    run.tick(f"eval after InfFT: {json.dumps(mfs[0])}")
+    summary = {"dtype_check": results, "infft_eval": mfs[0], "infft_history": hist,
+               "Q_infft": float(Q2)}
+    phases.append(Phase("infft", mfs, float(Q2), q_ft, run.jax["infft_eval"], run.jax["Q_infft"]))
+
+    # the script's dtype check: bf16 against float32 on the same weights and draws
+    b, f = results["bfloat16"], results["float32"]
+    dtype_rel = {k: abs(b[k] - f[k]) / abs(f[k]) for k in ("control_mse_mean (J)", "Q")}
+    emit("DTYPE bf16 vs float32 relative difference: "
+         + ", ".join(f"{k} {v:.3%}" for k, v in dtype_rel.items())
+         + (" (within 1 %)" if max(dtype_rel.values()) <= 0.01 else " (over 1 %)"))
+    return run.finish(summary, phases, HEADLINE["burgers"], len(data["test"]),
+                      sign_pairs=[(phases[0], phases[2])], extra=dict(dtype_rel=dtype_rel))
+
+
+def run_tokamak_validation(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
+                           emit=print) -> dict:
+    """experiments/run_tokamak_validation.py: closed-loop datagen, pretrain
+    of the turbo UNet1D in bf16, calibrate + evaluate, then posttrain
+    through run_inference."""
+    from safediffcon_torch.tasks.tokamak import (
+        TokamakConformalConfig, TokamakDataset, TokamakInferenceConfig, TokamakPipeline,
+        TokamakPretrainConfig, generate_tokamak_dataset, pretrain, run_inference)
+
+    run = Run("tokamak", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    path = str(run.out / "tok_val.npz")
+    with run.stage("datagen"):
+        generate_tokamak_dataset(path, **R["generate_tokamak_dataset"], device=dev)
+    data = {s: TokamakDataset.load(path, s) for s in ("train", "cal", "test")}
+    run.tick(f"dataset generated ({sum(len(d) for d in data.values())} closed-loop "
+             f"trajectories)")
+
+    pre = TokamakPretrainConfig(**run.seeded(R["TokamakPretrainConfig"]))
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **R["pretrain"], device=dev)
+    run.tick(f"pretrain {R['pretrain']['num_steps']} steps done")
+
+    conf = TokamakConformalConfig(**R["TokamakConformalConfig"])
+    pipe = TokamakPipeline(conf, **R["TokamakPipeline"], device=dev)
+    pipe.record = {}
+    with run.stage("pretrain_calibrate"):
+        Q = pipe.calibrate(state.ema_params, data["cal"], torch.zeros((), device=dev),
+                           generator=run.gen(0))
+    run.tick(f"Q-hat = {float(Q):.5f}")
+    q_pre = run.q_std(pipe, Q, conf.alpha, "alpha")
+    m0s, _ = run.evals("pretrain", lambda g: pipe.evaluate(state.ema_params, data["test"], Q,
+                                                           generator=g), 1)
+    run.tick(f"eval after pretrain: {json.dumps(m0s[0])}")
+
+    cfg = TokamakInferenceConfig(conformal=conf, **run.seeded(R["TokamakInferenceConfig"]))
+    with run.stage("posttrain"):
+        params, Q2, hist = run_inference(cfg, pipe, state.ema_params, data["train"],
+                                         data["cal"], data["test"])
+    run.tick(f"posttrain done, Q={float(Q2):.5f}")
+    q_post = run.q_std(pipe, Q2, conf.alpha, "alpha")
+    # the script's posttrain eval is the last epoch's; the extra seeds follow
+    m1 = hist[-1]["eval"]
+    extra, _ = run.evals("posttrain", lambda g: pipe.evaluate(None, data["test"], Q2,
+                                                              generator=g), None)
+    m1s = [m1] + extra
+    summary = {"pretrain_eval": m0s[0], "posttrain_eval": m1, "Q_pre": float(Q), "Q_post": float(Q2)}
+    j = run.jax
+    phases = [Phase("pretrain", m0s, float(Q), q_pre, j["pretrain_eval"], j["Q_pre"]),
+              Phase("posttrain", m1s, float(Q2), q_post, j["posttrain_eval"], j["Q_post"])]
+    return run.finish(summary, phases, HEADLINE["tokamak"], len(data["test"]),
+                      sign_pairs=[(phases[0], phases[1])], extra=dict(posttrain_history=hist))
+
+
+def run_2d_validation(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
+                      emit=print) -> dict:
+    """experiments/run_2d_validation.py: smoke datagen (256-frame rollouts on
+    K1), pretrain of a reduced UNet3D in bf16 (on K2 on the card),
+    calibrate, evaluate through the 256-frame solver (K1)."""
+    from safediffcon_torch.tasks.smoke import (
+        SmokeConformalConfig, SmokeDataset, SmokePipeline, SmokePretrainConfig,
+        generate_smoke_dataset, pretrain)
+
+    run = Run("smoke", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    if run.cuda:
+        from safediffcon_torch.ops import build
+
+        with run.stage("build_kernels"):  # one nvcc per source, all together
+            build.build_all(["pressure_cg", "conv3d_wgmma", "conv3d_simt"])
+    path = str(run.out / "smoke_val.npz")
+    with run.stage("datagen"):
+        generate_smoke_dataset(path, **R["generate_smoke_dataset"], device=dev)
+    data = {s: SmokeDataset.load(path, s) for s in ("train", "cal", "test")}
+    run.tick(f"dataset generated ({sum(len(d) for d in data.values())} sims x "
+             f"{R['generate_smoke_dataset']['n_frames']} frames)")
+    run.tick(f"train data {data['train'].data.shape}")
+
+    pre = SmokePretrainConfig(**run.seeded(R["SmokePretrainConfig"]))
+    steps = R["pretrain"]["num_steps"]
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **R["pretrain"], device=dev)
+    run.tick(f"pretrain {steps} steps done")
+
+    conf = SmokeConformalConfig(**R["SmokeConformalConfig"])
+    pipe = SmokePipeline(conf, **R["SmokePipeline"], device=dev)
+    pipe.model.load_state_dict(state.ema_params)
+    pipe.record = {}
+    with run.stage("pretrain_calibrate"):
+        Q = pipe.calibrate(data["cal"], torch.zeros((), device=dev), generator=run.gen(0))
+    run.tick(f"Q-hat = {float(Q):.5f}")
+    q_std = run.q_std(pipe, Q, conf.alpha, "one_minus_alpha")
+    ms, per_sample = run.evals("pretrain", lambda g: pipe.evaluate(data["test"], Q, generator=g),
+                               1, record=pipe.record)
+    run.tick(f"eval (solver rollout): {json.dumps(ms[0])}")
+    summary = {"eval": ms[0], "Q": float(Q)}
+    phases = [Phase("pretrain", ms, float(Q), q_std, run.jax["eval"], run.jax["Q"], per_sample)]
+    launches = run.launches
+    per_step = {m: c / steps for m, c in launches["pretrain"]["K2"].items()}
+    emit(f"K2 per pretrain step: tensor cores {json.dumps(per_step)}, SIMT "
+         f"{launches['pretrain']['K2_simt'] / steps:g}; K1: datagen "
+         f"{launches['datagen']['K1']}, evaluate {launches['pretrain_evaluate']['K1']}")
+    return run.finish(summary, phases, HEADLINE["smoke"], len(data["test"]))
+
+
+RUNS = {"burgers": run_1d_validation, "burgers_infft": run_1d_infft_validation,
+        "tokamak": run_tokamak_validation, "smoke": run_2d_validation}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m safediffcon_torch.experiments.round1",
+        description="The JAX package's round-1 validation runs on the port, held against "
+                    "its recorded results")
+    ap.add_argument("recipe", choices=sorted(RUNS))
+    ap.add_argument("--seed", type=int, default=None,
+                    help="training seed (default: the configs' own)")
+    ap.add_argument("--eval-seeds", type=int, default=3,
+                    help="evaluations of each phase's weights (default 3)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--scale", default="full", choices=("full", "tiny"))
+    ap.add_argument("--out", default=None, help="data and results directory "
+                    "(default build/round1/<recipe>)")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA card is visible; pass --device cpu to run on the CPU")
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    RUNS[args.recipe](scale=args.scale, seed=args.seed, eval_seeds=args.eval_seeds,
+                      device=args.device, out=args.out,
+                      emit=lambda line: print(line, flush=True))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

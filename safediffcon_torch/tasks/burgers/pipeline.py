@@ -182,6 +182,9 @@ class BurgersPipeline:
         # seconds per phase of `_evaluate` ("sampling", "rollout"), summed
         # over calls, when set to a dict; each phase then ends in a sync
         self.phase_seconds: Optional[Dict[str, float]] = None
+        # when set to a dict, `calibrate` stores its per-sample scores and
+        # raw weights there ("cal_scores", "cal_weights", on the CPU)
+        self.record: Optional[Dict[str, torch.Tensor]] = None
 
     def _bind(self, params: Params, x, t):
         if params is None:
@@ -257,8 +260,10 @@ class BurgersPipeline:
                                        **draws_kw(noise, generator, sh))
                 scores.append(sh.gather(s))
                 weights.append(sh.gather(w))
-        weights = normalize_weights(torch.cat(weights))
-        return weighted_quantile(weights * torch.cat(scores), self.ccfg.alpha)
+        scores, weights = torch.cat(scores), torch.cat(weights)
+        if self.record is not None:
+            self.record.update(cal_scores=scores.cpu(), cal_weights=weights.cpu())
+        return weighted_quantile(normalize_weights(weights) * scores, self.ccfg.alpha)
 
     # ---- reweights over a split ------------------------------------------
 

@@ -168,6 +168,11 @@ class SmokePipeline:
         # seconds per phase of `_evaluate` ("sampling", "rollout"), summed
         # over calls, when set to a dict; each phase then ends in a sync
         self.phase_seconds: Optional[Dict[str, float]] = None
+        # when set to a dict, `calibrate` stores its per-sample scores and
+        # raw weights there ("cal_scores", "cal_weights", on the CPU), and
+        # `evaluate` each test sample's final smoke and safe rates, negated
+        # smoke first ("J_target", "safe_target": lists of per-chunk tensors)
+        self.record: Optional[Dict[str, object]] = None
 
     def apply_fn(self, x, t):
         return self.model(x, t)
@@ -219,6 +224,10 @@ class SmokePipeline:
         pred[:, 0, :, :, 0] = state_raw[:, 0, :, :, 0]
         with self._phase("rollout"):
             sol = solver_rollout(self.masks, pred, state_raw, **self.solver_kw)
+        if self.record is not None:
+            for name, v in (("J_target", -sol[:, -1, 0, 0, SMOKE]),
+                            ("safe_target", sol[:, -1, 0, 0, SAFE])):
+                self.record.setdefault(name, []).append(v.cpu())
         return evaluate_samples(pred, sol, Q, self.task_cfg.safe_bound)
 
     def calibrate(self, cal: SmokeDataset, Q, generator: Optional[torch.Generator] = None,
@@ -244,7 +253,10 @@ class SmokePipeline:
                 scores.append(sh.gather(s))
                 weights.append(sh.gather(w))
         scores = torch.cat(scores)
-        weights = normalize_weights(torch.cat(weights))
+        weights = torch.cat(weights)
+        if self.record is not None:
+            self.record.update(cal_scores=scores.cpu(), cal_weights=weights.cpu())
+        weights = normalize_weights(weights)
         return weighted_quantile(weights * scores, self.ccfg.alpha, "one_minus_alpha")
 
     def reweights(self, data: SmokeDataset, Q) -> np.ndarray:

@@ -7,10 +7,9 @@ subprocesses driving the Keras solver (reference:
 tokamak/kstar_data_generator_random_target.py,
 tokamak/data_parallel_generate.py:17-33). Here the closed loop runs batched
 on `device`. Split sizes follow the reference: train 48950 / cal 1000 /
-test 50 (tokamak/data/tokamak_dataset.py:11-16).
-
-The JAX `TokamakDataset.load_hf` (the reference's HF on-disk layout) is not
-ported: that dataset is not in the repository.
+test 50 (tokamak/data/tokamak_dataset.py:11-16). `TokamakDataset.load_hf`
+reads the reference's HF on-disk layout with the port's numpy Arrow reader
+(`utils/arrow_ipc.py`), without `datasets` or `pyarrow`.
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ import torch
 
 from safediffcon_torch.solvers.kstar import closed_loop_batch, load_kstar_params
 from safediffcon_torch.tasks.tokamak.task import N_ACTIONS, N_STATES, NT, PAD_SIZE, SCALER
+from safediffcon_torch.utils import arrow_ipc
 
 
 def generate_tokamak_dataset(
@@ -110,6 +110,44 @@ class TokamakDataset:
         if subset is not None:
             states, actions = states[:subset], actions[:subset]
         return cls(data=stack_and_pad(states, actions), state_phys=states.astype(np.float32))
+
+    @classmethod
+    def load_hf(
+        cls,
+        path: str,
+        split: str,
+        n_train: int = 48950,
+        n_cal: int = 1000,
+        n_test: int = 50,
+        subset: Optional[int] = None,
+    ) -> "TokamakDataset":
+        """Read the reference's HuggingFace-datasets on-disk layout.
+
+        Rows carry `outputs` (122, 8) solver outputs and `actions` (121, 9);
+        states are output columns [1, 4, 6] = (βp, q95, li). Splits are
+        contiguous index ranges: train [0, 48950), cal [48950, 49950),
+        test [49950, 50000) (reference: tokamak/data/tokamak_dataset.py:5-56).
+        Range sizes are parameterized so smaller mirrors also load. A range
+        past the last row raises IndexError, as `Dataset.select` does."""
+        bounds = {
+            "train": (0, n_train),
+            "cal": (n_train, n_train + n_cal),
+            "test": (n_train + n_cal, n_train + n_cal + n_test),
+        }
+        if split not in bounds:
+            raise ValueError(f"split must be one of {sorted(bounds)}, got {split!r}")
+        cols = arrow_ipc.load_from_disk(path, ("outputs", "actions"))
+        lo, hi = bounds[split]
+        if subset is not None:
+            hi = min(hi, lo + subset)
+        n = len(cols["outputs"])
+        if hi > n:
+            raise IndexError(f"rows [{lo}, {hi}) of a {n}-row dataset")
+        # one rounding to float32, as the numpy format of `datasets` and the
+        # JAX loader's cast do it
+        actions = cols["actions"][lo:hi].astype(np.float32)
+        states = cols["outputs"][lo:hi][:, :, [1, 4, 6]].astype(np.float32)
+        return cls(data=stack_and_pad(states, actions), state_phys=states)
 
     def __len__(self) -> int:
         return self.data.shape[0]

@@ -76,15 +76,25 @@ def test_dispatch_smoke_sim_dirs(tmp_path):
 
 
 def test_dispatch_tokamak_hf_waits_for_the_dataset(tmp_path):
-    """A tokamak HF-dataset directory: the port has no `load_hf` until the
-    reference dataset's files are in the repository, and says so."""
+    """A tokamak HF-dataset directory (written by `datasets.save_to_disk`)
+    goes to `load_hf`, which the port reads with its own numpy Arrow reader:
+    the arrays equal the JAX loader's. A directory with neither an HF
+    dataset nor sim dirs still exits."""
+    datasets = pytest.importorskip("datasets")
+    rng = np.random.default_rng(4)
+    outputs = rng.normal(size=(6, 122, 8))
+    actions = rng.normal(size=(6, 121, 9)).astype(np.float32)
     path = tmp_path / "tok_ds"
-    path.mkdir()
-    (path / "dataset_info.json").write_text("{}")
-    with pytest.raises(SystemExit, match="no HF-dataset loader.*load_hf"):
-        M._dispatch_load(TokamakDataset, str(path), "train")
+    datasets.Dataset.from_dict({"outputs": list(outputs), "actions": list(actions)}
+                               ).save_to_disk(str(path))
+    kw = dict(n_train=3, n_cal=2, n_test=1)
+    for split in ("train", "cal", "test"):
+        got = M._dispatch_load(TokamakDataset, str(path), split, **kw)
+        _assert_same(got, JM._dispatch_load(JTokamak, str(path), split, **kw),
+                     ("data", "state_phys"))
+    (tmp_path / "empty").mkdir()
     with pytest.raises(SystemExit, match="no sim-dir loader"):
-        M._dispatch_load(TokamakDataset, str(tmp_path), "train")
+        M._dispatch_load(TokamakDataset, str(tmp_path / "empty"), "train")
 
 
 def test_dispatch_npz_fallback(tmp_path):

@@ -42,6 +42,16 @@ MODULES = sorted(
     for p in (ROOT / "safediffcon_torch").rglob("*.py"))
 
 
+def test_port_reads_arrow_without_datasets_or_pyarrow():
+    """The card's host has neither `datasets` nor `pyarrow`: the port reads
+    the HF on-disk layout with its own reader (`utils/arrow_ipc.py`)."""
+    for path in SOURCES:
+        bad = sorted(set(_imported_roots(path)) & {"datasets", "pyarrow"})
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    assert "safediffcon_torch.utils.arrow_ipc" in MODULES
+    assert "safediffcon_torch.experiments.round1" in MODULES
+
+
 @pytest.mark.parametrize("name", MODULES)
 def test_module_imports_without_a_card(name):
     from safediffcon_torch.ops import build

@@ -244,12 +244,14 @@ round1.py, the port of the JAX package's experiments/run_*_validation.py):
       every distinct conv shape of one forward of the smoke recipe's UNet3D
       (dim 32, mults (1, 2), 4 x 32 frames of 64^2) and of its tiny cut
       (dim 8, 2 x 2 frames of 32^2);
- 14b. the four recipes (burgers, burgers_infft, tokamak, smoke) at --scale
-      tiny on the card, one evaluation per phase, K1 and K2 counts zeroed
-      before each and read after: each SUMMARY has exactly the keys of the
-      JAX run's results JSON and finite values, and prints its comparison
-      lines; the smoke recipe launches K1 in datagen and in evaluate and K2
-      in pretrain (bf16), the others neither.
+ 14b. the six recipes (burgers, burgers_infft, tokamak, smoke,
+      smoke_posttrain, burgers_20k) at --scale tiny on the card, one
+      evaluation per phase, K1 and K2 counts zeroed before each and read
+      after: each SUMMARY has exactly the keys of the JAX run's results JSON
+      and finite values, and prints its comparison lines; the two smoke
+      recipes launch K1 in datagen and in every evaluation (smoke_posttrain:
+      in each posttrain and backward fine-tuning epoch's) and K2 in pretrain
+      (bf16), the Burgers and tokamak ones neither.
 
 Depth cut to make room for phase 14: 13(e)'s calibrate at DDIM 10 on 24
 cal sims (DDIM 20 on 50 before).
@@ -2787,7 +2789,7 @@ def phase_round1(K, C) -> dict:
         f"largest error {max(d / m for c in k2_cases for d, m in zip(c['max_diff'], c['max_abs'])):.2e} "
         f"of max")
     runs = {}
-    for name in ("burgers", "burgers_infft", "tokamak", "smoke"):
+    for name in ("burgers", "burgers_infft", "tokamak", "smoke", "smoke_posttrain", "burgers_20k"):
         K.pressure_cg_cuda.launches = 0
         zero_k2_counts(C)
         t = time.perf_counter()
@@ -2809,11 +2811,14 @@ def phase_round1(K, C) -> dict:
         k2_total = sum(counts["k2"].values()) + counts["k2_simt"]
         log(f"14 {name} --scale tiny: {runs[name]['seconds']:.1f} s, K1 {counts['k1']}, "
             f"K2 {counts['k2']} + SIMT {counts['k2_simt']}")
-        if name == "smoke":
+        if name.startswith("smoke"):
             st = res["launches"]
-            if not (st["datagen"]["K1"] > 0 and st["pretrain_evaluate"]["K1"] > 0
+            # smoke evaluates in its own stage; smoke_posttrain inside each
+            # fine-tuning stage (one evaluation per epoch at one eval seed)
+            evals = (["pretrain_evaluate"] if name == "smoke" else ["posttrain", "backward"])
+            if not (st["datagen"]["K1"] > 0 and all(st[e]["K1"] > 0 for e in evals)
                     and sum(st["pretrain"]["K2"].values()) + st["pretrain"]["K2_simt"] > 0):
-                raise AssertionError(f"14 smoke: K1 in datagen and evaluate and K2 in pretrain "
+                raise AssertionError(f"14 {name}: K1 in datagen and evaluate and K2 in pretrain "
                                      f"must launch: {st}")
         elif counts["k1"] or k2_total:
             raise AssertionError(f"14 {name}: a TPU-kernel counterpart ran off its path: {counts}")
@@ -2930,6 +2935,7 @@ def main() -> int:
     # phase 14: the round-1 validation runs at --scale tiny
     p14 = phase_round1(K, C)
     p14_smoke = p14["runs"]["smoke"]["launches"]
+    p14_sp = p14["runs"]["smoke_posttrain"]["launches"]
     log(f"phase 14 in {p14['seconds']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [dict(
@@ -2937,13 +2943,15 @@ def main() -> int:
         replaces="safediffcon_tpu/ops/pressure_cg.py:42",
         also_replaces="safediffcon_tpu/ops/pressure_cg.py:119",
         launches=(launches + dpm_launches + cli_launches["k1_eval"]
-                  + sum(p13["d"]["k1_per_rank"]) + p14_smoke["k1"]),
+                  + sum(p13["d"]["k1_per_rank"]) + p14_smoke["k1"] + p14_sp["k1"]),
         main_path_launches={"phase 4 DDIM serving": launches,
                             "phase 11 DPM serving": dpm_launches,
                             "phase 12 smoke eval --checkpoints": cli_launches["k1_eval"],
                             "phase 13(d) DP serving, per rank": p13["d"]["k1_per_rank"],
                             "phase 14 round-1 smoke recipe, tiny (datagen + evaluate)":
-                                p14_smoke["k1"]},
+                                p14_smoke["k1"],
+                            "phase 14 smoke posttrain + backward recipe, tiny (datagen + "
+                            "3 evaluations)": p14_sp["k1"]},
         max_abs_err=max(c["max_diff"] for c in cases),
         ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
@@ -2972,10 +2980,11 @@ def main() -> int:
         launches=(conv_launches + bf16_launches + cli_launches["k2_cli_pretrain"]
                   + cli_launches["k2_pool_pretrain"] + p13["a"]["k2"]
                   + sum(p13["b"]["k2_per_rank"]) + sum(p13["c"]["k2_per_rank"])
-                  + sum(p14_smoke["k2"].values())),
+                  + sum(p14_smoke["k2"].values()) + sum(p14_sp["k2"].values())),
         main_path_modes={train_times["k2_mode"]: conv_launches + cli_launches["k2_cli_pretrain"]
                          + cli_launches["k2_pool_pretrain"],
-                         "bf16": bf16_launches + p14_smoke["k2"]["bf16"]},
+                         "bf16": (bf16_launches + p14_smoke["k2"]["bf16"]
+                                  + p14_sp["k2"]["bf16"])},
         main_path_launches={"phase 8 pretrain": conv_launches, "phase 10b bf16": bf16_launches,
                             "phase 12 smoke pretrain --steps-per-call 2":
                                 cli_launches["k2_cli_pretrain"],
@@ -2986,7 +2995,9 @@ def main() -> int:
                                 p13["b"]["k2_per_rank"],
                             "phase 13(c) SP forward + backward, per rank (3xTF32)":
                                 p13["c"]["k2_per_rank"],
-                            "phase 14 round-1 smoke recipe, tiny (pretrain)": p14_smoke["k2"]},
+                            "phase 14 round-1 smoke recipe, tiny (pretrain)": p14_smoke["k2"],
+                            "phase 14 smoke posttrain + backward recipe, tiny (pretrain)":
+                                p14_sp["k2"]},
         max_abs_err=max(c["max_diff"] for c in f32_cases),
         ms=conv_main["kernel_ms"], plain_ms=conv_main["plain_ms"],
         bound_ms=conv_main["bound_ms"], bound_by=conv_main["bound_by"],
@@ -2996,7 +3007,7 @@ def main() -> int:
     kernels.append(dict(
         name="conv3d_fused_simt", route="cuda", source="safediffcon_torch/csrc/conv3d_simt.cu",
         replaces="safediffcon_tpu/ops/conv3d_mxu.py:46",
-        launches=train_times["simt_launches"] + p14_smoke["k2_simt"],
+        launches=train_times["simt_launches"] + p14_smoke["k2_simt"] + p14_sp["k2_simt"],
         max_abs_err=simt_case["max_diff"],
         ms=simt_case["kernel_ms"], plain_ms=simt_case["plain_ms"],
         bound_ms=simt_case["bound_ms"], bound_by=simt_case["bound_by"],

@@ -2,12 +2,16 @@
 the JAX package's recorded results.
 
 Port of `experiments/run_1d_validation.py`, `run_1d_infft_validation.py`,
-`run_tokamak_validation.py` and `run_2d_validation.py`: datagen, pretrain,
-calibrate and evaluate, then posttrain or InfFT, with each script's own
-arguments (the recipe dicts below), through the port's entry points:
+`run_tokamak_validation.py`, `run_2d_validation.py`,
+`run_2d_posttrain_validation.py` and `run_1d_long.py`: datagen, pretrain,
+calibrate and evaluate, then posttrain, InfFT or the smoke backward
+fine-tune, with each script's own arguments (the recipe dicts below),
+through the port's entry points:
 
-    python -m safediffcon_torch.experiments.round1 {burgers,burgers_infft,tokamak,smoke}
+    python -m safediffcon_torch.experiments.round1
+        {burgers,burgers_infft,tokamak,smoke,smoke_posttrain,burgers_20k}
         [--seed S] [--eval-seeds N] [--device cuda|cpu] [--scale full|tiny] [--out DIR]
+        [--state-dir DIR] [--pretrain-seconds S]
 
 Each run prints the JAX script's `SUMMARY {...}` line (its keys and metric
 names), then the comparison with the JAX run's committed results
@@ -17,9 +21,10 @@ names), then the comparison with the JAX run's committed results
             | band <b> | in/out
     SIGN <metric>: port <+/-> jax <+/->      (pretrain -> posttrain / InfFT)
 
-After each phase the same weights are evaluated `--eval-seeds` times (the
-script's draw, then seeds 1001, 1002, ...), and the port's mean is held
-against the JAX value with the band
+After each phase (for `smoke_posttrain`, after each fine-tuning epoch,
+through `run_inference`'s `on_epoch`) the same weights and Q-hat are
+evaluated `--eval-seeds` times (the script's draw, then seeds 1001, 1002,
+...), and the port's mean is held against the JAX value with the band
 
   - a mean over samples (J, obj_mse_mean, safety_score_mean, J_target,
     safe_target): 3 * max(across-seed std, per-sample std / sqrt(n_test));
@@ -41,7 +46,19 @@ chip_smoke.py's size), not the recipes' shapes of data.
 Each run also prints the seconds and peak device memory of every stage, the
 card's `name, power.limit` (nvidia-smi), and, per stage, the launches of K1
 (`ops/pressure_cg.py`) and K2 (`ops/conv3d_mxu.py`, tensor-core modes and
-SIMT), and writes all of it to `<out>/round1_<recipe>.json`.
+SIMT), and writes all of it to `<out>/round1_<recipe>.json`. A stage opened
+inside another (an evaluation inside a fine-tuning phase) is not counted in
+the outer one. The smoke runs also print the mean |c| of the sampled
+controls in the band below the maze against the test data's (CONTROL), and
+`smoke` saves its evaluated EMA weights as a flax tree
+(`<out>/smoke_ema_flax.npz`, `models/convert.py::save_flax_npz`), which
+`tools/smoke_weight_swap.py` samples and evaluates with the JAX package.
+
+`burgers_20k` pretrains through `pretrain(resume_dir=, deadline=)`: its
+checkpoints go to `--state-dir` (default `<out>/b_long_ckpt`), a rerun with
+the same directory resumes from the last one, and `--pretrain-seconds`
+stops pretraining after that many seconds with a checkpoint (the run then
+ends with a PRETRAIN line and no comparison).
 """
 from __future__ import annotations
 
@@ -62,6 +79,7 @@ import numpy as np
 import torch
 
 from safediffcon_torch.core.conformal import conformal_quantile
+from safediffcon_torch.models.convert import save_flax_npz, state_dict_to_flax
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -118,16 +136,57 @@ SMOKE = {
     "SmokePipeline": dict(dim=32, dim_mults=(1, 2), compute_dtype="bfloat16"),
 }
 
+_SMOKE_DIM = dict(dim=32, dim_mults=(1, 2))
+SMOKE_POSTTRAIN = {
+    "generate_smoke_dataset": dict(n_train=96, n_cal=32, n_test=8, n_frames=256, gen_batch=16,
+                                   seed=7),
+    "SmokePretrainConfig": dict(**_SMOKE_DIM, batch_size=4, checkpoint_every=10**9,
+                                compute_dtype="bfloat16"),
+    "pretrain": dict(num_steps=400, log_every=100),
+    "SmokeConformalConfig": dict(cal_batch_size=32, num_cal_batch=1, ddim_sampling_steps=50,
+                                 test_batch_size=8, standard_fixed_ratio=100.0, w_safe=0.9),
+    # posttrain's pipeline, then the backward fine-tune's (on the test set)
+    "SmokePipeline": [dict(**_SMOKE_DIM, compute_dtype="bfloat16"),
+                      dict(**_SMOKE_DIM, compute_dtype="bfloat16", finetune_set="test")],
+    "SmokeInferenceConfig": [dict(finetune_epoch=2, finetune_steps=50, finetune_batch_size=4,
+                                  finetune_lr=1e-4),
+                             dict(backward_finetune=True, finetune_epoch=1, finetune_steps=1)],
+    "SmokeInferenceConfig.conformal": dict(cal_batch_size=32, num_cal_batch=1,
+                                           ddim_sampling_steps=50, test_batch_size=8,
+                                           standard_fixed_ratio=100.0, w_safe=1.0,
+                                           use_guidance=False, alpha=0.01),
+}
+
+BURGERS_20K = {
+    "generate_burgers_dataset": dict(n_train=40000, n_cal=1000, n_test=50, seed=0),
+    "BurgersPretrainConfig": dict(dim=128, batch_size=32, lr=1e-4, checkpoint_every=10_000,
+                                  compute_dtype="bfloat16"),
+    # checkpoint_dir is the script's; the port writes under --state-dir
+    "pretrain": dict(num_steps=20000, log_every=1000, checkpoint_dir="/tmp/b_long_ckpt"),
+    "BurgersConformalConfig": dict(w_score=500.0),
+    "BurgersPipeline": dict(dim=128, compute_dtype="bfloat16"),
+    "BurgersPostTrainConfig": dict(finetune_epoch=3, finetune_steps=400, finetune_batch_size=64,
+                                   finetune_subset_size=10240, finetune_lr=1e-4),
+    "BurgersPostTrainConfig.conformal": dict(w_score=2500.0),
+    "BurgersDataset.load": dict(subset=10240),
+    "posttrain": dict(eval_every_subset_epoch=False),
+    "BurgersInfFTConfig": dict(InfFT_iters=3, finetune_lr=1e-5),
+}
+
 RECIPES = {"burgers": BURGERS, "burgers_infft": BURGERS_INFFT, "tokamak": TOKAMAK,
-           "smoke": SMOKE}
+           "smoke": SMOKE, "smoke_posttrain": SMOKE_POSTTRAIN, "burgers_20k": BURGERS_20K}
 SCRIPTS = {"burgers": "experiments/run_1d_validation.py",
            "burgers_infft": "experiments/run_1d_infft_validation.py",
            "tokamak": "experiments/run_tokamak_validation.py",
-           "smoke": "experiments/run_2d_validation.py"}
+           "smoke": "experiments/run_2d_validation.py",
+           "smoke_posttrain": "experiments/run_2d_posttrain_validation.py",
+           "burgers_20k": "experiments/run_1d_long.py"}
 JAX_RESULTS = {"burgers": "experiments/validation_1d_round1.json",
                "burgers_infft": "experiments/validation_1d_infft_round1.json",
                "tokamak": "experiments/validation_tokamak_round1.json",
-               "smoke": "experiments/validation_2d_round1.json"}
+               "smoke": "experiments/validation_2d_round1.json",
+               "smoke_posttrain": "experiments/validation_2d_posttrain_round1.json",
+               "burgers_20k": "experiments/validation_1d_20k_round1.json"}
 
 # Settings of the full-scale runs on the card (module docstring).
 CARD = {
@@ -135,11 +194,18 @@ CARD = {
     "burgers_infft": {"BurgersPipeline": dict(cal_chunk=250)},
     "tokamak": {"TokamakPipeline": dict(cal_chunk=1000)},
     "smoke": {"SmokePretrainConfig": dict(conv_impl="pallas")},
+    "smoke_posttrain": {"SmokePretrainConfig": dict(conv_impl="pallas")},
+    "burgers_20k": {"BurgersPipeline": dict(cal_chunk=250)},
 }
 
-# --scale tiny: counts and widths cut, merged over the recipe (over each
-# entry of a list).
+# --scale tiny: counts and widths cut, merged over the recipe (a dict over
+# each entry of a list, a list entry by entry).
 _TINY_BURGERS_CONF = dict(ddim_sampling_steps=10, cal_batch_size=8, num_cal_batch=1)
+_TINY_SMOKE_DATA = dict(n_train=8, n_cal=4, n_test=2, n_frames=16, record_frames=2,
+                        space_scale=4, gen_batch=14, accuracy=1e-4, max_iter=40)
+_TINY_SMOKE_CONF = dict(cal_batch_size=4, ddim_sampling_steps=5, test_batch_size=2,
+                        timesteps=20)
+_TINY_SMOKE_PIPE = dict(dim=8, solver_accuracy=1e-4, solver_max_iter=40, solver_space_scale=4)
 TINY = {
     "burgers": {
         "generate_burgers_dataset": dict(n_train=40, n_cal=8, n_test=4),
@@ -168,15 +234,31 @@ TINY = {
         "TokamakInferenceConfig": dict(finetune_steps=2, train_batch_size=4),
     },
     "smoke": {
-        "generate_smoke_dataset": dict(n_train=8, n_cal=4, n_test=2, n_frames=16,
-                                       record_frames=2, space_scale=4, gen_batch=14,
-                                       accuracy=1e-4, max_iter=40),
+        "generate_smoke_dataset": _TINY_SMOKE_DATA,
         "SmokePretrainConfig": dict(dim=8, timesteps=20, batch_size=2),
         "pretrain": dict(num_steps=4, log_every=2),
-        "SmokeConformalConfig": dict(cal_batch_size=4, ddim_sampling_steps=5, test_batch_size=2,
-                                     timesteps=20),
-        "SmokePipeline": dict(dim=8, solver_accuracy=1e-4, solver_max_iter=40,
-                              solver_space_scale=4),
+        "SmokeConformalConfig": _TINY_SMOKE_CONF,
+        "SmokePipeline": _TINY_SMOKE_PIPE,
+    },
+    "smoke_posttrain": {
+        "generate_smoke_dataset": _TINY_SMOKE_DATA,
+        "SmokePretrainConfig": dict(dim=8, timesteps=20, batch_size=2),
+        "pretrain": dict(num_steps=4, log_every=2),
+        "SmokeConformalConfig": _TINY_SMOKE_CONF,
+        "SmokePipeline": _TINY_SMOKE_PIPE,
+        "SmokeInferenceConfig": [dict(finetune_steps=2, finetune_batch_size=2), {}],
+        "SmokeInferenceConfig.conformal": _TINY_SMOKE_CONF,
+    },
+    "burgers_20k": {
+        "generate_burgers_dataset": dict(n_train=40, n_cal=8, n_test=4),
+        "BurgersPretrainConfig": dict(dim=8, dim_mults=(1, 2)),
+        "pretrain": dict(num_steps=4, log_every=2),
+        "BurgersConformalConfig": _TINY_BURGERS_CONF,
+        "BurgersPipeline": dict(dim=8, dim_mults=(1, 2)),
+        "BurgersPostTrainConfig": dict(finetune_steps=2, finetune_batch_size=4,
+                                       finetune_subset_size=16),
+        "BurgersPostTrainConfig.conformal": _TINY_BURGERS_CONF,
+        "BurgersDataset.load": dict(subset=16),
     },
 }
 
@@ -196,6 +278,8 @@ HEADLINE = {
               ("safe_target", "mean", "record"),
               ("unsafe_percentage", "percent", None)],
 }
+HEADLINE.update(burgers_infft=HEADLINE["burgers"], burgers_20k=HEADLINE["burgers"],
+                smoke_posttrain=HEADLINE["smoke"])
 N_BOOTSTRAP = 200
 EVAL_SEED_BASE = 1000
 
@@ -209,7 +293,9 @@ def recipe(name: str, scale: str = "full", device="cuda") -> dict:
         merged.append(CARD[name])
     for extra in merged:
         for key, kw in extra.items():
-            if isinstance(out[key], list):
+            if isinstance(kw, list):
+                out[key] = [{**d, **k} for d, k in zip(out[key], kw)]
+            elif isinstance(out[key], list):
                 out[key] = [{**d, **kw} for d in out[key]]
             else:
                 out[key] = {**out[key], **kw}
@@ -255,6 +341,18 @@ def bootstrap_q_std(scores: torch.Tensor, weights: torch.Tensor, alpha: float, c
 
 def sign(x: float) -> str:
     return "+" if x > 0 else ("-" if x < 0 else "0")
+
+
+def control_line(phase: str, per_sample: Dict[str, list], test_raw: np.ndarray,
+                 space_scale: int) -> str:
+    """CONTROL line of a smoke phase: the mean |c| of the sampled controls in
+    the band below the maze (rows under 16 // space_scale, every frame,
+    physical units; `per_sample["band_control_abs"]`, one list per
+    evaluation) against the test data's."""
+    sampled = float(np.mean([np.mean(v) for v in per_sample["band_control_abs"]]))
+    data = float(np.abs(np.asarray(test_raw)[:, :, : 16 // space_scale, :, 3:5]).mean())
+    return (f"CONTROL {phase} band mean |c|: sampled {sampled:.6g} | data {data:.6g} | "
+            f"ratio {sampled / data:.3g}")
 
 
 @dataclasses.dataclass
@@ -358,6 +456,8 @@ class Run:
         self.stages: Dict[str, float] = {}
         self.peak_gb: Dict[str, float] = {}
         self.launches: Dict[str, dict] = {}
+        self._open: List[str] = []  # the stages open, innermost last
+        self._segment = (0.0, None)  # (start, kernel counts) of the innermost one
         self.t0 = time.perf_counter()
 
     def gen(self, seed: int) -> torch.Generator:
@@ -369,14 +469,16 @@ class Run:
     def tick(self, msg: str) -> None:
         self.emit(f"[{time.perf_counter() - self.t0:7.1f}s] {msg}")
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
+    def _start_segment(self) -> None:
         if self.cuda:
             torch.cuda.synchronize(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
-        before = kernel_counts()
-        t = time.perf_counter()
-        yield
+        self._segment = (time.perf_counter(), kernel_counts())
+
+    def _end_segment(self, name: str) -> None:
+        """Add the time, peak memory and launches since the last
+        `_start_segment` to stage `name`."""
+        t, before = self._segment
         if self.cuda:
             torch.cuda.synchronize(self.device)
             peak = torch.cuda.max_memory_allocated(self.device) / 1e9
@@ -388,6 +490,22 @@ class Run:
         prev["K2_simt"] += delta["K2_simt"]
         for m, c in delta["K2"].items():
             prev["K2"][m] = prev["K2"].get(m, 0) + c
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """Seconds, peak memory and kernel launches of a stage, summed over
+        its entries; a stage opened inside another is not counted in it."""
+        if self._open:
+            self._end_segment(self._open[-1])
+        self._open.append(name)
+        self._start_segment()
+        try:
+            yield
+        finally:
+            self._end_segment(name)
+            self._open.pop()
+            if self._open:
+                self._start_segment()
 
     def evals(self, phase: str, evaluate: Callable[[torch.Generator], Dict[str, float]],
               first_seed: Optional[int], record: Optional[dict] = None):
@@ -670,6 +788,10 @@ def run_2d_validation(scale="full", seed=None, eval_seeds=3, device="cuda", out=
     ms, per_sample = run.evals("pretrain", lambda g: pipe.evaluate(data["test"], Q, generator=g),
                                1, record=pipe.record)
     run.tick(f"eval (solver rollout): {json.dumps(ms[0])}")
+    emit(control_line("pretrain", per_sample, data["test"].raw, pipe.solver_kw["space_scale"]))
+    # the evaluated weights, for the JAX package (tools/smoke_weight_swap.py)
+    save_flax_npz(str(run.out / "smoke_ema_flax.npz"),
+                  state_dict_to_flax(pipe.model, state.ema_params))
     summary = {"eval": ms[0], "Q": float(Q)}
     phases = [Phase("pretrain", ms, float(Q), q_std, run.jax["eval"], run.jax["Q"], per_sample)]
     launches = run.launches
@@ -680,8 +802,184 @@ def run_2d_validation(scale="full", seed=None, eval_seeds=3, device="cuda", out=
     return run.finish(summary, phases, HEADLINE["smoke"], len(data["test"]))
 
 
+def run_2d_posttrain_validation(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
+                                emit=print) -> dict:
+    """experiments/run_2d_posttrain_validation.py: smoke datagen (seed 7, K1),
+    pretrain of the dim-32 UNet3D in bf16 (K2 on the card), posttrain
+    through run_inference (2 epochs), then the backward fine-tune (InfFT, one
+    epoch on the test set, unguided) on a second pipeline; after each epoch
+    the same weights and Q-hat are evaluated over the eval seeds."""
+    from safediffcon_torch.tasks.smoke import (
+        SmokeConformalConfig, SmokeDataset, SmokeInferenceConfig, SmokePipeline,
+        SmokePretrainConfig, generate_smoke_dataset, pretrain, run_inference)
+
+    run = Run("smoke_posttrain", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    if run.cuda:
+        from safediffcon_torch.ops import build
+
+        with run.stage("build_kernels"):  # one nvcc per source, all together
+            build.build_all(["pressure_cg", "conv3d_wgmma", "conv3d_simt"])
+    path = str(run.out / "smoke_val2.npz")
+    with run.stage("datagen"):
+        generate_smoke_dataset(path, **R["generate_smoke_dataset"], device=dev)
+    run.tick("dataset generated")
+    data = {s: SmokeDataset.load(path, s) for s in ("train", "cal", "test")}
+
+    pre = SmokePretrainConfig(**run.seeded(R["SmokePretrainConfig"]))
+    steps = R["pretrain"]["num_steps"]
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **R["pretrain"], device=dev)
+    run.tick(f"pretrain {steps} steps done")
+
+    def finetune(name, cfg, pipe, params, train, jax_hist):
+        """run_inference with its epochs held against JAX's: after each
+        epoch, its own evaluation (the script's) and the extra eval seeds on
+        the same weights and Q-hat."""
+        phases = []
+        pipe.record = {}
+
+        def on_epoch(rec):
+            e = rec["epoch"]
+            first = {k: [torch.cat(v).numpy().tolist()] for k, v in pipe.record.items()
+                     if not k.startswith("cal_")}
+            q = torch.tensor(rec["quantile"], device=dev)
+            q_std = run.q_std(pipe, q, cfg.conformal.alpha, "one_minus_alpha")
+            extra, per = run.evals(f"{name}{e}", lambda g: pipe.evaluate(data["test"], q,
+                                                                         generator=g),
+                                   None, record=pipe.record)
+            for k in [k for k in pipe.record if not k.startswith("cal_")]:
+                del pipe.record[k]  # the next epoch's evaluation starts afresh
+            per_sample = {k: first[k] + per.get(k, []) for k in first}
+            phases.append(Phase(f"{name}{e}", [rec["eval"]] + extra, rec["quantile"], q_std,
+                                jax_hist[e]["eval"], jax_hist[e]["quantile"], per_sample))
+            run.tick(f"{name} epoch {e}: Q={rec['quantile']:.5f} loss={rec['loss']} "
+                     f"J_target={rec['eval']['J_target']:.5g} "
+                     f"unsafe%={rec['eval']['unsafe_percentage']:.1f}")
+
+        with run.stage(name):
+            params, Q, hist = run_inference(cfg, pipe, params, train, data["cal"], data["test"],
+                                            on_epoch=on_epoch)
+        return params, Q, hist, phases
+
+    conf = SmokeConformalConfig(**R["SmokeConformalConfig"])
+    pipe = SmokePipeline(conf, **R["SmokePipeline"][0], device=dev)
+    cfg = SmokeInferenceConfig(conformal=conf, **run.seeded(R["SmokeInferenceConfig"][0]))
+    params, Q, hist, phases = finetune(
+        "posttrain", cfg, pipe, state.ema_params, data["train"], run.jax["posttrain_history"])
+    run.tick(f"posttrain done Q={float(Q):.5f}")
+    del pipe
+
+    bf = SmokeInferenceConfig(
+        conformal=SmokeConformalConfig(**R["SmokeInferenceConfig.conformal"]),
+        **run.seeded(R["SmokeInferenceConfig"][1]))
+    pipe2 = SmokePipeline(bf.conformal, **R["SmokePipeline"][1], device=dev)
+    _, Q2, hist2, phases2 = finetune(
+        "backward", bf, pipe2, params, None, run.jax["backward_history"])
+    run.tick(f"backward finetune done Q={float(Q2):.5f}")
+
+    for ph in phases + phases2:
+        emit(control_line(ph.name, ph.per_sample, data["test"].raw,
+                          pipe2.solver_kw["space_scale"]))
+    st = run.launches
+    n_extra = max(eval_seeds, 1) - 1
+    per_eval = {k: v["K1"] / n_extra for k, v in st.items()
+                if k.endswith("_evaluate") and n_extra}
+    emit(f"K2 per pretrain step: tensor cores "
+         f"{json.dumps({m: c / steps for m, c in st['pretrain']['K2'].items()})}, SIMT "
+         f"{st['pretrain']['K2_simt'] / steps:g}; K2 in posttrain "
+         f"{sum(st['posttrain']['K2'].values()) + st['posttrain']['K2_simt']}, backward "
+         f"{sum(st['backward']['K2'].values()) + st['backward']['K2_simt']}; K1: datagen "
+         f"{st['datagen']['K1']}, posttrain (its {len(hist)} evaluations) "
+         f"{st['posttrain']['K1']}, backward ({len(hist2)}) {st['backward']['K1']}, "
+         f"per extra evaluation {json.dumps(per_eval)}")
+    summary = {"posttrain_history": hist, "backward_history": hist2}
+    return run.finish(summary, phases + phases2, HEADLINE["smoke_posttrain"], len(data["test"]),
+                      sign_pairs=[(phases[0], phases[1])])
+
+
+def run_1d_long(scale="full", seed=None, eval_seeds=3, device="cuda", out=None, emit=print,
+                state_dir: Optional[str] = None, pretrain_seconds: Optional[float] = None
+                ) -> dict:
+    """experiments/run_1d_long.py: Burgers datagen of 40,000 + 1,000 + 50,
+    pretrain of the turbo UNet2D in bf16 for 20,000 steps (checkpoints in
+    `state_dir`, resumed from its last one; stopped after
+    `pretrain_seconds`), calibrate + evaluate, posttrain 3 x 400, evaluate,
+    InfFT, evaluate. A pretrain stopped short returns before calibrating,
+    with `pretrain_step` in its result and no comparison."""
+    from safediffcon_torch.tasks.burgers import (
+        BurgersConformalConfig, BurgersDataset, BurgersInfFTConfig, BurgersPipeline,
+        BurgersPostTrainConfig, BurgersPretrainConfig, generate_burgers_dataset,
+        inference_finetune, posttrain, pretrain)
+
+    run = Run("burgers_20k", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    path = str(run.out / "burgers_long.npz")
+    with run.stage("datagen"):
+        generate_burgers_dataset(path, **R["generate_burgers_dataset"], device=dev)
+    data = {s: BurgersDataset.load(path, s) for s in ("train", "cal", "test")}
+    run.tick(f"dataset generated ({sum(len(d) for d in data.values())})")
+
+    pre = BurgersPretrainConfig(**run.seeded(R["BurgersPretrainConfig"]))
+    kw = dict(R["pretrain"])
+    script_ckpt = kw.pop("checkpoint_dir")  # the script's /tmp path; the port's is below
+    ckpt = state_dir or str(run.out / Path(script_ckpt).name)
+    deadline = None if pretrain_seconds is None else time.time() + pretrain_seconds
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **kw, checkpoint_dir=ckpt, resume_dir=ckpt,
+                         deadline=deadline, device=dev)
+    emit(f"PRETRAIN step {state.step} of {kw['num_steps']}, state dir {ckpt}")
+    if state.step < kw["num_steps"]:
+        emit(f"PRETRAIN stopped short: rerun with --state-dir {ckpt} to continue")
+        return dict(recipe=run.name, pretrain_step=state.step, state_dir=ckpt,
+                    stages=run.stages, launches=run.launches)
+
+    conf = BurgersConformalConfig(**R["BurgersConformalConfig"])
+    pipe = BurgersPipeline(conf, **R["BurgersPipeline"], device=dev)
+    pipe.record = {}
+    with run.stage("pretrain_calibrate"):
+        Q = pipe.calibrate(state.ema_params, data["cal"].data, torch.zeros((), device=dev),
+                           generator=run.gen(0))
+    q_pre = run.q_std(pipe, Q, conf.alpha, "alpha")
+    m0s, _ = run.evals("pretrain20k", lambda g: pipe.evaluate(state.ema_params, data["test"], Q,
+                                                              generator=g), 1)
+    run.tick(f"pretrain eval: Q={float(Q):.4f} {json.dumps(m0s[0])}")
+
+    pt = BurgersPostTrainConfig(
+        conformal=BurgersConformalConfig(**R["BurgersPostTrainConfig.conformal"]),
+        **run.seeded(R["BurgersPostTrainConfig"]))
+    ft = BurgersDataset.load(path, "train", **R["BurgersDataset.load"])
+    with run.stage("posttrain"):
+        state2, Q2, hist = posttrain(pt, pipe, state.ema_params, ft, data["cal"], data["test"],
+                                     **R["posttrain"])
+    q_post = run.q_std(pipe, Q2, conf.alpha, "alpha")
+    m1s, _ = run.evals("posttrain", lambda g: pipe.evaluate(state2.ema_params, data["test"], Q2,
+                                                            generator=g), 2)
+    run.tick(f"posttrain eval: Q={float(Q2):.4f} {json.dumps(m1s[0])}")
+
+    cfg = BurgersInfFTConfig(**run.seeded(R["BurgersInfFTConfig"]))
+    with run.stage("infft"):
+        state3, Q3, hist3 = inference_finetune(cfg, pipe, state2.ema_params, data["cal"],
+                                               data["test"])
+    q_ft = run.q_std(pipe, Q3, conf.alpha, "alpha")
+    m2s, _ = run.evals("posttrain_infft", lambda g: pipe.evaluate(state3.ema_params, data["test"],
+                                                                  Q3, generator=g), 3)
+    run.tick(f"posttrain+InfFT eval: Q={float(Q3):.4f} {json.dumps(m2s[0])}")
+    summary = {"pretrain20k": m0s[0], "posttrain": m1s[0], "posttrain_infft": m2s[0],
+               "Q": [float(Q), float(Q2), float(Q3)]}
+    j = run.jax
+    phases = [Phase("pretrain20k", m0s, float(Q), q_pre, j["pretrain20k"], j["Q"][0]),
+              Phase("posttrain", m1s, float(Q2), q_post, j["posttrain"], j["Q"][1]),
+              Phase("posttrain_infft", m2s, float(Q3), q_ft, j["posttrain_infft"], j["Q"][2])]
+    return run.finish(summary, phases, HEADLINE["burgers_20k"], len(data["test"]),
+                      sign_pairs=[(phases[0], phases[1]), (phases[1], phases[2])],
+                      extra=dict(posttrain_history=hist, infft_history=hist3,
+                                 state_dir=ckpt))
+
+
 RUNS = {"burgers": run_1d_validation, "burgers_infft": run_1d_infft_validation,
-        "tokamak": run_tokamak_validation, "smoke": run_2d_validation}
+        "tokamak": run_tokamak_validation, "smoke": run_2d_validation,
+        "smoke_posttrain": run_2d_posttrain_validation, "burgers_20k": run_1d_long}
 
 
 def main(argv=None) -> int:
@@ -698,14 +996,25 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", default="full", choices=("full", "tiny"))
     ap.add_argument("--out", default=None, help="data and results directory "
                     "(default build/round1/<recipe>)")
+    ap.add_argument("--state-dir", default=None,
+                    help="burgers_20k: pretrain checkpoints, resumed from (default "
+                         "<out>/b_long_ckpt)")
+    ap.add_argument("--pretrain-seconds", type=float, default=None,
+                    help="burgers_20k: stop pretraining after this many seconds, with a "
+                         "checkpoint")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card is visible; pass --device cpu to run on the CPU")
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    extra = {}
+    if args.recipe == "burgers_20k":
+        extra = dict(state_dir=args.state_dir, pretrain_seconds=args.pretrain_seconds)
+    elif args.state_dir is not None or args.pretrain_seconds is not None:
+        ap.error("--state-dir and --pretrain-seconds are burgers_20k's")
     RUNS[args.recipe](scale=args.scale, seed=args.seed, eval_seeds=args.eval_seeds,
                       device=args.device, out=args.out,
-                      emit=lambda line: print(line, flush=True))
+                      emit=lambda line: print(line, flush=True), **extra)
     return 0
 
 

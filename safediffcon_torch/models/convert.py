@@ -219,6 +219,24 @@ def load_flax_params(model: Model, params: Mapping) -> Model:
     return model
 
 
+def save_flax_npz(path: str, params: Mapping) -> None:
+    """Write a flax param tree as one npz, a key per leaf ("params/a/b/kernel")."""
+    np.savez(path, **{"/".join(p): np.asarray(v) for p, v in _flatten(params)})
+
+
+def load_flax_npz(path: str) -> Dict:
+    """The nested flax param tree that `save_flax_npz` wrote."""
+    tree: Dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *scopes, leaf = key.split("/")
+            node = tree
+            for part in scopes:
+                node = node.setdefault(part, {})
+            node[leaf] = z[key]
+    return tree
+
+
 def state_dict_to_flax(model: Model, state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of `flax_to_state_dict`: {"params": nested dicts of
     float32 numpy arrays} for a state_dict of `model` (the port's weights

@@ -171,7 +171,9 @@ class SmokePipeline:
         # when set to a dict, `calibrate` stores its per-sample scores and
         # raw weights there ("cal_scores", "cal_weights", on the CPU), and
         # `evaluate` each test sample's final smoke and safe rates, negated
-        # smoke first ("J_target", "safe_target": lists of per-chunk tensors)
+        # smoke first, and the mean |c| of its sampled controls in the band
+        # below the maze ("J_target", "safe_target", "band_control_abs":
+        # lists of per-chunk tensors)
         self.record: Optional[Dict[str, object]] = None
 
     def apply_fn(self, x, t):
@@ -225,8 +227,10 @@ class SmokePipeline:
         with self._phase("rollout"):
             sol = solver_rollout(self.masks, pred, state_raw, **self.solver_kw)
         if self.record is not None:
+            band = pred[:, :, : 16 // self.solver_kw["space_scale"], :, CX : CY + 1]
             for name, v in (("J_target", -sol[:, -1, 0, 0, SMOKE]),
-                            ("safe_target", sol[:, -1, 0, 0, SAFE])):
+                            ("safe_target", sol[:, -1, 0, 0, SAFE]),
+                            ("band_control_abs", band.abs().mean(dim=(1, 2, 3, 4)))):
                 self.record.setdefault(name, []).append(v.cpu())
         return evaluate_samples(pred, sol, Q, self.task_cfg.safe_bound)
 

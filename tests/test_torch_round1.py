@@ -7,8 +7,10 @@ the CPU prints a SUMMARY with exactly the keys of its JAX results JSON (at
 every depth), then one COMPARE line per headline metric and phase; (c) the
 band and the in / out verdict on fixed numbers."""
 import ast
+import copy
 import json
 import math
+import time
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from safediffcon_torch.experiments import round1 as R1
+from safediffcon_torch.models.convert import load_flax_npz, load_flax_params
+from safediffcon_torch.tasks.smoke.pipeline import build_model
 
 torch.set_num_threads(1)
 
@@ -97,7 +101,11 @@ def test_tiny_and_card_settings_change_no_recipe_key():
         assert set(R1.TINY[name]) <= set(R1.RECIPES[name])
         assert set(R1.CARD[name]) <= set(R1.RECIPES[name])
         assert R1.recipe(name, "full", "cpu") == R1.RECIPES[name]
-    assert R1.recipe("smoke", "full", "cuda")["SmokePretrainConfig"]["conv_impl"] == "pallas"
+    for name in ("smoke", "smoke_posttrain"):
+        assert R1.recipe(name, "full", "cuda")["SmokePretrainConfig"]["conv_impl"] == "pallas"
+    # a list of tiny cuts goes entry by entry: the backward fine-tune keeps its one step
+    tiny = R1.recipe("smoke_posttrain", "tiny", "cpu")["SmokeInferenceConfig"]
+    assert [d["finetune_steps"] for d in tiny] == [2, 1] and tiny[1]["backward_finetune"]
     tiny = R1.recipe("burgers_infft", "tiny", "cuda")["BurgersPipeline"]
     assert [d["dim"] for d in tiny] == [8, 8] and tiny[1]["compute_dtype"] == "bfloat16"
 
@@ -112,9 +120,22 @@ def _keys(x):
     return None
 
 
-@pytest.mark.parametrize("name", ["tokamak", "smoke"])
+@pytest.mark.parametrize("name", ["tokamak", "smoke", "smoke_posttrain"])
 def test_tiny_run_prints_the_jax_summary(name, tmp_path):
-    check_tiny_run(name, tmp_path)
+    res, lines = check_tiny_run(name, tmp_path)
+    if name == "smoke":  # the evaluated EMA weights, as a flax tree for the JAX package
+        tree = load_flax_npz(str(tmp_path / "smoke_ema_flax.npz"))
+        load_flax_params(build_model(8, (1, 2), device="cpu"), tree)  # strict: every tensor
+    if name.startswith("smoke"):
+        phases = {r["phase"] for r in res["comparison"]}
+        assert sorted(x.split()[1] for x in lines if x.startswith("CONTROL ")) == sorted(phases)
+    if name == "smoke_posttrain":
+        assert [s["pair"] for s in res["signs"]][0] == "posttrain0->posttrain1"
+        assert [h["epoch"] for h in res["summary"]["posttrain_history"]] == [0, 1]
+        assert [h["epoch"] for h in res["summary"]["backward_history"]] == [0]
+        # each extra evaluation is a stage of its own, outside its fine-tuning stage
+        assert {"posttrain", "posttrain0_evaluate", "posttrain1_evaluate", "backward",
+                "backward0_evaluate"} <= set(res["stages"])
 
 
 def check_tiny_run(name, tmp_path, eval_seeds=2):
@@ -125,10 +146,10 @@ def check_tiny_run(name, tmp_path, eval_seeds=2):
     with open(ROOT / R1.JAX_RESULTS[name]) as f:
         assert _keys(summary) == _keys(json.load(f))
     assert summary == res["summary"]
-    headline = R1.HEADLINE["smoke" if name == "smoke" else
-                           "tokamak" if name == "tokamak" else "burgers"]
+    headline = R1.HEADLINE[name]
     compares = [x for x in lines if x.startswith("COMPARE ")]
-    n_phases = {"burgers": 2, "burgers_infft": 3, "tokamak": 2, "smoke": 1}[name]
+    n_phases = {"burgers": 2, "burgers_infft": 3, "tokamak": 2, "smoke": 1, "smoke_posttrain": 3,
+                "burgers_20k": 3}[name]
     assert len(compares) == n_phases * (len(headline) + 1)
     for row in res["comparison"]:
         assert row["result"] in ("in", "out") and math.isfinite(row["band"])
@@ -187,6 +208,25 @@ def test_compare_rows():
     assert r["band"] == pytest.approx(0.24) and r["result"] == "out"
     assert q == dict(phase="pretrain", metric="Q-hat", port=40.0, port_std=0.0, seeds=1,
                      jax=47.0, band=6.0, result="out")
+
+
+def test_a_stage_inside_another_counts_only_there(tmp_path, monkeypatch):
+    counts = {"K1": 0, "K2": {"bf16": 0}, "K2_simt": 0}
+    monkeypatch.setattr(R1, "kernel_counts", lambda: copy.deepcopy(counts))
+    run = R1.Run("smoke", "cpu", "tiny", None, 1, str(tmp_path), emit=lambda line: None)
+    with run.stage("outer"):
+        counts["K1"] += 1
+        time.sleep(0.05)
+        with run.stage("inner"):
+            counts["K1"] += 10
+            counts["K2"]["bf16"] += 3
+            time.sleep(0.2)
+        counts["K1"] += 100
+    with run.stage("outer"):  # a second entry adds to the first
+        counts["K1"] += 1000
+    assert run.launches["outer"] == {"K1": 1101, "K2": {}, "K2_simt": 0}
+    assert run.launches["inner"] == {"K1": 10, "K2": {"bf16": 3}, "K2_simt": 0}
+    assert 0.2 <= run.stages["inner"] and 0.05 <= run.stages["outer"] < 0.2
 
 
 def test_bootstrap_of_the_quantile():

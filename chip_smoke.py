@@ -23,8 +23,9 @@ fails ends the run with a non-zero exit.
      frames at 128^2, CG 1e-6; its phases timed, K1 by CUDA events), then
      SmokePipeline.calibrate on 10 of the cal sims (the script's budget
      cut) and guided evaluate on the 50 test sims with the
-     SmokeConformalConfig defaults (DDIM 100, eta 1, solver 1e-8 / 500,
-     backend "auto" = K1) and the pipeline's default chunks, so each runs
+     SmokeConformalConfig defaults but DDIM 50 (the reference's 100 cut for
+     phase 15; eta 1, solver 1e-8 / 500, backend "auto" = K1) and the
+     pipeline's default chunks, so each runs
      one batch and reports its peak device memory. K1's launch count
      is zeroed just before calibrate and read just after evaluate, and must
      be 255 per evaluated batch;
@@ -256,6 +257,24 @@ round1.py, the port of the JAX package's experiments/run_*_validation.py):
 Depth cut to make room for phase 14: 13(e)'s calibrate at DDIM 10 on 24
 cal sims (DDIM 20 on 50 before).
 
+Depth cut to make room for phase 15: phase 4's calibrate and evaluate at
+DDIM 50 (100 before).
+
+The training chunk as one captured CUDA graph (phase 15;
+safediffcon_torch/core/train.py::ChunkGraph, the counterpart of JAX's jitted
+step and `lax.scan` chunk), K1 and K2 counts zeroed before and required 0
+after:
+
+ 15. Burgers turbo UNet2D at the burgers_20k recipe's batch 32 and tokamak
+     turbo UNet1D at its recipe's batch 16, both in bf16 compute: for
+     steps_per_call 10 and 1, `pretrain` eagerly (capture=False) and with
+     its chunks captured, G_STEPS steps each from the same seeded weights
+     and generator seed: the losses, the final weights and the EMA must
+     be equal bit for bit; steps/s of each over G_TIME, and for
+     steps_per_call 1 the device (kernel) time, kernels, kernel launch
+     calls and graph launch calls (one per step) per step by
+     torch.profiler over G_PROFILE.
+
 `python3 chip_smoke.py --cli-rank <command line>` is 13a's rank under
 torchrun, not a way to run the script.
 
@@ -288,6 +307,7 @@ CG_FLOPS_PER_CELL = 23
 CELLS = 127
 N_CAL, N_TEST = 50, 50  # sims per split (reference: 200 cal, 50 test)
 SERVE_CAL = 10  # cal sims of phase 4's calibrate, to keep the script in its budget
+SERVE_DDIM = 50  # DDIM steps of phase 4 (reference 100), to make room for phase 15
 N_TRAIN = 16  # one pretrain batch (reference: 19,800 train sims)
 GEN_BATCH = 50
 K1_REPS = 20  # timed K1 calls per case
@@ -488,12 +508,13 @@ def phase_serving(K, smoke):
     train = smoke.SmokeDataset.load(path, "train")
 
     ccfg = smoke.SmokeConformalConfig(cal_batch_size=SERVE_CAL, num_cal_batch=1,
-                                      n_test_samples=N_TEST, test_batch_size=N_TEST)
+                                      n_test_samples=N_TEST, test_batch_size=N_TEST,
+                                      ddim_sampling_steps=SERVE_DDIM)
     pipe = smoke.SmokePipeline(ccfg, device="cuda")
     log(f"depth cut: calibrate on {SERVE_CAL} of the {N_CAL} cal sims, {N_TEST} test sims "
-        f"(reference 200 + 50); width, "
-        f"frames, DDIM {ccfg.ddim_sampling_steps} steps and the 256-frame solver are the "
-        f"reference's; default chunks: calibrate {pipe.cal_chunk}, evaluate {pipe.eval_chunk}")
+        f"(reference 200 + 50), DDIM {ccfg.ddim_sampling_steps} steps (reference 100); width, "
+        f"frames and the 256-frame solver are the reference's; default chunks: calibrate "
+        f"{pipe.cal_chunk}, evaluate {pipe.eval_chunk}")
     from safediffcon_torch.tasks.smoke.pipeline import init_params
     init_params(pipe.model, seed=0)
     n_params = sum(p.numel() for p in pipe.model.parameters())
@@ -625,10 +646,10 @@ class GradRecorder:
         self.steps, self.saved = [], Adam.step
         saved, steps = self.saved, self.steps
 
-        def step(opt, params, grads, state):
+        def step(opt, params, grads, state, scalars=None):
             grads = list(grads)
             steps.append(torch.cat([g.detach().float().flatten().cpu() for g in grads]))
-            return saved(opt, params, grads, state)
+            return saved(opt, params, grads, state, scalars)
 
         Adam.step = step
         return self
@@ -2825,6 +2846,137 @@ def phase_round1(K, C) -> dict:
     return dict(seconds=time.perf_counter() - t0, k2_cases=k2_cases, runs=runs)
 
 
+# Phase 15: each arm's steps, the steps whose wall time gives steps/s (past
+# the warm-up and the capture at either chunk size), the steps torch.profiler
+# traces in the steps_per_call 1 arms (few: ~5,900 kernels per eager step),
+# and the chunk sizes compared
+G_STEPS = 30
+G_TIME = (20, 30)
+G_PROFILE = (10, 13)
+G_CHUNKS = (10, 1)
+
+
+class StepMarks(list):
+    """A `losses` list for `pretrain` that calls marks[n]() once n step
+    losses have been appended (a captured chunk's after its replay is
+    enqueued)."""
+
+    def __init__(self, marks: dict):
+        super().__init__()
+        self.marks = marks
+
+    def append(self, loss):
+        super().append(loss)
+        fn = self.marks.get(len(self))
+        if fn is not None:
+            fn()
+
+
+def graph_arm(pretrain, cfg, train, init, k: int, capture: bool) -> dict:
+    """One phase-15 arm: G_STEPS steps of `pretrain` from `init` with
+    steps_per_call k, the steps of G_TIME timed and, when k is 1, those of
+    G_PROFILE traced. Returns the losses, the final weights and EMA,
+    steps/s, and per traced step the device (kernel) time, kernels, kernel
+    launch calls and graph launch calls."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    clock = {}
+
+    def stamp(n):
+        def fn():
+            torch.cuda.synchronize()
+            clock[n] = time.perf_counter()
+        return fn
+
+    def start():
+        torch.cuda.synchronize()
+        prof.start()
+
+    def stop():
+        torch.cuda.synchronize()
+        prof.stop()
+
+    marks = {G_TIME[0]: stamp(G_TIME[0]), G_TIME[1]: stamp(G_TIME[1])}
+    if k == 1:
+        marks.update({G_PROFILE[0]: start, G_PROFILE[1]: stop})
+    marks = StepMarks(marks)
+    state = pretrain(cfg, train, num_steps=G_STEPS, params=init, device="cuda",
+                     steps_per_call=k, losses=marks, capture=capture)
+    torch.cuda.synchronize()
+    out = dict(losses=[float(v) for v in marks],
+               params={k_: v.detach().clone() for k_, v in state.model.state_dict().items()},
+               ema={k_: v.clone() for k_, v in state.ema_params.items()},
+               steps_per_s=(G_TIME[1] - G_TIME[0]) / (clock[G_TIME[1]] - clock[G_TIME[0]]),
+               step=state.step)
+    if k != 1:
+        return out
+    n = G_PROFILE[1] - G_PROFILE[0]
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = {e.key: e.count for e in ev if e.device_type == torch.autograd.DeviceType.CPU
+             and (e.key.startswith(("cudaLaunch", "cuLaunch")) or e.key == "cudaGraphLaunch")}
+    return dict(out, device_ms_per_step=(sum(e.self_device_time_total for e in kernels) / 1e3 / n
+                                         if kernels else "not measured"),
+                kernels_per_step=sum(e.count for e in kernels) / n,
+                launch_calls_per_step=sum(v for k_, v in calls.items()
+                                          if k_ != "cudaGraphLaunch") / n,
+                graph_launches_per_step=calls.get("cudaGraphLaunch", 0) / n)
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def graph_case(name: str, pretrain, cfg, train, mod) -> dict:
+    """Phase 15 for one task: for steps_per_call 10 and 1, an eager arm and
+    a captured arm of `pretrain`, each G_STEPS steps from the same seeded
+    weights and generator seed. The captured arm must equal the eager one
+    bit for bit: the same kernels on the same float32 step values (found
+    so on the card, where two eager arms are bitwise equal too)."""
+    init = mod.init_params(mod.build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups,
+                                           device="cuda"), seed=cfg.seed)
+    init = {k: v.detach() for k, v in init.state_dict().items()}
+    res = dict(batch=cfg.batch_size, compute_dtype=cfg.compute_dtype)
+    for k in G_CHUNKS:
+        eager = graph_arm(pretrain, cfg, train, init, k, capture=False)
+        graph = graph_arm(pretrain, cfg, train, init, k, capture=True)
+        diff = dict(loss=max(abs(a - b) for a, b in zip(eager["losses"], graph["losses"])),
+                    params=_max_diff(eager["params"], graph["params"]),
+                    ema=_max_diff(eager["ema"], graph["ema"]))
+        strip = ("losses", "params", "ema")
+        res[f"k{k}"] = r = dict(eager={a: v for a, v in eager.items() if a not in strip},
+                                captured={a: v for a, v in graph.items() if a not in strip},
+                                captured_vs_eager=diff,
+                                speedup=graph["steps_per_s"] / eager["steps_per_s"])
+        log(f"15 {name} k={k}: " + json.dumps(r))
+        launches = (k != 1 or (graph["graph_launches_per_step"] == 1
+                               and eager["graph_launches_per_step"] == 0))
+        if not (all(math.isfinite(v) for v in graph["losses"])
+                and len(graph["losses"]) == G_STEPS == graph["step"]
+                and not any(diff.values()) and launches):
+            raise AssertionError(f"phase 15 {name} k={k}: {r}")
+    return res
+
+
+def phase_train_graphs(burgers, tokamak, b_data, t_data) -> dict:
+    """15: the training chunk as one captured CUDA graph against the same
+    chunk run eagerly (`graph_case`), for the Burgers turbo UNet2D at the
+    burgers_20k recipe's batch 32 and the tokamak turbo UNet1D at its
+    recipe's batch 16, both in bf16 compute; steps/s of each arm, and the
+    profiler's device time, kernels, kernel launch calls and graph launch
+    calls per step."""
+    from safediffcon_torch.tasks.burgers import pipeline as bp
+    from safediffcon_torch.tasks.tokamak import pipeline as tp
+
+    return dict(
+        burgers=graph_case("burgers", burgers.pretrain, dataclasses.replace(
+            burgers.BurgersPretrainConfig(), **B_MODEL, batch_size=32, compute_dtype="bfloat16"),
+            b_data["train"], bp),
+        tokamak=graph_case("tokamak", tokamak.pretrain, dataclasses.replace(
+            tokamak.TokamakPretrainConfig(), batch_size=16, compute_dtype="bfloat16"),
+            t_data["train"], tp))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2937,6 +3089,18 @@ def main() -> int:
     p14_smoke = p14["runs"]["smoke"]["launches"]
     p14_sp = p14["runs"]["smoke_posttrain"]["launches"]
     log(f"phase 14 in {p14['seconds']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+
+    # phase 15: the Burgers and tokamak training chunk as one captured CUDA
+    # graph against the eager chunk; no kernel of the TPU package on it
+    K.pressure_cg_cuda.launches = 0
+    zero_k2_counts(C)
+    t_p15 = time.perf_counter()
+    phase_train_graphs(burgers, tokamak, b_data, t_data)
+    idle = (K.pressure_cg_cuda.launches, k2_launches(C), C.conv3d_fused_simt_cuda.launches)
+    log(f"phase 15 in {time.perf_counter() - t_p15:.1f} s; K1 / K2 / K2 SIMT launches during "
+        f"it {idle}; total {time.perf_counter() - t_start:.1f} s")
+    if any(idle):
+        raise AssertionError(f"a TPU-kernel counterpart ran in phase 15: {idle}")
 
     kernels = [dict(
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",

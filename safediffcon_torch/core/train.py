@@ -112,23 +112,39 @@ class Adam:
         return AdamState(0, [torch.zeros_like(p) for p in params],
                          [torch.zeros_like(p) for p in params])
 
+    n_scalars = 3
+
+    def scalars(self, count: int) -> np.ndarray:
+        """The values of the update that follows `count` updates which
+        depend on the count, float32 as JAX computes them: -lr (the schedule
+        sees the count before its increment) and the bias corrections
+        1 - b1^(count + 1), 1 - b2^(count + 1)."""
+        lr = np.float32(self.lr(count) if callable(self.lr) else self.lr)
+        c = np.float32(count + 1)
+        return np.array([-lr, np.float32(1) - np.float32(self.b1) ** c,
+                         np.float32(1) - np.float32(self.b2) ** c], np.float32)
+
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-             state: AdamState) -> None:
-        """Apply one update to `params` and `state` in place."""
+             state: AdamState, scalars: Optional[torch.Tensor] = None) -> None:
+        """Apply one update to `params` and `state` in place. `scalars` is a
+        device tensor holding `self.scalars(state.count)` (a row of a
+        captured CUDA graph's table, read at replay); the caller then
+        advances `state.count`. Without it the step writes that row itself
+        and advances the count."""
         grads = _clip_by_global_norm(list(grads), self.max_grad_norm)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
         torch._foreach_mul_(state.nu, b2)
         torch._foreach_add_(state.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
-        # the schedule sees the count before its increment; float32 scalars,
-        # as JAX computes them
-        lr = float(np.float32(self.lr(state.count) if callable(self.lr) else self.lr))
-        state.count += 1
-        c = np.float32(state.count)
-        bc1 = float(np.float32(1) - np.float32(b1) ** c)
-        bc2 = float(np.float32(1) - np.float32(b2) ** c)
+        if scalars is None:
+            # the same values as device scalars: CUDA divides by a Python
+            # float as a product with its reciprocal, a 0-d tensor (as JAX
+            # does) by a true division
+            scalars = _fill(self.scalars(state.count), state.mu[0].device)
+            state.count += 1
+        neg_lr, bc1, bc2 = scalars.unbind()
         denom = torch._foreach_div(state.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -136,8 +152,17 @@ class Adam:
         torch._foreach_div_(upd, denom)
         if self.weight_decay:
             torch._foreach_add_(upd, torch._foreach_mul(list(params), self.weight_decay))
-        torch._foreach_mul_(upd, -lr)
+        torch._foreach_mul_(upd, neg_lr)
         torch._foreach_add_(list(params), upd)
+
+
+def _fill(values: np.ndarray, device) -> torch.Tensor:
+    """float32 `values` as a tensor on `device`, written by fill kernels (a
+    copy from host memory would wait for the card)."""
+    out = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(float(v))
+    return out
 
 
 def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
@@ -178,16 +203,27 @@ class SGD:
     def init(self, params: Sequence[torch.Tensor]) -> SGDState:
         return SGDState(0, [torch.zeros_like(p) for p in params])
 
+    n_scalars = 1
+
+    def scalars(self, count: int) -> np.ndarray:
+        """-lr of the update that follows `count` updates, float32."""
+        return np.array([-np.float32(self.lr(count) if callable(self.lr) else self.lr)],
+                        np.float32)
+
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-             state: SGDState) -> None:
-        """Apply one update to `params` and `state` in place."""
+             state: SGDState, scalars: Optional[torch.Tensor] = None) -> None:
+        """Apply one update to `params` and `state` in place; `scalars` as
+        in `Adam.step`."""
         grads = _clip_by_global_norm(list(grads), self.max_grad_norm)
         torch._foreach_mul_(state.trace, self.momentum)
         torch._foreach_add_(state.trace, grads)
-        lr = float(np.float32(self.lr(state.count) if callable(self.lr) else self.lr))
-        state.count += 1
-        upd = torch._foreach_mul(state.trace, -lr)
+        if scalars is None:
+            neg_lr = float(self.scalars(state.count)[0])
+            state.count += 1
+        else:
+            neg_lr = scalars[0]
+        upd = torch._foreach_mul(state.trace, neg_lr)
         torch._foreach_add_(list(params), upd)
 
 
@@ -229,19 +265,50 @@ class TrainState:
                    ema_decay=ema_decay, ema_update_every=ema_update_every)
 
     @torch.no_grad()
-    def apply_gradients(self, grads: Sequence[torch.Tensor]) -> "TrainState":
+    def apply_gradients(self, grads: Sequence[torch.Tensor],
+                        scalars: Optional[torch.Tensor] = None) -> "TrainState":
         """One optimizer update in place; the EMA moves every
         `ema_update_every` steps (reference EMA(beta=0.995, update_every=10),
-        1D/model/trainer.py:87)."""
+        1D/model/trainer.py:87).
+
+        `scalars`, a device row of `scalar_table`, holds the step's
+        count-dependent values: the optimizer's, then the EMA's factors
+        (decay, 1 - decay) on an EMA step and (1, 0) otherwise, which every
+        step applies (JAX's `jnp.where(do_ema, ...)`), so that a captured
+        CUDA graph serves every step. The caller then advances `step` and
+        the optimizer's count (`advance`)."""
         params = list(self.model.parameters())
+        ema = list(self.ema_params.values())
+        if scalars is not None:
+            n = self.tx.n_scalars
+            self.tx.step(params, grads, self.opt_state, scalars[:n])
+            torch._foreach_mul_(ema, scalars[n])
+            torch._foreach_add_(ema, torch._foreach_mul(params, scalars[n + 1]))
+            return self
         self.tx.step(params, grads, self.opt_state)
         self.step += 1
         if self.step % self.ema_update_every == 0:
             d = self.ema_decay
-            ema = list(self.ema_params.values())
             torch._foreach_mul_(ema, d)
             torch._foreach_add_(ema, torch._foreach_mul(params, 1.0 - d))
         return self
+
+    def scalar_table(self, k: int) -> np.ndarray:
+        """(k, tx.n_scalars + 2) float32: the `scalars` rows of the next k
+        steps from this state."""
+        d = np.float32(self.ema_decay)
+        rows = []
+        for i in range(k):
+            ema = ((d, np.float32(1.0 - self.ema_decay))
+                   if (self.step + i + 1) % self.ema_update_every == 0
+                   else (np.float32(1), np.float32(0)))
+            rows.append(np.concatenate([self.tx.scalars(self.opt_state.count + i), ema]))
+        return np.stack(rows).astype(np.float32)
+
+    def advance(self, k: int) -> None:
+        """Count k steps that ran on device scalars."""
+        self.step += k
+        self.opt_state.count += k
 
     def state_dict(self) -> dict:
         return {"step": self.step, "params": self.model.state_dict(),
@@ -286,8 +353,9 @@ def chunked_train_steps(step_fn: Callable, k: int) -> Callable:
     of the k batches of `batches` (k, B, ...) in order, the i-th with the
     i-th (t, noise) of `noise` when given, and returns the mean of the k
     losses. JAX fuses the k steps into one dispatch (`lax.scan`); here they
-    are k steps back to back, as `run_train_loop(steps_per_call=k)` runs
-    them."""
+    are k steps back to back. The counterpart of that one dispatch is
+    `run_train_loop(steps_per_call=k, capture=True)`, which replays the k
+    steps as one CUDA graph."""
 
     def multi(state: TrainState, batches: torch.Tensor,
               generator: Optional[torch.Generator] = None, noise=None) -> torch.Tensor:
@@ -327,6 +395,78 @@ def accumulated_grads(loss_fn: Callable[[int, torch.Tensor], torch.Tensor],
 # Shared pretrain loop
 # ---------------------------------------------------------------------------
 
+class ChunkGraph:
+    """k training steps as one CUDA graph, the counterpart of JAX's jitted
+    step (k = 1) and `lax.scan` chunk: `step_fn(state, batch, scalars=row)`
+    k times on static buffers, `batches` (k * take, ...) float32 and the
+    (k, n) step-value table of `TrainState.scalar_table`, each step's loss
+    written into a static (k,) output.
+
+    `run` takes the batches already copied into `batches` and the table
+    set by `set_table`. Its first calls run the steps eagerly on the
+    graph's side stream, as warm-up (at least 3 steps; they are the run's
+    own steps), the next one captures them (with `generators` registered,
+    so that a replay draws what eager steps would and moves each
+    generator's offset as far) and each later one replays the graph. A
+    failed capture raises; nothing falls back to eager steps."""
+
+    WARM_STEPS = 3
+
+    def __init__(self, step_fn: Callable, state: TrainState, k: int, batch_shape: tuple,
+                 generators: Sequence[torch.Generator] = ()):
+        device = next(state.model.parameters()).device
+        self.step_fn, self.state, self.k, self.take = step_fn, state, k, batch_shape[0]
+        self.generators = list(generators)
+        self.batches = torch.empty((k * batch_shape[0],) + tuple(batch_shape[1:]),
+                                   dtype=torch.float32, device=device)
+        n = state.tx.n_scalars + 2
+        self.table = torch.empty((k, n), dtype=torch.float32, device=device)
+        self._table_host = torch.empty((k, n), dtype=torch.float32,
+                                       pin_memory=device.type == "cuda")
+        self._table_copied: Optional[torch.cuda.Event] = None
+        self.losses = torch.empty((k,), dtype=torch.float32, device=device)
+        self.stream = torch.cuda.Stream(device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.warm_steps = 0
+
+    def set_table(self) -> None:
+        """Copy the next k steps' values into `table`."""
+        if self._table_copied is not None:
+            self._table_copied.synchronize()  # the last copy has left the buffer
+        self._table_host.numpy()[:] = self.state.scalar_table(self.k)
+        self.table.copy_(self._table_host, non_blocking=True)
+        self._table_copied = torch.cuda.Event()
+        self._table_copied.record()
+
+    def _steps(self) -> None:
+        for i in range(self.k):
+            loss = self.step_fn(self.state, self.batches[i * self.take : (i + 1) * self.take],
+                                scalars=self.table[i])
+            self.losses[i].copy_(loss)
+
+    def run(self) -> torch.Tensor:
+        """The chunk's k steps; returns their losses (a new tensor)."""
+        current = torch.cuda.current_stream()
+        if self.graph is not None:
+            self.graph.replay()
+        elif self.warm_steps < self.WARM_STEPS:
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                self._steps()
+            current.wait_stream(self.stream)
+            self.warm_steps += self.k
+        else:
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            with torch.cuda.graph(graph, stream=self.stream):
+                self._steps()
+            self.graph = graph
+            graph.replay()
+        self.state.advance(self.k)
+        return self.losses.clone()
+
+
 def run_train_loop(
     step_fn: Callable[[TrainState, torch.Tensor], torch.Tensor],
     state: TrainState,
@@ -347,6 +487,8 @@ def run_train_loop(
     deadline: Optional[float] = None,
     losses: Optional[list] = None,
     shard: Optional[pmesh.BatchShard] = None,
+    capture: bool = False,
+    generators: Sequence[torch.Generator] = (),
 ) -> TrainState:
     """The JAX package's epoch-less training loop (reference: Trainer loop,
     1D/model/trainer.py:150-210), one optimizer step per call of
@@ -380,7 +522,18 @@ def run_train_loop(
     indices and takes its rows of each micro-batch, so `step_fn` gets
     batch_take / dp samples (micro-batch by micro-batch) and reduces its
     gradients with the same shard. The device pool is whole on every rank.
-    The parameters and their EMA are broadcast from rank 0 first."""
+    The parameters and their EMA are broadcast from rank 0 first.
+
+    `capture` (the counterpart of JAX's jitted step and `lax.scan` chunk):
+    on a CUDA model in one process, every full chunk of `steps_per_call`
+    steps is one CUDA graph (`ChunkGraph`), captured once and replayed with
+    the same batches, draws and step values as the eager loop. `step_fn`
+    then takes `scalars=` (its step's device row of
+    `TrainState.scalar_table`) for `apply_gradients`, and `generators` are
+    the CUDA generators it draws from. A chunk shorter than
+    `steps_per_call` (the last, or one clamped at a checkpoint) runs
+    eagerly. CPU models run eagerly, and so does a data-parallel split
+    (NCCL is not captured), which the log says once."""
     if checkpoint_dir:
         from safediffcon_torch.utils.checkpoint import save_checkpoint
     device = next(state.model.parameters()).device
@@ -458,22 +611,34 @@ def run_train_loop(
             out.append(got)
         return np.concatenate(out) if len(out) > 1 else out[0]
 
-    def to_device(sel) -> torch.Tensor:
+    def to_device(sel, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The chunk's batches, (len(sel), ...) float32 on the device, in one
-        host-to-device copy."""
+        host-to-device copy (into `out` when given)."""
         nonlocal copied
         if pool_dev is not None:
             idx = torch.as_tensor(sel, dtype=torch.long).to(device, non_blocking=False)
-            return pool_dev[idx].float()
+            return pool_dev[idx].float() if out is None else out.copy_(pool_dev[idx])
         if copied is not None:
             copied.synchronize()  # the previous chunk's copy has left the buffer
         m = len(sel)
         np.take(np.asarray(data), sel, axis=0, out=host_np[:m])
-        out = host[:m].to(device, non_blocking=cuda)
+        if out is None:
+            out = host[:m].to(device, non_blocking=cuda)
+        else:
+            out.copy_(host[:m], non_blocking=cuda)
         if cuda:
             copied = torch.cuda.Event()
             copied.record()
         return out
+
+    graph = None
+    if capture and cuda:
+        if split:
+            if logger:
+                logger.info("%s: eager steps (a CUDA graph covers one process, not %d ranks)",
+                            log_prefix, shard.dp)
+        else:
+            graph = ChunkGraph(step_fn, state, k, (take,) + sample_shape, generators)
 
     t0 = time.time()
     pending: List[torch.Tensor] = []
@@ -497,14 +662,20 @@ def run_train_loop(
             last_pool = step
             if logger:
                 logger.info("%s: refreshed device pool at step %d", log_prefix, step)
-        batches = to_device(rows(draw(batch_take * kk)))
-        for i in range(kk):
-            loss = step_fn(state, batches[i * take : (i + 1) * take])
+        sel = rows(draw(batch_take * kk))
+        if graph is not None and kk == k:
+            graph.set_table()
+            to_device(sel, out=graph.batches)
+            chunk = graph.run()
+        else:
+            batches = to_device(sel)
+            chunk = (step_fn(state, batches[i * take : (i + 1) * take]) for i in range(kk))
+        for loss in chunk:
             if losses is not None:
                 losses.append(loss)
             if logger:
                 pending.append(loss)
-        del batches
+        chunk = batches = None  # the eager chunk's batches go before the next copy
         step += kk
         if logger and step - last_log >= log_every:
             mean = float(torch.stack(pending).mean())

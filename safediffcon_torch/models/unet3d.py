@@ -149,12 +149,26 @@ class Conv3dCL(nn.Conv3d):
         either side (a halo exchange or a window of the whole video), so
         the frames are not padded again."""
         dt = _compute_dtype(self.compute_dtype, x, self.weight)
-        xt, w, b = x.permute(0, 4, 1, 2, 3).to(dt), self.weight.to(dt), self.bias.to(dt)
-        if halo:
-            y = F.conv3d(xt, w, b, self.stride, (0,) + tuple(self.padding[1:]))
-        else:
-            y = self._conv_forward(xt, w, b)
+        pad = (0,) + tuple(self.padding[1:]) if halo else self.padding
+        y = _conv_in(F.conv3d, dt, x.permute(0, 4, 1, 2, 3), self.weight, self.bias,
+                     stride=self.stride, padding=pad)
         return y.permute(0, 2, 3, 4, 1)
+
+
+def _conv_in(conv, dt: torch.dtype, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             **kw) -> torch.Tensor:
+    """`conv(x, w, b, **kw)` (F.conv3d or F.conv_transpose3d) on operands
+    cast to `dt`. A bf16 conv of CPU tensors is taken in float32 on the
+    bf16-rounded operands, its output rounded once to bf16 and the bias
+    added in bf16, as XLA's CPU backend computes flax's bf16 conv: oneDNN's
+    bf16 3-D conv, which F.conv3d reaches on the CPU, corrupts memory in its
+    backward on a channels-last input (torch 2.13 on an AVX512-BF16 CPU).
+    CUDA tensors take cuDNN's bf16 conv as they are."""
+    x, w, b = x.to(dt), w.to(dt), b.to(dt)
+    if dt == torch.bfloat16 and x.device.type == "cpu":
+        y = conv(x.float(), w.float(), None, **kw).to(dt)
+        return y + b.view(-1, *(1,) * (y.dim() - 2))
+    return conv(x, w, b, **kw)
 
 
 def _flax_same_transpose_pad(k: int, s: int):
@@ -194,9 +208,9 @@ class ConvTransposeCL(nn.Module):
 
     def forward(self, x):
         dt = _compute_dtype(self.compute_dtype, x, self.weight)
-        w = self.weight.flip(2, 3, 4).transpose(0, 1).to(dt)
-        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3).to(dt), w, self.bias.to(dt),
-                               stride=self.stride, padding=self.padding)
+        y = _conv_in(F.conv_transpose3d, dt, x.permute(0, 4, 1, 2, 3),
+                     self.weight.flip(2, 3, 4).transpose(0, 1), self.bias,
+                     stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
 
 

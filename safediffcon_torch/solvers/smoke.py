@@ -257,10 +257,11 @@ def bilinear_sample(field: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear resampling of (B, H, W) at (B, H, W, 2) [y, x] coordinates with
     the reference's asymmetric boundary (2d/phi/math/scipy_backend.py:58-75):
     coordinates clamp to [0, dim] (not dim-1), and points past dim-1 read 0.
-    The four corners are gathered explicitly (grid_sample has neither rule)."""
+    The four corners are gathered explicitly (grid_sample has neither rule).
+    A NaN coordinate reads 0, as in JAX: it is taken as dim, past dim-1."""
     b, h, w = field.shape
-    cy = coords[..., 0].clamp(0.0, float(h))
-    cx = coords[..., 1].clamp(0.0, float(w))
+    cy = coords[..., 0].nan_to_num(nan=float(h)).clamp(0.0, float(h))
+    cx = coords[..., 1].nan_to_num(nan=float(w)).clamp(0.0, float(w))
     valid = (cy <= h - 1) & (cx <= w - 1)
     cy = cy.clamp(max=h - 1.0)
     cx = cx.clamp(max=w - 1.0)

@@ -335,6 +335,7 @@ def pretrain(
     device="cuda",
     noise: Optional[Iterator[TrainNoise]] = None,
     losses: Optional[list] = None,
+    capture: bool = True,
 ) -> TrainState:
     """Train the Burgers UNet2D with the denoising loss (reference:
     1D/model/trainer.py:150-210): Adam, the periodic cosine learning rate,
@@ -352,7 +353,10 @@ def pretrain(
     moments and EMA from its latest checkpoint. Timesteps and noise come from
     a generator seeded with cfg.seed, or from `noise`, which yields each
     micro-batch's (t, noise) in order. `steps_per_call` and `losses`: see
-    `run_train_loop`."""
+    `run_train_loop`. On a CUDA model each full chunk of `steps_per_call`
+    steps is one captured CUDA graph (`run_train_loop(capture=True)`),
+    unless `noise` is given, the batch is split over data ranks or
+    `capture` is False (every step eager, the same values)."""
     num_steps = num_steps or cfg.train_num_steps
     model = build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups, cfg.compute_dtype,
                         device=device)
@@ -394,11 +398,11 @@ def pretrain(
                                                                              generator)
         return p_losses(apply_fn, sched, dcfg, batch, t, n, cond).mean()
 
-    def step_fn(state, batch):
+    def step_fn(state, batch, scalars=None):
         # batch: (accum * batch_size, ...) -> (accum, batch_size, ...)
         batches = batch.reshape(accum, -1, *batch.shape[1:])
         loss, grads = sh.reduce(*accumulated_grads(loss_fn, params_list, batches))
-        state.apply_gradients(grads)
+        state.apply_gradients(grads, scalars)
         return loss
 
     return run_train_loop(
@@ -407,6 +411,7 @@ def pretrain(
         seed=cfg.seed, steps_per_call=steps_per_call, log_every=log_every,
         checkpoint_every=cfg.checkpoint_every, checkpoint_dir=checkpoint_dir, logger=log,
         log_prefix="burgers pretrain", deadline=deadline, losses=losses, shard=sh,
+        capture=capture and noise is None, generators=[generator],
     )
 
 

@@ -101,8 +101,10 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
   B5. pretraining with the BurgersPretrainConfig defaults (batch 16) for 10
       steps after one warm-up step, the loop's set-up timed apart;
   B6. from B5's EMA: posttrain, 2 epochs of 2 steps at batch 380, one
-      recalibration, then one evaluate; InfFT_iters 2 (one step at B = 50,
-      calibrate, evaluate); both calibrate on 100 cal sims;
+      recalibration, then one evaluate, and the same posttrain on an eager
+      pipeline (capture=False) for its seconds and peak memory beside the
+      captured one's; InfFT_iters 2 (one step at B = 50, calibrate,
+      evaluate); both calibrate on 100 cal sims;
   B7. the samplers beyond DDIM and two-model composition:
       (a) tiny UNet2Ds (dim 16) on the card and on the CPU with the same
           weights and draws, TF32 off: a two-model (prior_beta 0.5) DPM
@@ -120,7 +122,8 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
       (d) sampler "dpm", 25 steps, B5's EMA: calibrate on 100 cal sims,
           guided evaluate on the 50 test sims;
       (e) the ancestral sampler through calibrate (ddim_sampling_steps
-          1,000 = timesteps, 1,000 conditioned steps) on 50 cal sims;
+          = timesteps, B7_E_T = 500 conditioned steps, the reference's
+          1,000 cut for phase 16) on 50 cal sims;
       ms per step and peak memory of each.
 
 Depth cuts of the Burgers phases against the reference: 2,048 train sims
@@ -267,13 +270,51 @@ after:
 
  15. Burgers turbo UNet2D at the burgers_20k recipe's batch 32 and tokamak
      turbo UNet1D at its recipe's batch 16, both in bf16 compute: for
-     steps_per_call 10 and 1, `pretrain` eagerly (capture=False) and with
+     steps_per_call 5 and 1 (10 and 1 before phase 16's cut), `pretrain`
+     eagerly (capture=False) and with
      its chunks captured, G_STEPS steps each from the same seeded weights
      and generator seed: the losses, the final weights and the EMA must
      be equal bit for bit; steps/s of each over G_TIME, and for
      steps_per_call 1 the device (kernel) time, kernels, kernel launch
      calls and graph launch calls (one per step) per step by
      torch.profiler over G_PROFILE.
+
+The serving and fine-tuning calls as captured CUDA graphs (phase 16; the
+pipelines' `capture`, core/train.py::Graphs / StaticCall / CapturedCall,
+the counterpart of JAX's jitted _cal_batch, _evaluate, InfFT step and
+fine-tuning chunks), K1 and K2 counts zeroed before and required 0 after,
+bf16 compute, seeded weights, DDIM S_DDIM, Q-hat values that bf16 does not
+hold exactly: each case calls an eager pipeline or step (`capture=False`)
+once, then a captured one three times: the warm-up (eager, on the static
+buffers), the capture on other inputs, draws and Q-hat, and a replay on
+the first inputs again (for a step, from the same starting state, restored
+in place). The warm-up and the replay must each equal the eager call bit
+for bit. Seconds and CUDA-event ms per call, the graph's nodes by type
+(kernel, memcpy, memset; libcuda's cuGraphGetNodes), the peak memory of
+each arm, and torch.profiler over one eager call and one replay (at DDIM 4
+where the case samples; device ms, kernels, kernel launch calls, graph
+launch calls; for 16b, 16c and 16f with `--serving-graphs` only, below):
+
+ 16a. Burgers turbo UNet2D calibrate, 50 cal sims (one chunk);
+ 16b. Burgers guided evaluate of the 50 test sims with the 10,000-step
+      rollout;
+ 16c. Burgers posttrain, 30 steps at batch 64 in chunks of 10, one epoch,
+      eagerly and captured (loss, weights, EMA, AdamW moments);
+ 16d. Burgers InfFT step at B = 50, Q-hat 1.1-1.6;
+ 16e. tokamak turbo UNet1D calibrate, 250 cal sims in one chunk;
+ 16f. tokamak unguided evaluate of the 50 test sims with the KSTAR rollout;
+ 16g. tokamak post-training step at batch 1,000 (make_finetune_steps);
+ 16h. tokamak backward fine-tuning step at B = 50 (w_obj 1).
+
+Depth cuts of phase 16: DDIM 25 (the configs' 200; `python3 chip_smoke.py
+--serving-graphs` runs phase 16 alone at DDIM 200 on B2's and T2's data,
+with each eager arm's second call, a fourth 16c chunk, and the profiler
+windows of 16b, 16c and 16f, which hold 50,000-145,000 kernels each and
+take the profiler up to a minute), the tokamak calibration chunk 250
+(1,000), posttrain 30 steps. Cut to make
+room for it: B6's calibrations in one chunk of 100 (two of 50), phase 15 at
+steps_per_call 5 and 1 with 15 steps per arm (10 and 1, 30), B7(e) at 500
+timesteps (1,000).
 
 `python3 chip_smoke.py --cli-rank <command line>` is 13a's rank under
 torchrun, not a way to run the script.
@@ -339,6 +380,7 @@ B4_CAL = 100  # cal sims of B4's and B7(d)'s calibrate (reference 1,000)
 B7_CAL = 50  # cal sims of B7's two-model and ancestral calibrations (reference 1,000)
 B7_DDIM = 100  # DDIM steps of B7(c)'s two-model serving (reference 200)
 B7_ANCESTRAL_T = 100  # timesteps of B7(a)'s ancestral chain
+B7_E_T = 500  # timesteps of B7(e)'s ancestral calibration (reference 1,000)
 SMOKE_STEPS = 5  # timed pretrain steps (after one more) and guided DDIM steps of phase 10
 # Tokamak: the reference "turbo" UNet1D; trajectories per split (reference
 # 48,950 train, 1,000 cal, 50 test; the train split cut to what T5-T6 read)
@@ -1202,7 +1244,7 @@ def phase_burgers_serving(burgers, data):
     from safediffcon_torch.tasks.burgers.pipeline import init_params
 
     ccfg = burgers.BurgersConformalConfig()
-    pipe = burgers.BurgersPipeline(ccfg, device="cuda", **B_MODEL)
+    pipe = burgers.BurgersPipeline(ccfg, device="cuda", capture=False, **B_MODEL)
     init_params(pipe.model, seed=0)
     n_params = sum(p.numel() for p in pipe.model.parameters())
     steps = ccfg.ddim_sampling_steps
@@ -1225,7 +1267,8 @@ def phase_burgers_serving(burgers, data):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     sampling_s, rollout_s = pipe.phase_seconds["sampling"], pipe.phase_seconds["rollout"]
 
-    pipe16 = burgers.BurgersPipeline(ccfg, device="cuda", compute_dtype="bfloat16", **B_MODEL)
+    pipe16 = burgers.BurgersPipeline(ccfg, device="cuda", compute_dtype="bfloat16",
+                                     capture=False, **B_MODEL)
     pipe16.model.load_state_dict(pipe.model.state_dict())
     state = torch.as_tensor(data["test"].data, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1313,7 +1356,9 @@ def phase_burgers_pretrain(burgers, data, model_w: bool = False):
 
 def phase_burgers_finetune(burgers, data, params):
     """B6: posttrain (2 epochs of 2 steps at batch 380, one recalibration),
-    then one evaluate; InfFT (InfFT_iters 2: one step at B = 50, calibrate,
+    then one evaluate, and the same posttrain eagerly (its seconds and peak
+    memory against the captured run's, and its weights' largest difference
+    from them); InfFT (InfFT_iters 2: one step at B = 50, calibrate,
     evaluate); both from the pretrained EMA, calibrating on B_FT_CAL sims.
     InfFT's loss MSE(relu(max s + Q - bound^2), 0) is 0 with no gradient
     when every predicted max lies below bound^2 - Q; one more step at Q = 1
@@ -1333,7 +1378,10 @@ def phase_burgers_finetune(burgers, data, params):
             base = burgers.BurgersInfFTConfig()
             cfg = dataclasses.replace(base, InfFT_iters=2,
                                       conformal=dataclasses.replace(base.conformal, **cut))
-        pipe = burgers.BurgersPipeline(cfg.conformal, device="cuda", **B_MODEL)
+        # its calibrations in one chunk: one call of a captured calibration
+        # is its eager warm-up, a second would be its capture
+        pipe = burgers.BurgersPipeline(cfg.conformal, device="cuda", cal_chunk=B_FT_CAL,
+                                       **B_MODEL)
         cal_s, marks = [], [time.perf_counter()]
         calibrate = pipe.calibrate
 
@@ -1352,8 +1400,13 @@ def phase_burgers_finetune(burgers, data, params):
         pipe.phase_seconds = {}
         torch.cuda.reset_peak_memory_stats()
         if name == "posttrain":
+            t0 = time.perf_counter()
             state, q, hist = burgers.posttrain(cfg, pipe, params, train, cal, test,
                                                on_epoch=on_epoch)
+            torch.cuda.synchronize()
+            captured = dict(seconds=time.perf_counter() - t0,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                            reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
             t0 = time.perf_counter()
             final = pipe.evaluate(state.ema_params, test, q,
                                   generator=torch.Generator(device="cuda").manual_seed(3))
@@ -1362,7 +1415,7 @@ def phase_burgers_finetune(burgers, data, params):
             state, q, hist = burgers.inference_finetune(cfg, pipe, params, cal, test,
                                                         on_epoch=on_epoch)
             final = hist[-1]["eval"]
-            evaluate_s = pipe.phase_seconds["sampling"] + pipe.phase_seconds["rollout"]
+            evaluate_s = sum(pipe.phase_seconds.values())  # "evaluate" when captured
         changed = max(float((p.detach() - params[k]).abs().max())
                       for k, p in state.model.named_parameters())
         rec = dict(epochs=[dict(epoch=r["epoch"], loss=r["loss"], quantile=r["quantile"],
@@ -1372,6 +1425,21 @@ def phase_burgers_finetune(burgers, data, params):
                    metrics=final)
         if name == "posttrain":
             rec["batch"] = cfg.finetune_batch_size
+            weights = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+            pipe = state = None  # the captured run's graphs and state freed
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eager_pipe = burgers.BurgersPipeline(cfg.conformal, device="cuda",
+                                                 cal_chunk=B_FT_CAL, capture=False, **B_MODEL)
+            t0 = time.perf_counter()
+            e_state, _, _ = burgers.posttrain(cfg, eager_pipe, params, train, cal, test)
+            torch.cuda.synchronize()
+            rec["posttrain_memory"] = dict(captured=captured, eager=dict(
+                seconds=time.perf_counter() - t0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                weights_max_diff=_same(weights, dict(e_state.model.named_parameters()))))
+            del eager_pipe, e_state, weights
         log(f"B6 {name}: " + json.dumps(rec, sort_keys=True))
         values = [q, *final.values(), *(r["loss"] for r in hist)]
         if not (all(math.isfinite(float(v)) for v in values) and len(hist) == (
@@ -1493,7 +1561,7 @@ def phase_burgers_b7_agreement(burgers, data):
 def burgers_serve(burgers, label: str, ccfg, params, cal, test=None, **pipe_kw) -> dict:
     """Calibrate on `cal` (and guided evaluate on `test`) at the turbo width
     with `ccfg`; ms per sampler step, peak memory."""
-    pipe = burgers.BurgersPipeline(ccfg, device="cuda", **B_MODEL, **pipe_kw)
+    pipe = burgers.BurgersPipeline(ccfg, device="cuda", capture=False, **B_MODEL, **pipe_kw)
     # model evaluations per sampler call: the ancestral sampler takes every
     # timestep when ddim_sampling_steps >= timesteps
     steps = min(ccfg.ddim_sampling_steps, ccfg.timesteps)
@@ -1550,7 +1618,7 @@ def phase_burgers_b7(burgers, data, main_params):
         cal[:B4_CAL], test)
     out["ancestral"] = burgers_serve(
         burgers, "B7(e) ancestral calibrate",
-        dataclasses.replace(base, ddim_sampling_steps=base.timesteps), main_params,
+        dataclasses.replace(base, timesteps=B7_E_T, ddim_sampling_steps=B7_E_T), main_params,
         cal[:B7_CAL])
     return out
 
@@ -1923,7 +1991,7 @@ def phase_tokamak_serving(tokamak, data):
     from safediffcon_torch.tasks.tokamak.pipeline import init_params
 
     ccfg = tokamak.TokamakConformalConfig()
-    pipe = tokamak.TokamakPipeline(ccfg, cal_chunk=T_CAL_CHUNK, device="cuda")
+    pipe = tokamak.TokamakPipeline(ccfg, cal_chunk=T_CAL_CHUNK, device="cuda", capture=False)
     init_params(pipe.model, seed=0)
     n_params = sum(p.numel() for p in pipe.model.parameters())
     steps = ccfg.ddim_sampling_steps
@@ -1937,7 +2005,7 @@ def phase_tokamak_serving(tokamak, data):
     cal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     runs = {}
     guided_pipe = tokamak.TokamakPipeline(dataclasses.replace(ccfg, guidance_scaler=5.0),
-                                          device="cuda")
+                                          device="cuda", capture=False)
     guided_pipe.model.load_state_dict(pipe.model.state_dict())
     for name, p, guided in (("unguided", pipe, False), ("guided", guided_pipe, True)):
         p.phase_seconds = {}
@@ -2044,8 +2112,8 @@ def phase_tokamak_finetune(tokamak, data, params):
         rec = dict(epochs=[dict(epoch=r["epoch"], loss=r["loss"], quantile=r["quantile"],
                                 seconds=b - a) for r, a, b in zip(hist, marks, marks[1:])],
                    calibrate_s=cal_s,
-                   evaluate_s=pipe.phase_seconds["sampling"] + pipe.phase_seconds["rollout"],
-                   rollout_s=pipe.phase_seconds["rollout"],
+                   evaluate_s=sum(pipe.phase_seconds.values()),  # "evaluate" when captured
+                   rollout_s=pipe.phase_seconds.get("rollout", "captured with the sampler"),
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9, max_weight_change=changed,
                    metrics=hist[-1]["eval"])
         log(f"T6 {name}: " + json.dumps(rec, sort_keys=True))
@@ -2082,7 +2150,7 @@ def phase_tokamak_dpm(tokamak, data, params):
     EMA: calibrate on the 1,000 cal sims as one chunk, then an unguided
     evaluate (the default) on the 50 test sims; ms per step, peak memory."""
     ccfg = tokamak.TokamakConformalConfig(sampler="dpm", ddim_sampling_steps=DPM_STEPS)
-    pipe = tokamak.TokamakPipeline(ccfg, cal_chunk=T_CAL_CHUNK, device="cuda")
+    pipe = tokamak.TokamakPipeline(ccfg, cal_chunk=T_CAL_CHUNK, device="cuda", capture=False)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     q = float(pipe.calibrate(params, data["cal"], 0.0,
@@ -2850,10 +2918,10 @@ def phase_round1(K, C) -> dict:
 # the warm-up and the capture at either chunk size), the steps torch.profiler
 # traces in the steps_per_call 1 arms (few: ~5,900 kernels per eager step),
 # and the chunk sizes compared
-G_STEPS = 30
-G_TIME = (20, 30)
-G_PROFILE = (10, 13)
-G_CHUNKS = (10, 1)
+G_STEPS = 15
+G_TIME = (10, 15)
+G_PROFILE = (5, 8)
+G_CHUNKS = (5, 1)
 
 
 class StepMarks(list):
@@ -2928,7 +2996,7 @@ def _max_diff(a: dict, b: dict) -> float:
 
 
 def graph_case(name: str, pretrain, cfg, train, mod) -> dict:
-    """Phase 15 for one task: for steps_per_call 10 and 1, an eager arm and
+    """Phase 15 for one task: for steps_per_call 5 and 1, an eager arm and
     a captured arm of `pretrain`, each G_STEPS steps from the same seeded
     weights and generator seed. The captured arm must equal the eager one
     bit for bit: the same kernels on the same float32 step values (found
@@ -2975,6 +3043,443 @@ def phase_train_graphs(burgers, tokamak, b_data, t_data) -> dict:
         tokamak=graph_case("tokamak", tokamak.pretrain, dataclasses.replace(
             tokamak.TokamakPretrainConfig(), batch_size=16, compute_dtype="bfloat16"),
             t_data["train"], tp))
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the serving and fine-tuning calls as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+S_DDIM = 25  # DDIM steps of phase 16 in the whole run (`--serving-graphs`: 200)
+S_SHORT_DDIM = 4  # DDIM steps of the profiled short windows
+# `--serving-graphs`: also each eager arm's second call, and the profiler
+# windows over a rollout (16b, 16f) and ten eager training steps (16c),
+# each up to a minute of the profiler's own time in the whole run's budget
+S_EXTENDED = False
+S_POST_CHUNKS = 3  # 16c: chunks of 10 steps at batch 64 (`--serving-graphs`: 4)
+S_T_CAL = 250  # tokamak cal sims per calibrate call, one chunk (recipe: 1,000 in one)
+
+
+class KeptGraphs:
+    """While open, CUDA graphs are made with keep_graph=True, so that their
+    nodes can be counted (`graph_nodes`); `graphs` lists them."""
+
+    def __enter__(self):
+        self.orig, self.graphs = torch.cuda.CUDAGraph, []
+
+        def make():
+            g = self.orig(keep_graph=True)
+            self.graphs.append(g)
+            return g
+
+        torch.cuda.CUDAGraph = make
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph = self.orig
+
+
+def graph_nodes(graphs: list) -> dict:
+    """The nodes of kept graphs by type (libcuda's cuGraphGetNodes
+    and cuGraphNodeGetType): kernel, memcpy, memset, other."""
+    import ctypes
+
+    lib = ctypes.CDLL("libcuda.so.1")
+    out = {}
+    for graph in graphs:
+        g = ctypes.c_void_p(graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        if lib.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+            return "not measured"
+        nodes = (ctypes.c_void_p * n.value)()
+        lib.cuGraphGetNodes(g, nodes, ctypes.byref(n))
+        kind = ctypes.c_int()
+        for node in nodes:
+            lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+            name = {0: "kernel", 1: "memcpy", 2: "memset"}.get(kind.value, "other")
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def timed_call(fn):
+    """(fn(), wall seconds, CUDA-event ms of the work it enqueued), synced
+    before and after."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+PROFILE = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+
+def profile_stats(prof) -> dict:
+    """Device (kernel) ms, kernels, kernel launch calls and graph launch
+    calls of a finished torch.profiler window."""
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = {e.key: e.count for e in ev if e.device_type == torch.autograd.DeviceType.CPU
+             and (e.key.startswith(("cudaLaunch", "cuLaunch")) or e.key == "cudaGraphLaunch")}
+    return dict(device_ms=(sum(e.self_device_time_total for e in kernels) / 1e3
+                           if kernels else "not measured"),
+                kernels=sum(e.count for e in kernels),
+                launch_calls=sum(v for k, v in calls.items() if k != "cudaGraphLaunch"),
+                graph_launches=calls.get("cudaGraphLaunch", 0))
+
+
+def profile_call(fn) -> dict:
+    """torch.profiler over one call (a short window): `profile_stats`."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILE) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return profile_stats(prof)
+
+
+def profiled_calls(fn, first: int, n: int, into: dict, key: str):
+    """`fn`, with torch.profiler over its calls first .. first + n - 1
+    (counted from 0); their `profile_stats` go to into[key]."""
+    count, prof = [0], []
+
+    def wrapped(*a, **kw):
+        i = count[0]
+        count[0] += 1
+        if i == first:
+            torch.cuda.synchronize()
+            prof.append(torch.profiler.profile(activities=PROFILE))
+            prof[0].__enter__()
+        out = fn(*a, **kw)
+        if i == first + n - 1:
+            torch.cuda.synchronize()
+            prof[0].__exit__(None, None, None)
+            into[key] = profile_stats(prof[0])
+        return out
+
+    return wrapped
+
+
+def _same(a, b) -> float:
+    """0 where two results (tensors and numbers in dicts, lists and tuples)
+    are equal bit for bit, else their largest difference (inf for a shape
+    or key mismatch)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return math.inf
+        return max((_same(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return math.inf
+        return max((_same(x, y) for x, y in zip(a, b)), default=0.0)
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape:
+            return math.inf
+        return 0.0 if torch.equal(a, b) else float((a.double() - b.double()).abs().max())
+    return 0.0 if a == b or (a != a and b != b) else abs(float(a) - float(b))
+
+
+def _finite(x) -> bool:
+    if isinstance(x, dict):
+        return all(_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_finite(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return bool(torch.isfinite(x).all())
+    return math.isfinite(float(x))
+
+
+def serving_case(label: str, make, call, state=None, short=None, profile: bool = True) -> dict:
+    """One phase-16 case: the eager arm, `make(False)`'s pipeline or step
+    called once as `call(obj, 0)` on the first inputs, draws and Q-hat;
+    then `make(True)`'s captured one called three times, i = 0, 1, 0: the
+    warm-up (eager on the static buffers), the capture on other inputs,
+    and a replay on the first inputs again (the static buffers refilled
+    after the capture's). The warm-up and the replay must each equal the
+    eager arm bit for bit. With `state` = (snapshot, restore), a case
+    whose calls update weights, the replay starts from the warm-up's
+    starting state, restored in place (each arm starts from the same
+    seeded weights). Seconds and CUDA-event ms per call, the graph's nodes
+    by type, the peak memory of each arm; with S_EXTENDED, the eager arm's
+    second call (free of first-call costs, from the same state), which
+    must equal its first; torch.profiler over one eager call and one replay
+    of `short(capture)` (the case at DDIM S_SHORT_DDIM), or of `make`,
+    where `profile` (a rollout's window: with S_EXTENDED only)."""
+    obj = make(False)
+    snap = state[0](obj) if state is not None else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eager = timed_call(lambda: call(obj, 0))
+    res = dict(seconds=dict(eager=eager[1]), event_ms=dict(eager=eager[2]),
+               peak_gb=dict(eager=torch.cuda.max_memory_allocated() / 1e9))
+    diffs = {}
+    if S_EXTENDED:
+        if state is not None:
+            state[1](obj, snap)
+        steady = timed_call(lambda: call(obj, 0))
+        res["seconds"]["eager_steady"], res["event_ms"]["eager_steady"] = steady[1:]
+        diffs["eager_steady"] = _same(eager[0], steady[0])
+        del steady
+    del obj, snap
+    obj = make(True)
+    snap = state[0](obj) if state is not None else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got = []
+    with KeptGraphs() as kept:
+        for n, i in enumerate((0, 1, 0)):
+            if n == 2 and state is not None:
+                state[1](obj, snap)
+            got.append(timed_call(lambda: call(obj, i)))
+    for name, g in zip(("warm_up", "capture", "replay"), got):
+        res["seconds"][name], res["event_ms"][name] = g[1:]
+    res["peak_gb"]["captured"] = torch.cuda.max_memory_allocated() / 1e9
+    res["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    res["nodes"] = graph_nodes(kept.graphs)
+    diffs.update(warm_up=_same(eager[0], got[0][0]), replay=_same(eager[0], got[2][0]))
+    res["max_diff"] = diffs
+    res["replay_speedup"] = res["seconds"].get("eager_steady", eager[1]) / got[2][1]
+    finite = _finite(got[2][0])
+    del obj, kept, got, snap, eager
+    prof = {}
+    for capture in (True, False) if profile else ():
+        obj = (short or make)(capture)
+        for i in range(2 if capture else 0):
+            call(obj, i)  # the warm-up and the capture
+        prof["captured" if capture else "eager"] = profile_call(lambda: call(obj, 0))
+        del obj
+    if prof:
+        res["profile" if short is None else f"profile_ddim{S_SHORT_DDIM}"] = prof
+    torch.cuda.empty_cache()
+    log(f"16 {label}: " + json.dumps(res))
+    if any(diffs.values()) or not finite:
+        raise AssertionError(f"phase 16 {label}: a call differs from the eager arm "
+                             f"({diffs}) or is not finite")
+    return res
+
+
+def burgers_posttrain_case(burgers, bp, b_conf, b_pipe, init, b_data) -> dict:
+    """16c: `posttrain` of S_POST_CHUNKS chunks of 10 steps at batch 64
+    (one epoch, no evaluation) from the same weights, eagerly and captured
+    (a warm-up chunk, the capture, replays): the epoch's loss, the weights,
+    the EMA and the AdamW moments bit for bit; the seconds of each of the
+    first three chunks (eagerly: of their steps), peak memory, and
+    torch.profiler over a fourth chunk (S_EXTENDED)."""
+    steps = 10 * S_POST_CHUNKS
+    post = dataclasses.replace(burgers.BurgersPostTrainConfig(), conformal=b_conf,
+                               finetune_epoch=1, finetune_steps=steps,
+                               finetune_batch_size=64, steps_per_call=10)
+    res, outs = {}, {}
+    orig_chunks, orig_step = bp.ChunkGraph, bp.weighted_step
+    try:
+        for capture in (False, True):
+            timing, prof = [], {}
+            if capture:
+                class TimedChunks(orig_chunks):
+                    def run(self):
+                        if len(timing) == 3:
+                            return profiled_calls(super().run, 0, 1, prof, "profile")()
+                        got, s, _ = timed_call(super().run)
+                        timing.append(s)
+                        return got
+
+                bp.ChunkGraph = TimedChunks
+            else:
+                profiled = profiled_calls(orig_step, 0, 10, prof, "profile")
+
+                def step(*a, **kw):
+                    if len(timing) < 30:
+                        got, s, _ = timed_call(lambda: orig_step(*a, **kw))
+                        timing.append(s)
+                        return got
+                    return profiled(*a, **kw)
+
+                bp.weighted_step = step
+            p = b_pipe(capture)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with KeptGraphs() as kept:
+                (state, _, hist), s, _ = timed_call(lambda: burgers.posttrain(
+                    post, p, init, b_data["train"], b_data["cal"], b_data["test"],
+                    eval_every_subset_epoch=False))
+            o = state.opt_state
+            outs[capture] = (hist[-1]["loss"], list(state.model.parameters()),
+                             state.ema_params, o.mu, o.nu)
+            chunks = timing if capture else [sum(timing[i : i + 10]) for i in (0, 10, 20)]
+            res["captured" if capture else "eager"] = dict(
+                seconds=s, chunk_seconds=chunks, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.max_memory_reserved() / 1e9, **prof,
+                **(dict(nodes=graph_nodes(kept.graphs)) if capture else {}))
+            bp.ChunkGraph, bp.weighted_step = orig_chunks, orig_step
+            del p, state, kept
+    finally:
+        bp.ChunkGraph, bp.weighted_step = orig_chunks, orig_step
+    res["max_diff"] = _same(outs[False], outs[True])
+    log(f"16 burgers posttrain, {steps} steps in chunks of 10 at batch 64: "
+        + json.dumps(res))
+    if res["max_diff"] or not math.isfinite(outs[True][0]):
+        raise AssertionError(f"phase 16 burgers posttrain: captured differs from eager: {res}")
+    return res
+
+
+def _clone_tree(x):
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone_tree(v) for v in x)
+    return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+
+def phase_serving_graphs(burgers, tokamak, b_data, t_data, ddim: int = S_DDIM) -> dict:
+    """16: the Burgers and tokamak serving and fine-tuning calls as captured
+    CUDA graphs against the same calls run eagerly, at the turbo widths in
+    bf16 compute, seeded weights, DDIM `ddim` (`serving_case`)."""
+    import safediffcon_torch.tasks.burgers.pipeline as bp
+    import safediffcon_torch.tasks.tokamak.pipeline as tp
+    from safediffcon_torch.core.train import make_optimizer
+
+    out = {}
+    b_conf = burgers.BurgersConformalConfig(ddim_sampling_steps=ddim)
+    init = bp.init_params(bp.build_model(**B_MODEL, compute_dtype="bfloat16", device="cuda"),
+                          seed=0).state_dict()
+
+    def gen(i):
+        return torch.Generator(device="cuda").manual_seed(1600 + i)
+
+    def b_pipe(capture, **conf):
+        p = burgers.BurgersPipeline(dataclasses.replace(b_conf, **conf), device="cuda",
+                                    compute_dtype="bfloat16", capture=capture, **B_MODEL)
+        p.model.load_state_dict(init)
+        return p
+
+    def b_cal(p, i):
+        p.record = {}
+        q = p.calibrate(None, b_data["cal"].data[50 * i : 50 * (i + 1)], 0.1 + 0.5 * i,
+                        generator=gen(i))
+        return q, p.record["cal_scores"], p.record["cal_weights"]
+
+    out["burgers_calibrate"] = serving_case(
+        f"burgers calibrate (B = 50, DDIM {ddim})", b_pipe, b_cal,
+        short=lambda c: b_pipe(c, ddim_sampling_steps=S_SHORT_DDIM))
+    out["burgers_evaluate"] = serving_case(
+        f"burgers guided evaluate with the rollout (B = 50, DDIM {ddim})", b_pipe,
+        lambda p, i: p.evaluate(None, b_data["test"], 0.1 + 0.5 * i, generator=gen(i)),
+        short=lambda c: b_pipe(c, ddim_sampling_steps=S_SHORT_DDIM), profile=S_EXTENDED)
+    out["burgers_posttrain"] = burgers_posttrain_case(burgers, bp, b_conf, b_pipe, init,
+                                                      b_data)
+
+    def b_infft(capture, **conf):
+        p = b_pipe(capture, **conf)
+        tx = make_optimizer("adamw", 1e-5, weight_decay=1e-4, betas=(0.9, 0.999),
+                            max_grad_norm=1.0)
+        state = bp.make_train_state(p, None, tx, 0.995, 10)
+        return state, bp.make_infft_step(p, state)
+
+    batch = torch.as_tensor(b_data["test"].data, device="cuda")
+
+    def b_infft_call(obj, i):
+        state, step = obj
+        loss = step(batch, 1.1 + 0.5 * i, gen(i))  # Q-hat >= 1: the loss has a gradient
+        return _clone_tree((loss, dict(state.model.named_parameters()), state.ema_params))
+
+    out["burgers_infft_step"] = serving_case(
+        f"burgers InfFT step (B = 50, DDIM {ddim}, Q-hat 1.1-1.6)", b_infft, b_infft_call,
+        state=(lambda o: _clone_tree(o[0].state_dict()),
+               lambda o, snap: o[0].load_state_dict(snap)),
+        short=lambda c: b_infft(c, ddim_sampling_steps=S_SHORT_DDIM))
+
+    t_conf = tokamak.TokamakConformalConfig(ddim_sampling_steps=ddim)
+    t_init = tp.init_params(tp.build_model(compute_dtype="bfloat16", device="cuda"),
+                            seed=0).state_dict()
+
+    def t_pipe(capture, **conf):
+        p = tokamak.TokamakPipeline(dataclasses.replace(t_conf, **conf), cal_chunk=S_T_CAL,
+                                    compute_dtype="bfloat16", capture=capture, device="cuda")
+        p.model.load_state_dict(t_init)
+        return p
+
+    cal = t_data["cal"]
+
+    def t_cal(p, i):
+        p.record = {}
+        rows = slice(S_T_CAL * i, S_T_CAL * (i + 1))
+        part = tokamak.TokamakDataset(data=cal.data[rows], state_phys=cal.state_phys[rows])
+        q = p.calibrate(None, part, 0.1 + 0.2 * i, generator=gen(i))
+        return q, p.record["cal_scores"], p.record["cal_weights"]
+
+    out["tokamak_calibrate"] = serving_case(
+        f"tokamak calibrate ({S_T_CAL} in one chunk, DDIM {ddim})", t_pipe, t_cal,
+        short=lambda c: t_pipe(c, ddim_sampling_steps=S_SHORT_DDIM))
+    out["tokamak_evaluate"] = serving_case(
+        f"tokamak evaluate with the KSTAR rollout (B = 50, DDIM {ddim})", t_pipe,
+        lambda p, i: p.evaluate(None, t_data["test"], 0.1 + 0.2 * i, generator=gen(i)),
+        short=lambda c: t_pipe(c, ddim_sampling_steps=S_SHORT_DDIM), profile=S_EXTENDED)
+
+    train = t_data["train"]
+    w_all = np.random.default_rng(16).uniform(0.5, 1.5, len(train)).astype(np.float32)
+
+    def t_steps(capture, backward=False, **conf):
+        base = tokamak.finetune_config() if backward else tokamak.posttrain_config()
+        p = t_pipe(capture, **({"w_obj": 1.0} if backward else {}), **conf)
+        tx, weighted, back = tp.make_finetune_steps(
+            dataclasses.replace(base, conformal=p.ccfg), p)
+        return p, tx.init(list(p.model.parameters())), weighted, back
+
+    def t_snapshot(o):
+        return _clone_tree(o[0].model.state_dict()), _clone_tree(o[1].state_dict())
+
+    def t_restore(o, snap):
+        o[0].model.load_state_dict(snap[0])
+        o[1].load_state_dict(snap[1])
+
+    def t_weighted(obj, i):
+        p, opt, weighted, _ = obj
+        sel = np.arange(i * 500, i * 500 + 1000) % len(train)
+        loss = weighted(opt, torch.as_tensor(train.data[sel], device="cuda"),
+                        torch.as_tensor(w_all[sel], device="cuda"), gen(i))
+        return _clone_tree((loss, dict(p.model.named_parameters()), opt.tensors()))
+
+    out["tokamak_weighted_step"] = serving_case(
+        "tokamak post-training step (batch 1,000)", t_steps, t_weighted,
+        state=(t_snapshot, t_restore), short=t_steps)
+    test = t_data["test"]
+    t_batch = torch.as_tensor(test.data, device="cuda")
+    t_target = torch.as_tensor(test.state_phys, device="cuda")
+
+    def t_backward(obj, i):
+        p, opt, _, back = obj
+        loss = back(opt, t_batch, t_target, 0.05 + 0.1 * i, gen(i))
+        return _clone_tree((loss, dict(p.model.named_parameters()), opt.tensors()))
+
+    out["tokamak_backward_step"] = serving_case(
+        f"tokamak backward fine-tuning step (B = 50, DDIM {ddim}, w_obj 1)",
+        lambda c: t_steps(c, backward=True), t_backward, state=(t_snapshot, t_restore),
+        short=lambda c: t_steps(c, backward=True, ddim_sampling_steps=S_SHORT_DDIM))
+    return out
+
+
+def serving_graphs_only() -> int:
+    """`python3 chip_smoke.py --serving-graphs`: B2's and T2's data, then
+    phase 16 alone at DDIM 200 (the configs' depth; the whole run takes
+    S_DDIM), with S_EXTENDED."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import safediffcon_torch.tasks.burgers as burgers
+    import safediffcon_torch.tasks.tokamak as tokamak
+
+    global S_EXTENDED, S_POST_CHUNKS
+    S_EXTENDED, S_POST_CHUNKS = True, 4
+    log(f"device: {card_line()}")
+    t0 = time.perf_counter()
+    b_data, _ = phase_burgers_datagen(burgers)
+    t_data, _ = phase_tokamak_datagen(tokamak)
+    phase_serving_graphs(burgers, tokamak, b_data, t_data, ddim=200)
+    log(f"phase 16 at DDIM 200 with its data in {time.perf_counter() - t0:.1f} s")
+    print(card_line(), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -3102,6 +3607,19 @@ def main() -> int:
     if any(idle):
         raise AssertionError(f"a TPU-kernel counterpart ran in phase 15: {idle}")
 
+    # phase 16: the Burgers and tokamak serving and fine-tuning calls as
+    # captured CUDA graphs against the eager calls; no kernel of the TPU
+    # package on them
+    K.pressure_cg_cuda.launches = 0
+    zero_k2_counts(C)
+    t_p16 = time.perf_counter()
+    phase_serving_graphs(burgers, tokamak, b_data, t_data)
+    idle = (K.pressure_cg_cuda.launches, k2_launches(C), C.conv3d_fused_simt_cuda.launches)
+    log(f"phase 16 in {time.perf_counter() - t_p16:.1f} s; K1 / K2 / K2 SIMT launches during "
+        f"it {idle}; total {time.perf_counter() - t_start:.1f} s")
+    if any(idle):
+        raise AssertionError(f"a TPU-kernel counterpart ran in phase 16: {idle}")
+
     kernels = [dict(
         name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",
         replaces="safediffcon_tpu/ops/pressure_cg.py:42",
@@ -3189,4 +3707,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-rank"]:  # a rank of phase 13(a)'s torchrun
         sys.exit(cli_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serving-graphs"]:
+        sys.exit(serving_graphs_only())
     sys.exit(main())

@@ -10,7 +10,11 @@ noise, in the order it takes them (each sampler's docstring says which).
 
 A denoiser is `apply_fn(x, t)` with its weights bound; the per-step scalars
 of each update are computed on the host from the float32 tables, once per
-step.
+step, as Python floats, from the schedule's host copies (`sched.host`), so
+that a whole sampler call can be captured as one CUDA graph after an eager
+first call: nothing in a sampler's chain copies to the host or waits for
+the card. `sampler_draws` draws a call's noise ahead of it, as the sampler
+would draw it, for such a graph's static buffers.
 """
 from __future__ import annotations
 
@@ -220,7 +224,7 @@ def ddim_sample(
     device = sched.alphas_cumprod.device
     draws = _step_draws(shape, device, generator, step_noise, len(pairs) - 1)
     img = cond.apply(_initial_noise(shape, device, generator, init_noise))
-    alphas_cumprod = sched.alphas_cumprod.cpu().numpy()
+    alphas_cumprod = sched.host["alphas_cumprod"]
 
     def predict(img, time):
         return model_predictions(apply_fn, sched, cfg, img, time, guidance_grad=guidance_grad,
@@ -293,7 +297,7 @@ def ancestral_sample(
     per_step = 1 + int(second) + int(recurrence)
     draws = _step_draws(shape, device, generator, step_noise, per_step * (T - 1))
     img = _initial_noise(shape, device, generator, init_noise)
-    alphas, alphas_prev = sched.alphas.cpu().numpy(), sched.alphas_prev.cpu().numpy()
+    alphas, alphas_prev = sched.host["alphas"], sched.host["alphas_prev"]
 
     def posterior_step(img, t, time, x_start):
         if cfg.clip_denoised:
@@ -413,7 +417,7 @@ def dpm_solver_sample(
     matched = cfg.noise_matched_cond
     draws = _step_draws(shape, device, generator, step_noise, len(pairs) if matched else 0)
     img = _initial_noise(shape, device, generator, init_noise)
-    acp = sched.alphas_cumprod.cpu().numpy()
+    acp = sched.host["alphas_cumprod"]
 
     if matched:
         zeros = torch.zeros(shape, dtype=torch.float32, device=device)
@@ -455,6 +459,27 @@ def dpm_solver_sample(
 
 
 _SAMPLERS = {"ddim": ddim_sample, "dpm": dpm_solver_sample}
+
+
+def sampler_draws(sampler: Callable, cfg: DiffusionConfig, shape, generator, device):
+    """(init_noise, step_noise): the draws a call of `sampler` (`ddim_sample`,
+    `dpm_solver_sample`, or `sample` and `ancestral_sample` with the
+    guidance at x0 and no recurrence) takes from `generator`, drawn now in the order and shapes the
+    sampler draws them, so that handing them in gives what the call would
+    have drawn and leaves the generator where the call would."""
+    if sampler is sample:
+        sampler = ddim_sample if cfg.is_ddim else ancestral_sample
+    if sampler is ddim_sample:
+        n = len(_ddim_times(cfg)) - 1
+    elif sampler is ancestral_sample:
+        n = cfg.timesteps - 1
+    elif sampler is dpm_solver_sample:
+        n = len(_ddim_times(cfg)) if cfg.noise_matched_cond else 0
+    else:
+        raise ValueError(f"no draw count for sampler {sampler!r}")
+    init = _initial_noise(shape, device, generator, None)
+    return init, [pmesh.randn(shape, generator, dtype=torch.float32, device=device)
+                  for _ in range(n)]
 
 
 def get_sampler(name: str) -> Callable:

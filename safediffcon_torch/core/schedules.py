@@ -7,7 +7,7 @@ integer timestep to a float32 step size read from the same kind of table.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +31,10 @@ class DiffusionSchedule(NamedTuple):
     posterior_mean_coef1: torch.Tensor
     posterior_mean_coef2: torch.Tensor
     loss_weight: torch.Tensor
+    # float32 host copies of `alphas`, `alphas_prev` and `alphas_cumprod`,
+    # from which the samplers compute their per-step coefficients (a copy
+    # from the card inside a captured sampler call would wait for it)
+    host: Dict[str, np.ndarray]
 
     @property
     def num_timesteps(self) -> int:
@@ -109,6 +113,8 @@ def make_schedule(
     def as_f32(x):
         return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
+    host = {"alphas": alphas, "alphas_prev": alphas_prev, "alphas_cumprod": alphas_cumprod}
+
     return DiffusionSchedule(
         betas=as_f32(betas),
         alphas=as_f32(alphas),
@@ -131,6 +137,7 @@ def make_schedule(
             (1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)
         ),
         loss_weight=as_f32(loss_weight),
+        host={k: np.asarray(v, dtype=np.float32) for k, v in host.items()},
     )
 
 

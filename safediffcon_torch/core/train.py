@@ -28,6 +28,7 @@ Port of `safediffcon_tpu/core/train.py` (reference: 1D/model/trainer.py:21-210,
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -38,6 +39,8 @@ from torch import nn
 from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
 from safediffcon_torch.core.schedules import DiffusionSchedule
 from safediffcon_torch.parallel import mesh as pmesh
+
+log = logging.getLogger(__name__)
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -89,6 +92,9 @@ class AdamState:
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def tensors(self) -> List[torch.Tensor]:
+        return self.mu + self.nu
 
     def load_state_dict(self, d: dict) -> None:
         self.count = int(d["count"])
@@ -185,6 +191,9 @@ class SGDState:
 
     def state_dict(self) -> dict:
         return {"count": self.count, "trace": self.trace}
+
+    def tensors(self) -> List[torch.Tensor]:
+        return list(self.trace)
 
     def load_state_dict(self, d: dict) -> None:
         self.count = int(d["count"])
@@ -305,6 +314,12 @@ class TrainState:
             rows.append(np.concatenate([self.tx.scalars(self.opt_state.count + i), ema]))
         return np.stack(rows).astype(np.float32)
 
+    def tensors(self) -> List[torch.Tensor]:
+        """The model's tensors, the optimizer's and the EMA: what a step
+        reads and updates in place."""
+        return (list(self.model.parameters()) + list(self.model.buffers())
+                + self.opt_state.tensors() + list(self.ema_params.values()))
+
     def advance(self, k: int) -> None:
         """Count k steps that ran on device scalars."""
         self.step += k
@@ -395,39 +410,249 @@ def accumulated_grads(loss_fn: Callable[[int, torch.Tensor], torch.Tensor],
 # Shared pretrain loop
 # ---------------------------------------------------------------------------
 
+def graphs_on(device: torch.device) -> bool:
+    """Whether work on `device` runs as captured CUDA graphs: on CUDA
+    devices only (a CPU tensor takes the eager, plain path)."""
+    return torch.device(device).type == "cuda"
+
+
+def _cloned(out):
+    """`out` (tensors in nested tuples, lists and dicts) with each tensor
+    copied."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _cloned(v) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_cloned(v) for v in out)
+    return out
+
+
+class CapturedCall:
+    """A call `fn()` as one CUDA graph, the counterpart of one jitted JAX
+    program. `fn` reads and writes only tensors that outlive it: static
+    inputs that the caller refills before each call, the weights and state
+    it updates in place; it returns its outputs. Each call is handed the
+    same `fn` (it is not kept: a graph that held its owner through `fn`
+    would keep its memory until the garbage collector ran).
+
+    The first `warm_calls` calls run `fn` eagerly on the graph's side
+    stream, as warm-up: they are the caller's own work, and they set up
+    what a capture must not (library handles and workspaces, host-side
+    caches). The next call captures `fn` (with `generators` registered, so
+    that a replay draws what an eager call would and moves each generator's
+    offset as far) and replays it; each later call replays the graph. A
+    failed capture raises; nothing falls back to eager work. Every call
+    returns its outputs as new tensors: a replay overwrites the graph's
+    own, and so may a replay of another graph in the same memory `pool`
+    (a `torch.cuda.graph_pool_handle()`; None: a pool of its own)."""
+
+    def __init__(self, device, warm_calls: int = 1,
+                 generators: Sequence[torch.Generator] = (), pool=None):
+        self.warm_calls = warm_calls
+        self.generators = list(generators)
+        self.pool = pool
+        self.stream = torch.cuda.Stream(device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.calls = 0
+        self.out = None
+
+    def __call__(self, fn: Callable):
+        current = torch.cuda.current_stream()
+        if self.graph is not None:
+            self.graph.replay()
+        elif self.calls < self.warm_calls:
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                self.out = fn()
+            current.wait_stream(self.stream)
+        else:
+            # the warm-up's cached blocks back to the card, for the pool
+            torch.cuda.empty_cache()
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            pool = {} if self.pool is None else {"pool": self.pool}
+            with torch.cuda.graph(graph, stream=self.stream, **pool):
+                self.out = fn()
+            self.graph = graph
+            graph.replay()
+        self.calls += 1
+        return _cloned(self.out)
+
+
+def _host(value):
+    """A numpy array as a CPU tensor; anything else as it is."""
+    return torch.from_numpy(np.ascontiguousarray(value)) if isinstance(value, np.ndarray) else value
+
+
+def _static_like(value, device):
+    """A static buffer for `value`: a tensor like it on `device` (a numpy
+    array as its tensor), a 0-d float32 tensor for a number, an (n, ...)
+    tensor for a non-empty list of equal tensors, a dict of such buffers
+    for a dict."""
+    value = _host(value)
+    if isinstance(value, dict):
+        return {k: _static_like(v, device) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        if not value:
+            return []
+        return torch.empty((len(value),) + tuple(value[0].shape), dtype=value[0].dtype,
+                           device=device)
+    if isinstance(value, torch.Tensor):
+        return torch.empty_like(value, device=device)
+    return torch.empty((), dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
+def _refill(buf, value) -> None:
+    """Copy `value` into its static buffer, without waiting for the card
+    (a host source is staged by the copy)."""
+    value = _host(value)
+    if isinstance(buf, dict):
+        torch._foreach_copy_(list(buf.values()), [value[k] for k in buf])
+    elif isinstance(buf, list):
+        pass  # no draws
+    elif isinstance(value, (list, tuple)):
+        torch.stack(list(value), out=buf)
+    elif isinstance(value, torch.Tensor):
+        buf.copy_(value, non_blocking=True)
+    else:
+        buf.fill_(float(value))
+
+
+def _signature(value):
+    value = _host(value)
+    if isinstance(value, dict):
+        return tuple(sorted((k, _signature(v)) for k, v in value.items()))
+    if isinstance(value, (list, tuple)):
+        return (len(value),) + (_signature(value[0]) if value else ())
+    if isinstance(value, torch.Tensor):
+        # the layout too: kernels (a conv's) depend on their operands' strides
+        return (tuple(value.shape), value.dtype, value.stride())
+    return ((), torch.float32, ())  # a number's buffer
+
+
+class StaticCall:
+    """Calls `fn(**inputs)` as `CapturedCall`s on static copies of their
+    inputs, one graph per signature of the inputs (their kinds, shapes,
+    dtypes and strides: a last, shorter batch gets a graph of its own).
+    Each call copies the values it is given into buffers made like the
+    first ones of that signature (a tensor or numpy array as a tensor on
+    the device, a number as a 0-d float32 tensor, a list of equal tensors,
+    such as a sampler's step draws, stacked, a dict of tensors, such as
+    weights, tensor by tensor) and runs or replays `fn` on the buffers (a
+    list as the list of its rows). `fn`, the same function on every call,
+    must read nothing else that changes between calls. The graphs take
+    their memory from `pool` (`CapturedCall`)."""
+
+    def __init__(self, device, pool=None):
+        self.device, self.pool = torch.device(device), pool
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def __call__(self, fn: Callable, **inputs):
+        key = _signature(inputs)
+        if key not in self.graphs:
+            self.graphs[key] = ({k: _static_like(v, self.device) for k, v in inputs.items()},
+                                CapturedCall(self.device, pool=self.pool))
+        bufs, call = self.graphs[key]
+        for k, v in inputs.items():
+            _refill(bufs[k], v)
+        lists = {k for k, v in inputs.items() if isinstance(v, (list, tuple))}
+        return call(lambda: fn(**{k: list(b) if k in lists else b for k, b in bufs.items()}))
+
+
+class Graphs:
+    """The captured calls of one pipeline: whether a call runs as a CUDA
+    graph (`on`), and a `StaticCall` per kind of call (`__call__`). The
+    graphs share one memory pool: they never run at once, and each call
+    copies its outputs out of the pool before the next one runs. `clear`
+    frees them all, as a phase ends."""
+
+    def __init__(self, device, capture: bool, name: str):
+        self.device, self.capture, self.name = torch.device(device), capture, name
+        self.calls: Dict[tuple, StaticCall] = {}
+        self._pool = None
+        self._split_logged = False
+
+    def on(self, sh: pmesh.BatchShard) -> bool:
+        """Whether a call on a batch split as `sh` runs as a graph: with
+        `capture`, on a CUDA device, in one process (NCCL is not captured:
+        a split batch runs eagerly, which the log says once)."""
+        if not (self.capture and graphs_on(self.device)):
+            return False
+        if sh.split:
+            if not self._split_logged:
+                log.info("%s: eager calls (a CUDA graph covers one process, not %d ranks)",
+                         self.name, sh.dp)
+                self._split_logged = True
+            return False
+        return True
+
+    @property
+    def pool(self):
+        """The graphs' memory pool (a new one after `clear`)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def __call__(self, kind, fn: Callable, writes: Sequence[torch.Tensor] = (), **inputs):
+        """`fn(**inputs)` as the `StaticCall` of `kind` and of the tensors
+        `fn` updates in place (`writes`, by address: that is what a replay
+        writes)."""
+        key = (kind,) + tuple(t.data_ptr() for t in writes)
+        if key not in self.calls:
+            self.calls[key] = StaticCall(self.device, self.pool)
+        return self.calls[key](fn, **inputs)
+
+    def clear(self) -> None:
+        self.calls.clear()
+        self._pool = None
+
+
 class ChunkGraph:
     """k training steps as one CUDA graph, the counterpart of JAX's jitted
-    step (k = 1) and `lax.scan` chunk: `step_fn(state, batch, scalars=row)`
-    k times on static buffers, `batches` (k * take, ...) float32 and the
-    (k, n) step-value table of `TrainState.scalar_table`, each step's loss
+    step (k = 1) and `lax.scan` chunk: `step_fn(state, batch, scalars=row,
+    **rows)` k times on static buffers, `batches` (k * take, ...) float32,
+    the (k, n) step-value table of `TrainState.scalar_table` and, for each
+    entry name: (per-sample shape, dtype) of `extra`, a (k * take, ...)
+    buffer `inputs[name]` whose step rows step_fn takes as that keyword
+    (post-training's per-sample weights and draws); each step's loss is
     written into a static (k,) output.
 
-    `run` takes the batches already copied into `batches` and the table
-    set by `set_table`. Its first calls run the steps eagerly on the
-    graph's side stream, as warm-up (at least 3 steps; they are the run's
-    own steps), the next one captures them (with `generators` registered,
-    so that a replay draws what eager steps would and moves each
-    generator's offset as far) and each later one replays the graph. A
-    failed capture raises; nothing falls back to eager steps."""
+    `run` takes the batches and inputs already copied into their buffers
+    and the table set by `set_table`, and runs a `CapturedCall` of the k
+    steps: its warm-up calls are at least 3 steps (the run's own steps),
+    `generators` are the generators the steps draw from, `pool` its
+    memory pool (`CapturedCall`)."""
 
     WARM_STEPS = 3
 
     def __init__(self, step_fn: Callable, state: TrainState, k: int, batch_shape: tuple,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 extra: Optional[Dict[str, Tuple[tuple, torch.dtype]]] = None, pool=None):
         device = next(state.model.parameters()).device
         self.step_fn, self.state, self.k, self.take = step_fn, state, k, batch_shape[0]
-        self.generators = list(generators)
         self.batches = torch.empty((k * batch_shape[0],) + tuple(batch_shape[1:]),
                                    dtype=torch.float32, device=device)
+        self.inputs = {name: torch.empty((k * self.take,) + tuple(shape), dtype=dtype,
+                                         device=device)
+                       for name, (shape, dtype) in (extra or {}).items()}
         n = state.tx.n_scalars + 2
         self.table = torch.empty((k, n), dtype=torch.float32, device=device)
         self._table_host = torch.empty((k, n), dtype=torch.float32,
                                        pin_memory=device.type == "cuda")
         self._table_copied: Optional[torch.cuda.Event] = None
         self.losses = torch.empty((k,), dtype=torch.float32, device=device)
-        self.stream = torch.cuda.Stream(device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.warm_steps = 0
+        self.call = CapturedCall(device, -(-self.WARM_STEPS // k), generators, pool)
+
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        return self.call.graph
+
+    @property
+    def warm_steps(self) -> int:
+        return min(self.call.calls, self.call.warm_calls) * self.k
 
     def set_table(self) -> None:
         """Copy the next k steps' values into `table`."""
@@ -440,29 +665,14 @@ class ChunkGraph:
 
     def _steps(self) -> None:
         for i in range(self.k):
-            loss = self.step_fn(self.state, self.batches[i * self.take : (i + 1) * self.take],
-                                scalars=self.table[i])
+            rows = slice(i * self.take, (i + 1) * self.take)
+            loss = self.step_fn(self.state, self.batches[rows], scalars=self.table[i],
+                                **{name: buf[rows] for name, buf in self.inputs.items()})
             self.losses[i].copy_(loss)
 
     def run(self) -> torch.Tensor:
         """The chunk's k steps; returns their losses (a new tensor)."""
-        current = torch.cuda.current_stream()
-        if self.graph is not None:
-            self.graph.replay()
-        elif self.warm_steps < self.WARM_STEPS:
-            self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream):
-                self._steps()
-            current.wait_stream(self.stream)
-            self.warm_steps += self.k
-        else:
-            graph = torch.cuda.CUDAGraph()
-            for g in self.generators:
-                graph.register_generator_state(g)
-            with torch.cuda.graph(graph, stream=self.stream):
-                self._steps()
-            self.graph = graph
-            graph.replay()
+        self.call(self._steps)
         self.state.advance(self.k)
         return self.losses.clone()
 

@@ -89,7 +89,9 @@ def _f32(a, device) -> torch.Tensor:
 def _consts(device: torch.device) -> Dict[str, torch.Tensor]:
     """The constants and index vectors the step functions use, copied to
     `device` once: a copy from host memory inside the 121-step loop would
-    make the host wait for the card at every step."""
+    make the host wait for the card at every step, and cannot be part of a
+    captured CUDA graph (an evaluate's rollout; its first, eager call fills
+    this cache)."""
     low_state = np.concatenate([np.concatenate([LOW_ACTION, LOW_TARGET])] * LOOKBACK
                                + [LOW_TARGET])
     high_state = np.concatenate([np.concatenate([HIGH_ACTION, HIGH_TARGET])] * LOOKBACK
@@ -97,7 +99,8 @@ def _consts(device: torch.device) -> Dict[str, torch.Tensor]:
     out = {name: _f32(value, device) for name, value in dict(
         low_action=LOW_ACTION, high_action=HIGH_ACTION, low_state=low_state,
         high_state=high_state, target_lo=RAND_TARGET_MINS, target_hi=RAND_TARGET_MAXS,
-        hist0=np.concatenate([LOW_ACTION, TARGET_INIT]), nn_ystd=NN_YSTD, nn_ymean=NN_YMEAN,
+        hist0=np.concatenate([LOW_ACTION, TARGET_INIT]), input_init=_INPUT_INIT_Q[None],
+        nn_ystd=NN_YSTD, nn_ymean=NN_YMEAN,
         lstm_ystd=LSTM_YSTD, lstm_ymean=LSTM_YMEAN, bpw_ystd=BPW_YSTD,
         bpw_ymean=BPW_YMEAN).items()}
     for name, idx in dict(action_to_input=ACTION_TO_INPUT, lstm_input_cols=_LSTM_INPUT_COLS,
@@ -262,7 +265,8 @@ def steady_init(params: Dict, batch: int = 1) -> SolverState:
     surrogate (kstar_solver.py:174-227,389-400), for `batch` trajectories
     (all equal)."""
     device = params["nn"]["bn0"]["mean"].device
-    inputs = _f32(_INPUT_INIT_Q, device)[None]
+    c = _consts(device)
+    inputs = c["input_init"]
     rgeo = 0.5 * (inputs[:, 10] + inputs[:, 11])
     amin = 0.5 * (inputs[:, 11] - inputs[:, 10])
     flag = (inputs[:, 10] > float(_IN_MID_FLAG)).to(inputs.dtype)
@@ -273,7 +277,6 @@ def steady_init(params: Dict, batch: int = 1) -> SolverState:
         inputs[:, 12:15],  # Elon, UpTri, LoTri
         torch.stack([flag, inputs[:, 2], torch.full_like(flag, YEAR_IN)], dim=1),
     ], dim=1)
-    c = _consts(device)
     y = mlp_forward(params["nn"], x, 4) * c["nn_ystd"] + c["nn_ymean"]
     bn_, q95, q0, li = y.unbind(1)
 

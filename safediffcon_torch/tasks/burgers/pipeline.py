@@ -34,6 +34,19 @@ its rows of the global batch and of the global random draws, scores,
 weights, samples and rollouts are gathered (Q-hat and the metrics are
 computed whole on every rank), and gradients are averaged before each
 optimizer step. `reweights` stays whole on every rank.
+
+On a CUDA pipeline in one process (`capture`, on by default), each
+calibration batch (`_cal_batch`), each evaluation (`_evaluate`: sampling,
+the solver rollout and the metrics), each InfFT step and each full chunk
+of post-training steps is one captured CUDA graph, the counterpart of the
+JAX package's jitted programs (`core/train.py::Graphs`, `ChunkGraph`).
+Its inputs are copied into static buffers before each replay: the weights,
+the batch, Q-hat, the targets, the step values and the call's random
+draws, which are drawn ahead of it as the eager call would draw them. So a
+captured call gives what the eager one gives, bit for bit, and leaves the
+generators where it would. A call of a new shape (a shorter last batch)
+gets a graph of its own; the first call of each graph runs eagerly as its
+warm-up. CPU pipelines and a batch split over data ranks run eagerly.
 """
 from __future__ import annotations
 
@@ -57,10 +70,14 @@ from safediffcon_torch.core.sampling import (
     draws_kw,
     get_sampler,
     sample,
+    sampler_draws,
 )
 from safediffcon_torch.core.schedules import get_J_scheduler, make_schedule
 from safediffcon_torch.core.train import (
+    ChunkGraph,
+    Graphs,
     TrainState,
+    _fill,
     accumulated_grads,
     make_optimizer,
     periodic_cosine_schedule,
@@ -148,10 +165,15 @@ class BurgersPipeline:
         prior_beta: float = 1.0,
         normalize_beta: bool = False,
         device="cuda",
+        # calibration batches, evaluations and the fine-tuning steps as
+        # captured CUDA graphs on a CUDA device (module docstring); False
+        # runs them eagerly, with the same results
+        capture: bool = True,
     ):
         self.ccfg = conf_cfg
         self.device = torch.device(device)
         self.cal_chunk = cal_chunk
+        self.graphs = Graphs(self.device, capture, "burgers pipeline")
         self.task_cfg = BurgersTaskConfig(
             u_bound=conf_cfg.u_bound,
             use_max_safety=conf_cfg.use_max_safety,
@@ -217,6 +239,27 @@ class BurgersPipeline:
     def _generator(self, generator):
         return generator or torch.Generator(device=self.device).manual_seed(0)
 
+    # ---- captured calls --------------------------------------------------
+
+    def _weights(self, params: Params) -> dict:
+        """The weights a call binds, as static inputs: {"w0": main} or, two-
+        model, {"w0": main, "w1": prior}; None is the model's own."""
+        own = dict(self.model.named_parameters())
+        if self.two_model:
+            return {f"w{i}": own if p is None else dict(p) for i, p in enumerate(params)}
+        return {"w0": own if params is None else dict(params)}
+
+    def _bound(self, w: dict):
+        """The `params` of the static weights `w` (see `_weights`)."""
+        return (w["w0"], w["w1"]) if self.two_model else w["w0"]
+
+    def _draws(self, sampler, shape, noise, generator):
+        """A captured call's (init_noise, step_noise): the next of `noise`,
+        else drawn from `generator` as the sampler would draw them."""
+        if noise is not None:
+            return next(noise)
+        return sampler_draws(sampler, self.diff_cfg, shape, generator, self.device)
+
     # ---- conformal calibration -------------------------------------------
 
     @torch.no_grad()
@@ -254,10 +297,17 @@ class BurgersPipeline:
                 if base >= n:  # cal set smaller than the configured batches
                     break
                 sh = pmesh.batch_shard(min(base + chunk, n) - base)
-                state = torch.as_tensor(sh.take(cal_data[base : min(base + chunk, n)]),
-                                        device=self.device)
-                s, w = self._cal_batch(params, state, Q,
-                                       **draws_kw(noise, generator, sh))
+                rows = sh.take(cal_data[base : min(base + chunk, n)])
+                if self.graphs.on(sh):
+                    init, steps = self._draws(self._cal_sampler, rows.shape, noise, generator)
+                    s, w = self.graphs(
+                        "cal", lambda state, Q, init, steps, **w: self._cal_batch(
+                            self._bound(w), state, Q, init_noise=init, step_noise=steps),
+                        state=rows, Q=Q, init=init, steps=steps, **self._weights(params))
+                else:
+                    state = torch.as_tensor(rows, device=self.device)
+                    s, w = self._cal_batch(params, state, Q,
+                                           **draws_kw(noise, generator, sh))
                 scores.append(sh.gather(s))
                 weights.append(sh.gather(w))
         scores, weights = torch.cat(scores), torch.cat(weights)
@@ -290,16 +340,17 @@ class BurgersPipeline:
 
     @torch.no_grad()
     def _evaluate(self, params: Params, state, u_target, Q, guided=True,
-                  sh: Optional[pmesh.BatchShard] = None,
+                  sh: Optional[pmesh.BatchShard] = None, timed: bool = True,
                   **sampler_kw) -> Dict[str, torch.Tensor]:
         """Sample -> solver rollout -> metrics (reference:
         1D/posttrain/post_train.py:313-351). Under a data-parallel shard
         `sh`, `state` is this rank's rows: the samples and their rollouts
         are gathered, and the metrics of the whole batch computed on every
-        rank."""
-        with self._phase("sampling"):
+        rank. `timed`: time the two phases (not inside a captured graph)."""
+        phase = self._phase if timed else (lambda name: contextlib.nullcontext())
+        with phase("sampling"):
             pred = self._sample_test(params, state, Q, guided=guided, **sampler_kw)
-        with self._phase("rollout"):
+        with phase("rollout"):
             controlled = control_trajectories(pred, NT)
         if sh is not None:
             pred, controlled = sh.gather(pred), sh.gather(controlled)
@@ -308,12 +359,25 @@ class BurgersPipeline:
     def evaluate(self, params: Params, test: BurgersDataset, Q,
                  generator: Optional[torch.Generator] = None, guided: bool = True,
                  noise: Optional[Iterator[Noise]] = None) -> Dict[str, float]:
-        """Metrics of guided sampling over the whole test split, one batch."""
+        """Metrics of guided sampling over the whole test split, one batch.
+        Captured (`graphs.on`), the whole call is timed as the phase
+        "evaluate"."""
         sh = pmesh.batch_shard(len(test.data))
-        state = torch.as_tensor(sh.take(test.data), device=self.device)
-        u_target = torch.as_tensor(test.u_phys, device=self.device)
-        metrics = self._evaluate(params, state, u_target, Q, guided=guided, sh=sh,
-                                 **draws_kw(noise, self._generator(generator), sh))
+        if self.graphs.on(sh):
+            init, steps = self._draws(self._sampler, test.data.shape, noise,
+                                      self._generator(generator))
+            with self._phase("evaluate"):
+                metrics = self.graphs(
+                    ("eval", guided), lambda state, u_target, Q, init, steps, **w: self._evaluate(
+                        self._bound(w), state, u_target, Q, guided=guided, timed=False,
+                        init_noise=init, step_noise=steps),
+                    state=test.data, u_target=test.u_phys, Q=Q, init=init, steps=steps,
+                    **self._weights(params))
+        else:
+            state = torch.as_tensor(sh.take(test.data), device=self.device)
+            u_target = torch.as_tensor(test.u_phys, device=self.device)
+            metrics = self._evaluate(params, state, u_target, Q, guided=guided, sh=sh,
+                                     **draws_kw(noise, self._generator(generator), sh))
         return {k: float(v) for k, v in metrics.items()}
 
 
@@ -432,14 +496,21 @@ def make_train_state(pipeline: BurgersPipeline, params: Params, tx, ema_decay: f
     return TrainState.create(net, tx, ema_decay, ema_update_every)
 
 
+def _train_dcfg(pipeline: BurgersPipeline) -> DiffusionConfig:
+    return DiffusionConfig(timesteps=pipeline.ccfg.timesteps, beta_schedule="cosine")
+
+
 def weighted_step(pipeline: BurgersPipeline, state: TrainState, batch: torch.Tensor,
-                  w: torch.Tensor, generator=None, noise: Optional[TrainNoise] = None):
+                  w: torch.Tensor, generator=None, noise: Optional[TrainNoise] = None,
+                  scalars: Optional[torch.Tensor] = None):
     """One post-training step: the denoising loss at full T, weighted per
     sample by `w` (reference: 1D/posttrain/post_train.py:206-210); noise =
     the batch's (t, noise), else drawn from `generator`. Returns the loss.
     Under a data mesh each rank takes its rows of the batch and the draws,
-    and the gradients are averaged over the ranks."""
-    dcfg = DiffusionConfig(timesteps=pipeline.ccfg.timesteps, beta_schedule="cosine")
+    and the gradients are averaged over the ranks. `scalars`: the step's
+    device row of `TrainState.scalar_table` (a captured step; the caller
+    then advances the state)."""
+    dcfg = _train_dcfg(pipeline)
     sh = pmesh.batch_shard(batch.shape[0])
     batch, w = sh.take(batch), sh.take(w)
     t, n = (sh.draws(noise) if noise is not None
@@ -447,18 +518,20 @@ def weighted_step(pipeline: BurgersPipeline, state: TrainState, batch: torch.Ten
     per = p_losses(state.model, pipeline.sched, dcfg, batch, t, n, train_conditioner())
     loss = (w * per).mean()
     loss, grads = sh.reduce(loss, torch.autograd.grad(loss, list(state.model.parameters())))
-    state.apply_gradients(grads)
+    state.apply_gradients(grads, scalars)
     return loss
 
 
 def infft_step(pipeline: BurgersPipeline, state: TrainState, test_batch: torch.Tensor, Q,
-               generator=None, noise: Optional[Noise] = None):
+               generator=None, noise: Optional[Noise] = None,
+               scalars: Optional[torch.Tensor] = None):
     """One InfFT step: guided sampling with gradients through the final
     denoise step only, then the safety objective backpropagated into the
     weights (reference: 1D/inference/inference_ft.py:193-201,316-347); noise
     = the sampler call's (init_noise, step_noise), else drawn from
     `generator`. Returns the loss. Under a data mesh each rank samples its
-    rows of the batch and the gradients are averaged over the ranks."""
+    rows of the batch and the gradients are averaged over the ranks.
+    `scalars` as in `weighted_step`."""
     sh = pmesh.batch_shard(test_batch.shape[0])
     test_batch = sh.take(test_batch)
     kw = draws_kw(None if noise is None else iter([noise]), generator, sh)
@@ -468,8 +541,49 @@ def infft_step(pipeline: BurgersPipeline, state: TrainState, test_batch: torch.T
                             j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
     loss = infft_loss(out * SCALER, Q, pipeline.task_cfg)
     loss, grads = sh.reduce(loss, torch.autograd.grad(loss, list(state.model.parameters())))
-    state.apply_gradients(grads)
+    state.apply_gradients(grads, scalars)
     return loss
+
+
+def _posttrain_chunks(pipeline: BurgersPipeline, state: TrainState, k: int, bsz: int,
+                      sample_shape: tuple) -> Optional[ChunkGraph]:
+    """Post-training's full chunks of k steps as one captured graph
+    (`ChunkGraph` with the per-sample weights and the steps' draws as
+    static inputs beside the batches), or None where the steps run
+    eagerly."""
+    if not pipeline.graphs.on(pmesh.batch_shard(bsz)):
+        return None
+
+    def step(state, batch, scalars, w, t, noise):
+        return weighted_step(pipeline, state, batch, w, noise=(t, noise), scalars=scalars)
+
+    return ChunkGraph(step, state, k, (bsz,) + tuple(sample_shape), extra=dict(
+        w=((), torch.float32), t=((), torch.long), noise=(tuple(sample_shape), torch.float32)),
+        pool=pipeline.graphs.pool)
+
+
+def make_infft_step(pipeline: BurgersPipeline, state: TrainState):
+    """`infft_step` on `state`, as `inference_finetune` takes it: step(batch,
+    Q, generator=None, noise=None) -> loss. Where `pipeline.graphs.on`,
+    each step is one captured CUDA graph on static inputs (the batch, Q-hat,
+    the sampler's draws, taken ahead of the step as it would take them, and
+    the step values of `state.scalar_table`), one graph per batch shape and
+    train state."""
+    writes = state.tensors()
+
+    def step(batch, Q, generator=None, noise=None):
+        if not pipeline.graphs.on(pmesh.batch_shard(batch.shape[0])):
+            return infft_step(pipeline, state, batch, Q, generator, noise)
+        init, steps = noise if noise is not None else pipeline._draws(
+            pipeline._sampler, batch.shape, None, generator)
+        loss = pipeline.graphs("infft", lambda batch, Q, init, steps, scalars: infft_step(
+            pipeline, state, batch, Q, noise=(init, steps), scalars=scalars),
+            writes=writes, batch=batch, Q=Q, init=init, steps=steps,
+            scalars=_fill(state.scalar_table(1)[0], pipeline.device))
+        state.advance(1)
+        return loss
+
+    return step
 
 
 def _restore_phase(state_dir: Optional[str], state: TrainState, cfg, device):
@@ -537,7 +651,10 @@ def posttrain(
     `cfg.steps_per_call` = k runs the steps in chunks of up to k inside each
     evaluation segment, as JAX does: a chunk's batches and weights cross to
     the device in one copy and its steps run back to back. Each step draws
-    its own (t, noise), so the chunking changes no result of the port."""
+    its own (t, noise), so the chunking changes no result of the port. Where
+    `pipeline.graphs.on`, each full chunk of k steps is one captured graph
+    (`ChunkGraph`), its draws taken ahead of it in the eager steps' order; a
+    shorter chunk runs eagerly. The phase's graphs are freed as it ends."""
     ccfg = cfg.conformal
     steps_per_epoch = finetune_steps or cfg.finetune_steps
     device = pipeline.device
@@ -570,6 +687,8 @@ def posttrain(
     eval_period = (cfg.finetune_subset_size // math.gcd(bsz, cfg.finetune_subset_size)
                    if eval_every_subset_epoch else steps_per_epoch)
     k = max(int(cfg.steps_per_call), 1)
+    graph = _posttrain_chunks(pipeline, state, k, bsz, finetune_data.data.shape[1:])
+    dcfg = _train_dcfg(pipeline)
     for epoch in range(start_epoch, cfg.finetune_epoch):
         gen = _epoch_generator(cfg.seed, epoch, device)
         w_train = pipeline.reweights(finetune_data.data, Q)
@@ -580,13 +699,26 @@ def posttrain(
             # a chunk never crosses an evaluation point
             kk = min(k, eval_period - it % eval_period, steps_per_epoch - it)
             sel = np.concatenate(sels[it : it + kk])
-            batches = torch.as_tensor(finetune_data.data[sel], device=device)
-            ws = torch.as_tensor(w_train[sel], device=device)
-            for i in range(kk):
-                rows = slice(i * bsz, (i + 1) * bsz)
-                draws = next(noise) if noise is not None else None
-                losses.append(weighted_step(pipeline, state, batches[rows], ws[rows], gen,
-                                            draws))
+            if graph is not None and kk == k:
+                graph.set_table()
+                graph.batches.copy_(torch.from_numpy(finetune_data.data[sel]))
+                graph.inputs["w"].copy_(torch.from_numpy(w_train[sel]))
+                for i in range(kk):
+                    # the draws the eager steps take, in their order
+                    rows = slice(i * bsz, (i + 1) * bsz)
+                    t, n_ = (next(noise) if noise is not None
+                             else draw_t_noise(dcfg, graph.batches[rows], gen))
+                    graph.inputs["t"][rows].copy_(t)
+                    graph.inputs["noise"][rows].copy_(n_)
+                losses.extend(graph.run())
+            else:
+                batches = torch.as_tensor(finetune_data.data[sel], device=device)
+                ws = torch.as_tensor(w_train[sel], device=device)
+                for i in range(kk):
+                    rows = slice(i * bsz, (i + 1) * bsz)
+                    draws = next(noise) if noise is not None else None
+                    losses.append(weighted_step(pipeline, state, batches[rows], ws[rows], gen,
+                                                draws))
             it += kk
             if eval_every_subset_epoch and it % eval_period == 0:
                 m = pipeline.evaluate(state.ema_params, test_data, Q, generator=gen, noise=noise)
@@ -606,6 +738,7 @@ def posttrain(
         _save_phase(state_dir, state, Q, epoch, all_metrics, cfg)
         if on_epoch is not None:
             on_epoch(all_metrics[-1])
+    pipeline.graphs.clear()
     return state, Q, all_metrics
 
 
@@ -632,7 +765,8 @@ def inference_finetune(
     EMA weights. It runs InfFT_iters - 1 epochs: the reference's loop skips
     all work on its final index (run():415-418). `state_dir`, `noise` and
     `on_epoch` as in `posttrain` (noise: each sampler call's draws in
-    order)."""
+    order). Where `pipeline.graphs.on`, each step is one captured graph
+    (`make_infft_step`); the phase's graphs are freed as it ends."""
     ccfg = cfg.conformal
     device = pipeline.device
     lr = periodic_cosine_schedule(
@@ -641,6 +775,7 @@ def inference_finetune(
                         max_grad_norm=cfg.max_grad_norm)
     state = make_train_state(pipeline, params, tx, cfg.ema_decay, cfg.ema_update_every)
     Q, start_epoch, all_metrics = _restore_phase(state_dir, state, cfg, device)
+    step = make_infft_step(pipeline, state)
 
     for epoch in range(start_epoch, cfg.InfFT_iters - 1):
         gen = _epoch_generator(cfg.seed, epoch, device)
@@ -649,7 +784,7 @@ def inference_finetune(
             batch = torch.as_tensor(test_data.data[lo : lo + ccfg.test_batch_size],
                                     device=device)
             draws = next(noise) if noise is not None else None
-            losses.append(infft_step(pipeline, state, batch, Q, gen, draws))
+            losses.append(step(batch, Q, gen, draws))
         losses = [float(v) for v in losses]
         Q = pipeline.calibrate(state.ema_params, cal_data.data, Q, generator=gen, noise=noise)
         metrics = pipeline.evaluate(state.ema_params, test_data, Q, generator=gen, noise=noise)
@@ -660,6 +795,7 @@ def inference_finetune(
         _save_phase(state_dir, state, Q, epoch, all_metrics, cfg)
         if on_epoch is not None:
             on_epoch(all_metrics[-1])
+    pipeline.graphs.clear()
     return state, Q, all_metrics
 
 

@@ -23,7 +23,9 @@ def control_trajectories(params, diffused_scaled: torch.Tensor) -> torch.Tensor:
     controlled states (βp, q95, li) (reference: tokamak/utils/metrics.py:60-85)."""
     actions = diffused_scaled[:, : NT - 1, N_STATES:]
     outputs = simulate_batch(params, actions)  # (B, 122, 8)
-    return outputs[:, :, [1, 4, 6]]
+    # no index list: it would be copied from the host inside a captured
+    # evaluation (`pipeline.TokamakPipeline.evaluate`)
+    return torch.stack([outputs[:, :, 1], outputs[:, :, 4], outputs[:, :, 6]], dim=-1)
 
 
 def evaluate_samples(

@@ -36,6 +36,15 @@ its rows of the global batch and of the global random draws, scores,
 weights, samples and rollouts are gathered (Q-hat and the metrics are
 computed whole on every rank), and gradients are averaged before each
 optimizer step. `reweights` stays whole on every rank.
+
+On a CUDA pipeline in one process (`capture`, on by default), each
+calibration batch, each evaluation (sampling, the KSTAR rollout and the
+metrics) and each post-training and backward fine-tuning step of
+`run_inference` is one captured CUDA graph, as in the Burgers pipeline
+(`tasks/burgers/pipeline.py`): static inputs refilled before each replay,
+the draws taken ahead of the call as it would take them, the first call
+of each graph eager; the same results bit for bit. CPU pipelines and a
+batch split over data ranks run eagerly.
 """
 from __future__ import annotations
 
@@ -51,10 +60,12 @@ from torch.func import functional_call
 
 from safediffcon_torch.core.conformal import normalize_weights, weighted_quantile
 from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
-from safediffcon_torch.core.sampling import draws_kw, get_sampler
+from safediffcon_torch.core.sampling import draws_kw, get_sampler, sampler_draws
 from safediffcon_torch.core.schedules import get_J_scheduler, make_schedule
 from safediffcon_torch.core.train import (
+    Graphs,
     TrainState,
+    _fill,
     accumulated_grads,
     make_optimizer,
     periodic_cosine_schedule,
@@ -129,10 +140,15 @@ class TokamakPipeline:
         # (chip_smoke.py).
         cal_chunk: Optional[int] = 50,
         device="cuda",
+        # calibration batches, evaluations and run_inference's steps as
+        # captured CUDA graphs on a CUDA device (module docstring); False
+        # runs them eagerly, with the same results
+        capture: bool = True,
     ):
         self.ccfg = conf_cfg
         self.device = torch.device(device)
         self.cal_chunk = cal_chunk
+        self.graphs = Graphs(self.device, capture, "tokamak pipeline")
         self.task_cfg = TokamakTaskConfig(
             safety_threshold=conf_cfg.safety_threshold,
             w_obj=conf_cfg.w_obj,
@@ -183,6 +199,19 @@ class TokamakPipeline:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    # ---- captured calls --------------------------------------------------
+
+    def _weights(self, params: Params) -> dict:
+        """The weights a call binds, as a static input (None: the model's own)."""
+        return dict(self.model.named_parameters()) if params is None else dict(params)
+
+    def _draws(self, shape, noise, generator):
+        """A captured call's (init_noise, step_noise): the next of `noise`,
+        else drawn from `generator` as the sampler would draw them."""
+        if noise is not None:
+            return next(noise)
+        return sampler_draws(self.sampler_fn, self.diff_cfg, shape, generator, self.device)
+
     # ---- conformal calibration -------------------------------------------
 
     @torch.no_grad()
@@ -228,9 +257,17 @@ class TokamakPipeline:
                     break
                 sl = slice(base, min(base + chunk, n))
                 sh = pmesh.batch_shard(sl.stop - sl.start)
-                s, w = self._cal_batch(params, self._tensor(sh.take(cal.data[sl])),
-                                       self._tensor(sh.take(cal.state_phys[sl])), Q,
-                                       **draws_kw(noise, generator, sh))
+                if self.graphs.on(sh):
+                    init, steps = self._draws(cal.data[sl].shape, noise, generator)
+                    s, w = self.graphs(
+                        "cal", lambda state, target, Q, init, steps, w: self._cal_batch(
+                            w, state, target, Q, init_noise=init, step_noise=steps),
+                        state=cal.data[sl], target=cal.state_phys[sl], Q=Q, init=init,
+                        steps=steps, w=self._weights(params))
+                else:
+                    s, w = self._cal_batch(params, self._tensor(sh.take(cal.data[sl])),
+                                           self._tensor(sh.take(cal.state_phys[sl])), Q,
+                                           **draws_kw(noise, generator, sh))
                 scores.append(sh.gather(s))
                 weights.append(sh.gather(w))
         scores, weights = torch.cat(scores), torch.cat(weights)
@@ -264,17 +301,19 @@ class TokamakPipeline:
 
     @torch.no_grad()
     def _evaluate(self, params: Params, state, state_target, Q, guided=False,
-                  sh: Optional[pmesh.BatchShard] = None,
+                  sh: Optional[pmesh.BatchShard] = None, timed: bool = True,
                   **sampler_kw) -> Dict[str, torch.Tensor]:
         """Sample -> surrogate rollout -> metrics (reference:
         tokamak/inference/pipeline.py:325-359). Under a data-parallel shard
         `sh`, `state` and `state_target` are this rank's rows: the samples
         and their rollouts are gathered, and the metrics of the whole batch
-        computed on every rank."""
-        with self._phase("sampling"):
+        computed on every rank. `timed`: time the two phases (not inside a
+        captured graph)."""
+        phase = self._phase if timed else (lambda name: contextlib.nullcontext())
+        with phase("sampling"):
             pred = self._sample_test(params, state, state_target, Q, guided=guided,
                                      **sampler_kw)
-        with self._phase("rollout"):
+        with phase("rollout"):
             controlled = control_trajectories(self.solver_params, pred)
         if sh is not None:
             pred, controlled = sh.gather(pred), sh.gather(controlled)
@@ -285,12 +324,23 @@ class TokamakPipeline:
                  generator: Optional[torch.Generator] = None, guided: Optional[bool] = None,
                  noise: Optional[Iterator[Noise]] = None) -> Dict[str, float]:
         """Metrics of (by default unguided: `use_guidance`) sampling over the
-        whole test split, one batch."""
+        whole test split, one batch. Captured (`graphs.on`), the whole call
+        is timed as the phase "evaluate"."""
         guided = self.ccfg.use_guidance if guided is None else guided
         sh = pmesh.batch_shard(len(test.data))
-        metrics = self._evaluate(params, self._tensor(sh.take(test.data)),
-                                 self._tensor(sh.take(test.state_phys)), Q, guided=guided, sh=sh,
-                                 **draws_kw(noise, self._generator(generator), sh))
+        if self.graphs.on(sh):
+            init, steps = self._draws(test.data.shape, noise, self._generator(generator))
+            with self._phase("evaluate"):
+                metrics = self.graphs(
+                    ("eval", guided), lambda state, target, Q, init, steps, w: self._evaluate(
+                        w, state, target, Q, guided=guided, timed=False, init_noise=init,
+                        step_noise=steps),
+                    state=test.data, target=test.state_phys, Q=Q, init=init, steps=steps,
+                    w=self._weights(params))
+        else:
+            metrics = self._evaluate(params, self._tensor(sh.take(test.data)),
+                                     self._tensor(sh.take(test.state_phys)), Q, guided=guided,
+                                     sh=sh, **draws_kw(noise, self._generator(generator), sh))
         return {k: float(v) for k, v in metrics.items()}
 
 
@@ -397,6 +447,13 @@ def make_finetune_steps(cfg: TokamakInferenceConfig, pipeline: TokamakPipeline):
           samples (reference: pipeline.py:238-268); noise = the sampler
           call's (init_noise, step_noise).
 
+    Where `pipeline.graphs.on`, each step is one captured CUDA graph on
+    static inputs (the batch, the weights w or the targets and Q-hat, the
+    step's draws, taken ahead of it as the eager step takes them, and the
+    update's values `tx.scalars(opt_state.count)`), one graph per batch
+    shape and optimizer state (the tensors it updates in place, by
+    address).
+
     `cfg.optimizer` ("adam": plain Adam(finetune_lr, betas (0.99, 0.999));
     "sgd": momentum 0.9), no clip, no EMA (reference: pipeline.py:150-163)."""
     ccfg = cfg.conformal
@@ -408,7 +465,7 @@ def make_finetune_steps(cfg: TokamakInferenceConfig, pipeline: TokamakPipeline):
     model = pipeline.model
     params = list(model.parameters())
 
-    def weighted_step(opt_state, batch, w, generator=None, noise=None):
+    def weighted(opt_state, batch, w, generator=None, noise=None, scalars=None):
         sh = pmesh.batch_shard(batch.shape[0])
         batch, w = sh.take(batch), sh.take(w)
         t, n = (sh.draws(noise) if noise is not None
@@ -416,10 +473,11 @@ def make_finetune_steps(cfg: TokamakInferenceConfig, pipeline: TokamakPipeline):
         per = p_losses(model, sched, dcfg_train, batch, t, n, cond_train)
         loss = cfg.loss_weight_train * (w * per).mean()
         loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
-        tx.step(params, grads, opt_state)
+        tx.step(params, grads, opt_state, scalars)
         return loss
 
-    def backward_step(opt_state, test_batch, state_target, Q, generator=None, noise=None):
+    def backward(opt_state, test_batch, state_target, Q, generator=None, noise=None,
+                 scalars=None):
         sh = pmesh.batch_shard(test_batch.shape[0])
         test_batch, state_target = sh.take(test_batch), sh.take(state_target)
         kw = draws_kw(None if noise is None else iter([noise]), generator, sh)
@@ -429,8 +487,35 @@ def make_finetune_steps(cfg: TokamakInferenceConfig, pipeline: TokamakPipeline):
                                   j_scheduler=pipeline.j_scheduler, final_step_grad=True, **kw)
         loss = backward_loss(out * scaler(out), state_target, Q, tc)
         loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
-        tx.step(params, grads, opt_state)
+        tx.step(params, grads, opt_state, scalars)
         return loss
+
+    def scalars(opt_state):
+        # the update's values, then counted (a captured step's)
+        out = _fill(tx.scalars(opt_state.count), pipeline.device)
+        opt_state.count += 1
+        return out
+
+    def weighted_step(opt_state, batch, w, generator=None, noise=None):
+        if not pipeline.graphs.on(pmesh.batch_shard(batch.shape[0])):
+            return weighted(opt_state, batch, w, generator, noise)
+        t, n = noise if noise is not None else draw_t_noise(dcfg_train, batch, generator)
+        return pipeline.graphs(
+            "weighted", lambda batch, w, t, noise, scalars: weighted(
+                opt_state, batch, w, noise=(t, noise), scalars=scalars),
+            writes=params + opt_state.tensors(), batch=batch, w=w, t=t, noise=n,
+            scalars=scalars(opt_state))
+
+    def backward_step(opt_state, test_batch, state_target, Q, generator=None, noise=None):
+        if not pipeline.graphs.on(pmesh.batch_shard(test_batch.shape[0])):
+            return backward(opt_state, test_batch, state_target, Q, generator, noise)
+        init, steps = noise if noise is not None else pipeline._draws(test_batch.shape, None,
+                                                                      generator)
+        return pipeline.graphs(
+            "backward", lambda batch, target, Q, init, steps, scalars: backward(
+                opt_state, batch, target, Q, noise=(init, steps), scalars=scalars),
+            writes=params + opt_state.tensors(), batch=test_batch, target=state_target, Q=Q, init=init, steps=steps,
+            scalars=scalars(opt_state))
 
     return tx, weighted_step, backward_step
 
@@ -457,7 +542,9 @@ def run_inference(
     resumes after the latest saved one; each epoch's draws depend on (seed,
     epoch) only, so the resumed run equals an uninterrupted one. `noise`
     yields, in the order they are consumed, each sampler call's
-    (init_noise, step_noise) and each post-training step's (t, noise)."""
+    (init_noise, step_noise) and each post-training step's (t, noise).
+    Where `pipeline.graphs.on`, each step is one captured graph
+    (`make_finetune_steps`); the phase's graphs are freed as it ends."""
     from safediffcon_torch.utils.checkpoint import (
         load_phase_history, load_phase_state, save_phase_history, save_phase_state,
     )
@@ -526,6 +613,7 @@ def run_inference(
             save_phase_history(state_dir, history, config_repr=repr(cfg))
         if on_epoch is not None:
             on_epoch(history[-1])
+    pipeline.graphs.clear()
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
     return params, Q, history
 

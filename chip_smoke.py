@@ -23,8 +23,8 @@ fails ends the run with a non-zero exit.
      frames at 128^2, CG 1e-6; its phases timed, K1 by CUDA events), then
      SmokePipeline.calibrate on 10 of the cal sims (the script's budget
      cut) and guided evaluate on the 50 test sims with the
-     SmokeConformalConfig defaults but DDIM 50 (the reference's 100 cut for
-     phase 15; eta 1, solver 1e-8 / 500, backend "auto" = K1) and the
+     SmokeConformalConfig defaults but DDIM 20 (the reference's 100 cut for
+     phases 15 and 14; eta 1, solver 1e-8 / 500, backend "auto" = K1) and the
      pipeline's default chunks, so each runs
      one batch and reports its peak device memory. K1's launch count
      is zeroed just before calibrate and read just after evaluate, and must
@@ -52,7 +52,7 @@ fails ends the run with a non-zero exit.
      launch counts are zeroed just before and must read 90 per step on the
      tensor-core kernel and 0 on the SIMT kernel just after;
   9. one posttrain epoch and one InfFT epoch through run_inference from
-     the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 15 (the
+     the pretrained EMA weights, on 8 cal + 8 test sims with DDIM 10 (the
      reference's 100 cut to keep the script inside its budget; the
      SmokePipeline model, framework conv; K1 in evaluate), then one InfFT
      step at Q = 1, where its loss has a gradient;
@@ -104,7 +104,7 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
       recalibration, then one evaluate, and the same posttrain on an eager
       pipeline (capture=False) for its seconds and peak memory beside the
       captured one's; InfFT_iters 2 (one step at B = 50, calibrate,
-      evaluate); both calibrate on 100 cal sims;
+      evaluate); both calibrate on 50 cal sims;
   B7. the samplers beyond DDIM and two-model composition:
       (a) tiny UNet2Ds (dim 16) on the card and on the CPU with the same
           weights and draws, TF32 off: a two-model (prior_beta 0.5) DPM
@@ -117,20 +117,20 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
           steps after one warm-up step;
       (c) BurgersPipeline(two_model=True, prior_beta=0.5), the JAX CLI's
           default beta, with B5's EMA as the main model and (b)'s as the
-          prior, DDIM 100: calibrate on 50 cal sims, guided
+          prior, DDIM 50: calibrate on 50 cal sims, guided
           evaluate on the 50 test sims;
-      (d) sampler "dpm", 25 steps, B5's EMA: calibrate on 100 cal sims,
+      (d) sampler "dpm", 25 steps, B5's EMA: calibrate on 50 cal sims,
           guided evaluate on the 50 test sims;
       (e) the ancestral sampler through calibrate (ddim_sampling_steps
-          = timesteps, B7_E_T = 500 conditioned steps, the reference's
-          1,000 cut for phase 16) on 50 cal sims;
+          = timesteps, B7_E_T = 250 conditioned steps, the reference's
+          1,000 cut for phases 16 and 14) on 50 cal sims;
       ms per step and peak memory of each.
 
 Depth cuts of the Burgers phases against the reference: 2,048 train sims
 (40,000), 10 pretrain steps (200,000; also the w-prior's), posttrain 2
 epochs x 2 steps (5 x 3,200), InfFT 2 iterations (3), B4's and B7(d)'s
-calibration on 100 cal sims, the fine-tuning calibration on
-100 and B7(c)'s and (e)'s on 50 (1,000), B7(c) at DDIM 100 (200; these cuts
+calibration, the fine-tuning calibration and B7(c)'s and (e)'s on 50 cal
+sims (1,000), B7(c) at DDIM 50 (200; these cuts
 keep the whole script inside its
 budget).
 Widths, DDIM steps, batch sizes and the solver are the reference's.
@@ -162,8 +162,8 @@ parameters, seeded weights):
       steps after one warm-up step, the loop's set-up timed apart;
   T6. from T5's EMA: run_inference with posttrain_config() for 1 epoch of
       1 step at batch 1,000, and with finetune_config() (DDIM 250) for 1
-      epoch of 1 InfFT step at B = 50, each epoch calibrating on the 1,000
-      cal sims; peak memory;
+      epoch of 1 InfFT step at B = 50, each epoch calibrating on 250 of the
+      cal sims in one chunk; peak memory;
   T7. from T5's EMA, sampler "dpm" with 25 steps: calibrate on the 1,000
       cal sims as one chunk, then an unguided evaluate on the 50 test sims;
       ms per step and peak memory.
@@ -232,7 +232,7 @@ backend named in its log line:
       metrics agree within 1e-3 relative and a threshold rate within one
       sample); K2 idle;
  13e. Burgers and tokamak calibrate at the turbo widths on 24 cal sims,
-      DDIM 10: Q-hat within 1e-5 relative; K1 and K2 idle.
+      DDIM 5: Q-hat within 1e-5 relative; K1 and K2 idle.
       With more than one card visible, 13b and 13d run again over NCCL
       across two cards. Times of two ranks sharing one card are a
       correctness check and say nothing of scaling over NVLink.
@@ -248,8 +248,9 @@ round1.py, the port of the JAX package's experiments/run_*_validation.py):
       every distinct conv shape of one forward of the smoke recipe's UNet3D
       (dim 32, mults (1, 2), 4 x 32 frames of 64^2) and of its tiny cut
       (dim 8, 2 x 2 frames of 32^2);
- 14b. the six recipes (burgers, burgers_infft, tokamak, smoke,
-      smoke_posttrain, burgers_20k) at --scale tiny on the card, one
+ 14b. the eight recipes (burgers, burgers_infft, tokamak, smoke,
+      smoke_posttrain, burgers_20k, tokamak_refscale, burgers_refscale) at
+      --scale tiny on the card, one
       evaluation per phase, K1 and K2 counts zeroed before each and read
       after: each SUMMARY has exactly the keys of the JAX run's results JSON
       and finite values, and prints its comparison lines; the two smoke
@@ -283,7 +284,7 @@ The serving and fine-tuning calls as captured CUDA graphs (phase 16; the
 pipelines' `capture`, core/train.py::Graphs / StaticCall / CapturedCall,
 the counterpart of JAX's jitted _cal_batch, _evaluate, InfFT step and
 fine-tuning chunks), K1 and K2 counts zeroed before and required 0 after,
-bf16 compute, seeded weights, DDIM S_DDIM, Q-hat values that bf16 does not
+bf16 compute, seeded weights, DDIM S_DDIM (10), Q-hat values that bf16 does not
 hold exactly: each case calls an eager pipeline or step (`capture=False`)
 once, then a captured one three times: the warm-up (eager, on the static
 buffers), the capture on other inputs, draws and Q-hat, and a replay on
@@ -291,9 +292,9 @@ the first inputs again (for a step, from the same starting state, restored
 in place). The warm-up and the replay must each equal the eager call bit
 for bit. Seconds and CUDA-event ms per call, the graph's nodes by type
 (kernel, memcpy, memset; libcuda's cuGraphGetNodes), the peak memory of
-each arm, and torch.profiler over one eager call and one replay (at DDIM 4
-where the case samples; device ms, kernels, kernel launch calls, graph
-launch calls; for 16b, 16c and 16f with `--serving-graphs` only, below):
+each arm, and, with `--serving-graphs` only (below), torch.profiler over
+one eager call and one replay (at DDIM 4 where the case samples; device ms,
+kernels, kernel launch calls, graph launch calls):
 
  16a. Burgers turbo UNet2D calibrate, 50 cal sims (one chunk);
  16b. Burgers guided evaluate of the 50 test sims with the 10,000-step
@@ -306,15 +307,22 @@ launch calls; for 16b, 16c and 16f with `--serving-graphs` only, below):
  16g. tokamak post-training step at batch 1,000 (make_finetune_steps);
  16h. tokamak backward fine-tuning step at B = 50 (w_obj 1).
 
-Depth cuts of phase 16: DDIM 25 (the configs' 200; `python3 chip_smoke.py
+Depth cuts of phase 16: DDIM 10 (the configs' 200; `python3 chip_smoke.py
 --serving-graphs` runs phase 16 alone at DDIM 200 on B2's and T2's data,
 with each eager arm's second call, a fourth 16c chunk, and the profiler
-windows of 16b, 16c and 16f, which hold 50,000-145,000 kernels each and
-take the profiler up to a minute), the tokamak calibration chunk 250
+windows, those of 16b, 16c and 16f holding 50,000-145,000 kernels each and
+taking the profiler up to a minute), the tokamak calibration chunk 250
 (1,000), posttrain 30 steps. Cut to make
 room for it: B6's calibrations in one chunk of 100 (two of 50), phase 15 at
 steps_per_call 5 and 1 with 15 steps per arm (10 and 1, 30), B7(e) at 500
 timesteps (1,000).
+
+Cut to make room for the two reference-scale recipes in phase 14: phase 4
+at DDIM 20 (50), phase 9 at DDIM 10 (15), B4's, B6's and B7(d)'s
+calibrations on 50 cal sims (100), B7(c) at DDIM 50 (100), B7(e) at 250
+timesteps (500), T6's calibrations on 250 cal sims (1,000), 13(e) at DDIM 5
+(10), phase 15's profiler over one step per arm (three), phase 16 at DDIM
+10 (25) with its profiler windows under `--serving-graphs` only.
 
 `python3 chip_smoke.py --cli-rank <command line>` is 13a's rank under
 torchrun, not a way to run the script.
@@ -348,7 +356,7 @@ CG_FLOPS_PER_CELL = 23
 CELLS = 127
 N_CAL, N_TEST = 50, 50  # sims per split (reference: 200 cal, 50 test)
 SERVE_CAL = 10  # cal sims of phase 4's calibrate, to keep the script in its budget
-SERVE_DDIM = 50  # DDIM steps of phase 4 (reference 100), to make room for phase 15
+SERVE_DDIM = 20  # DDIM steps of phase 4 (reference 100; 50 before the refscale recipes)
 N_TRAIN = 16  # one pretrain batch (reference: 19,800 train sims)
 GEN_BATCH = 50
 K1_REPS = 20  # timed K1 calls per case
@@ -367,7 +375,7 @@ K2_REPS = 10  # timed calls of K2 and F.conv3d per case (the plain version: 1)
 PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 FT_SIMS = 8  # cal and test sims of the posttrain / InfFT epochs
 POSTTRAIN_STEPS = 3
-FT_DDIM = 15  # DDIM steps of phase 9 (reference 100), to keep the script in its budget
+FT_DDIM = 10  # DDIM steps of phase 9 (reference 100; 15 before the refscale recipes)
 DPM_STEPS = 25  # DPM-Solver++(2M) steps of phases 11, B7 and T7 (JAX docstring: ~20-50)
 # Burgers: the reference "turbo" UNet2D; sims per split (reference 40,000
 # train, 1,000 cal, 50 test; the train split cut to what B5-B6 read)
@@ -375,18 +383,19 @@ B_MODEL = dict(dim=128, dim_mults=(1, 2, 4, 8))
 B_N_TRAIN, B_N_CAL, B_N_TEST = 2048, 1000, 50
 B_SOLVER_BATCH = 50
 B_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
-B_FT_CAL = 100  # cal sims of the fine-tuning phases (reference 1,000)
-B4_CAL = 100  # cal sims of B4's and B7(d)'s calibrate (reference 1,000)
+B_FT_CAL = 50  # cal sims of the fine-tuning phases (reference 1,000; 100 before)
+B4_CAL = 50  # cal sims of B4's and B7(d)'s calibrate (reference 1,000; 100 before)
 B7_CAL = 50  # cal sims of B7's two-model and ancestral calibrations (reference 1,000)
-B7_DDIM = 100  # DDIM steps of B7(c)'s two-model serving (reference 200)
+B7_DDIM = 50  # DDIM steps of B7(c)'s two-model serving (reference 200; 100 before)
 B7_ANCESTRAL_T = 100  # timesteps of B7(a)'s ancestral chain
-B7_E_T = 500  # timesteps of B7(e)'s ancestral calibration (reference 1,000)
+B7_E_T = 250  # timesteps of B7(e)'s ancestral calibration (reference 1,000; 500 before)
 SMOKE_STEPS = 5  # timed pretrain steps (after one more) and guided DDIM steps of phase 10
 # Tokamak: the reference "turbo" UNet1D; trajectories per split (reference
 # 48,950 train, 1,000 cal, 50 test; the train split cut to what T5-T6 read)
 T_N_TRAIN, T_N_CAL, T_N_TEST = 2048, 1000, 50
 T_BATCH = 50  # test batch (reference)
 T_CAL_CHUNK = 1000  # calibrate the reference's batch of 1,000 as one chunk
+T_FT_CAL = 250  # cal sims of T6's epochs, one chunk (reference 1,000)
 T_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 # Phase 12: the command line's scratch directory (under the gitignored build/),
 # its splits (train, cal, test) for Burgers and tokamak and for smoke, smoke
@@ -2076,7 +2085,7 @@ def phase_tokamak_pretrain(tokamak, data):
 def phase_tokamak_finetune(tokamak, data, params):
     """T6: from T5's EMA, run_inference with posttrain_config() for 1 epoch
     of 1 step at batch 1,000, and with finetune_config() (DDIM 250) for 1
-    epoch of 1 InfFT step at B = 50; each epoch calibrates on the 1,000 cal
+    epoch of 1 InfFT step at B = 50; each epoch calibrates on T_FT_CAL cal
     sims in one chunk. InfFT's loss relu(threshold - min q95 + Q) has no
     gradient where the sample's x0 estimate of q95 sits at the clip, as with
     barely trained weights; one more InfFT step with w_obj 1 (the βp and li
@@ -2084,6 +2093,7 @@ def phase_tokamak_finetune(tokamak, data, params):
     from safediffcon_torch.tasks.tokamak.pipeline import make_finetune_steps
 
     cal, test, train = data["cal"], data["test"], data["train"]
+    cal = tokamak.TokamakDataset(data=cal.data[:T_FT_CAL], state_phys=cal.state_phys[:T_FT_CAL])
     runs = {"posttrain": dataclasses.replace(tokamak.posttrain_config(), finetune_epoch=1),
             "infft": dataclasses.replace(tokamak.finetune_config(), finetune_epoch=1)}
     out = {}
@@ -2378,7 +2388,8 @@ def phase_cli_burgers_tokamak(K, C) -> dict:
 P13_DIR = ROOT / "build" / "chip_smoke" / "p13"
 P13_STEPS = 2  # pretrain steps of 13(a) and 13(b)
 P13_SMOKE_DDIM, P13_SMOKE_SIMS = 10, 8  # 13(d): DDIM steps; cal and test sims
-P13_CAL_DDIM, P13_CAL_SIMS = 10, 24  # 13(e); 20 and 50 before phase 14
+# 13(e); DDIM 20 on 50 before phase 14, DDIM 10 before the reference-scale recipes
+P13_CAL_DDIM, P13_CAL_SIMS = 5, 24
 P13_SP_BATCH = 2  # 13(c)
 
 
@@ -2857,7 +2868,7 @@ def _key_structure(x):
 
 
 def phase_round1(K, C) -> dict:
-    """14: the four round-1 recipes (`python -m
+    """14: the eight recipes of the validation runner (`python -m
     safediffcon_torch.experiments.round1 <recipe> --scale tiny`) on the
     card, K1 and K2 counts zeroed before each and read after; K2 in bf16
     first held against its plain version at the tiny smoke model's conv
@@ -2878,7 +2889,7 @@ def phase_round1(K, C) -> dict:
         f"largest error {max(d / m for c in k2_cases for d, m in zip(c['max_diff'], c['max_abs'])):.2e} "
         f"of max")
     runs = {}
-    for name in ("burgers", "burgers_infft", "tokamak", "smoke", "smoke_posttrain", "burgers_20k"):
+    for name in R1.RUNS:
         K.pressure_cg_cuda.launches = 0
         zero_k2_counts(C)
         t = time.perf_counter()
@@ -2920,7 +2931,7 @@ def phase_round1(K, C) -> dict:
 # and the chunk sizes compared
 G_STEPS = 15
 G_TIME = (10, 15)
-G_PROFILE = (5, 8)
+G_PROFILE = (5, 6)
 G_CHUNKS = (5, 1)
 
 
@@ -3049,11 +3060,11 @@ def phase_train_graphs(burgers, tokamak, b_data, t_data) -> dict:
 # Phase 16: the serving and fine-tuning calls as captured CUDA graphs
 # ---------------------------------------------------------------------------
 
-S_DDIM = 25  # DDIM steps of phase 16 in the whole run (`--serving-graphs`: 200)
+S_DDIM = 10  # DDIM steps of phase 16 in the whole run (`--serving-graphs`: 200)
 S_SHORT_DDIM = 4  # DDIM steps of the profiled short windows
 # `--serving-graphs`: also each eager arm's second call, and the profiler
-# windows over a rollout (16b, 16f) and ten eager training steps (16c),
-# each up to a minute of the profiler's own time in the whole run's budget
+# windows (those over a rollout, 16b and 16f, and over ten eager training
+# steps, 16c, take up to a minute of the profiler's own time each)
 S_EXTENDED = False
 S_POST_CHUNKS = 3  # 16c: chunks of 10 steps at batch 64 (`--serving-graphs`: 4)
 S_T_CAL = 250  # tokamak cal sims per calibrate call, one chunk (recipe: 1,000 in one)
@@ -3190,7 +3201,7 @@ def _finite(x) -> bool:
     return math.isfinite(float(x))
 
 
-def serving_case(label: str, make, call, state=None, short=None, profile: bool = True) -> dict:
+def serving_case(label: str, make, call, state=None, short=None) -> dict:
     """One phase-16 case: the eager arm, `make(False)`'s pipeline or step
     called once as `call(obj, 0)` on the first inputs, draws and Q-hat;
     then `make(True)`'s captured one called three times, i = 0, 1, 0: the
@@ -3203,9 +3214,9 @@ def serving_case(label: str, make, call, state=None, short=None, profile: bool =
     seeded weights). Seconds and CUDA-event ms per call, the graph's nodes
     by type, the peak memory of each arm; with S_EXTENDED, the eager arm's
     second call (free of first-call costs, from the same state), which
-    must equal its first; torch.profiler over one eager call and one replay
-    of `short(capture)` (the case at DDIM S_SHORT_DDIM), or of `make`,
-    where `profile` (a rollout's window: with S_EXTENDED only)."""
+    must equal its first, and torch.profiler over one eager call and one
+    replay of `short(capture)` (the case at DDIM S_SHORT_DDIM), or of
+    `make`."""
     obj = make(False)
     snap = state[0](obj) if state is not None else None
     torch.cuda.empty_cache()
@@ -3243,7 +3254,7 @@ def serving_case(label: str, make, call, state=None, short=None, profile: bool =
     finite = _finite(got[2][0])
     del obj, kept, got, snap, eager
     prof = {}
-    for capture in (True, False) if profile else ():
+    for capture in (True, False) if S_EXTENDED else ():
         obj = (short or make)(capture)
         for i in range(2 if capture else 0):
             call(obj, i)  # the warm-up and the capture
@@ -3365,7 +3376,7 @@ def phase_serving_graphs(burgers, tokamak, b_data, t_data, ddim: int = S_DDIM) -
     out["burgers_evaluate"] = serving_case(
         f"burgers guided evaluate with the rollout (B = 50, DDIM {ddim})", b_pipe,
         lambda p, i: p.evaluate(None, b_data["test"], 0.1 + 0.5 * i, generator=gen(i)),
-        short=lambda c: b_pipe(c, ddim_sampling_steps=S_SHORT_DDIM), profile=S_EXTENDED)
+        short=lambda c: b_pipe(c, ddim_sampling_steps=S_SHORT_DDIM))
     out["burgers_posttrain"] = burgers_posttrain_case(burgers, bp, b_conf, b_pipe, init,
                                                       b_data)
 
@@ -3414,7 +3425,7 @@ def phase_serving_graphs(burgers, tokamak, b_data, t_data, ddim: int = S_DDIM) -
     out["tokamak_evaluate"] = serving_case(
         f"tokamak evaluate with the KSTAR rollout (B = 50, DDIM {ddim})", t_pipe,
         lambda p, i: p.evaluate(None, t_data["test"], 0.1 + 0.2 * i, generator=gen(i)),
-        short=lambda c: t_pipe(c, ddim_sampling_steps=S_SHORT_DDIM), profile=S_EXTENDED)
+        short=lambda c: t_pipe(c, ddim_sampling_steps=S_SHORT_DDIM))
 
     train = t_data["train"]
     w_all = np.random.default_rng(16).uniform(0.5, 1.5, len(train)).astype(np.float32)
@@ -3593,6 +3604,8 @@ def main() -> int:
     p14 = phase_round1(K, C)
     p14_smoke = p14["runs"]["smoke"]["launches"]
     p14_sp = p14["runs"]["smoke_posttrain"]["launches"]
+    # the other recipes must launch neither kernel (phase_round1 checks it)
+    p14_idle = {k: v["launches"] for k, v in p14["runs"].items() if not k.startswith("smoke")}
     log(f"phase 14 in {p14['seconds']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     # phase 15: the Burgers and tokamak training chunk as one captured CUDA
@@ -3633,7 +3646,9 @@ def main() -> int:
                             "phase 14 round-1 smoke recipe, tiny (datagen + evaluate)":
                                 p14_smoke["k1"],
                             "phase 14 smoke posttrain + backward recipe, tiny (datagen + "
-                            "3 evaluations)": p14_sp["k1"]},
+                            "3 evaluations)": p14_sp["k1"],
+                            "phase 14 Burgers and tokamak recipes, tiny (required 0)":
+                                {k: v["k1"] for k, v in p14_idle.items()}},
         max_abs_err=max(c["max_diff"] for c in cases),
         ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
@@ -3679,7 +3694,9 @@ def main() -> int:
                                 p13["c"]["k2_per_rank"],
                             "phase 14 round-1 smoke recipe, tiny (pretrain)": p14_smoke["k2"],
                             "phase 14 smoke posttrain + backward recipe, tiny (pretrain)":
-                                p14_sp["k2"]},
+                                p14_sp["k2"],
+                            "phase 14 Burgers and tokamak recipes, tiny (required 0)":
+                                {k: sum(v["k2"].values()) for k, v in p14_idle.items()}},
         max_abs_err=max(c["max_diff"] for c in f32_cases),
         ms=conv_main["kernel_ms"], plain_ms=conv_main["plain_ms"],
         bound_ms=conv_main["bound_ms"], bound_by=conv_main["bound_by"],

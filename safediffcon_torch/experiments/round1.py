@@ -1,25 +1,30 @@
-"""The round-1 validation runs of the JAX package, on the port, held against
-the JAX package's recorded results.
+"""The round-1 and reference-scale validation runs of the JAX package, on
+the port, held against the JAX package's recorded results.
 
 Port of `experiments/run_1d_validation.py`, `run_1d_infft_validation.py`,
 `run_tokamak_validation.py`, `run_2d_validation.py`,
-`run_2d_posttrain_validation.py` and `run_1d_long.py`: datagen, pretrain,
-calibrate and evaluate, then posttrain, InfFT or the smoke backward
-fine-tune, with each script's own arguments (the recipe dicts below),
-through the port's entry points:
+`run_2d_posttrain_validation.py`, `run_1d_long.py`,
+`run_tokamak_refscale.py` and `run_1d_refscale.py`: datagen, pretrain,
+calibrate and evaluate, then posttrain, InfFT or the smoke and tokamak
+backward fine-tunes, with each script's own arguments (the recipe dicts
+below; the two reference-scale scripts with the overrides that make them
+the runs of their round-2 results, ROUND2), through the port's entry
+points:
 
     python -m safediffcon_torch.experiments.round1
-        {burgers,burgers_infft,tokamak,smoke,smoke_posttrain,burgers_20k}
+        {burgers,burgers_infft,tokamak,smoke,smoke_posttrain,burgers_20k,
+         tokamak_refscale,burgers_refscale}
         [--seed S] [--eval-seeds N] [--device cuda|cpu] [--scale full|tiny] [--out DIR]
         [--state-dir DIR] [--pretrain-seconds S]
 
 Each run prints the JAX script's `SUMMARY {...}` line (its keys and metric
 names), then the comparison with the JAX run's committed results
-(`experiments/validation_*_round1.json`, read as data):
+(`experiments/validation_*_round1.json`, `validation_tokamak_refscale_round2.json`,
+`validation_1d_refscale_round2.json`, read as data):
 
     COMPARE <phase> <metric>: port <mean> +- <across-seed std> | jax <value>
             | band <b> | in/out
-    SIGN <metric>: port <+/-> jax <+/->      (pretrain -> posttrain / InfFT)
+    SIGN <metric>: port <+/-> jax <+/->      (from one phase to the next)
 
 After each phase (for `smoke_posttrain`, after each fine-tuning epoch,
 through `run_inference`'s `on_epoch`) the same weights and Q-hat are
@@ -58,7 +63,10 @@ controls in the band below the maze against the test data's (CONTROL), and
 checkpoints go to `--state-dir` (default `<out>/b_long_ckpt`), a rerun with
 the same directory resumes from the last one, and `--pretrain-seconds`
 stops pretraining after that many seconds with a checkpoint (the run then
-ends with a PRETRAIN line and no comparison).
+ends with a PRETRAIN line and no comparison). The reference-scale recipes
+write their pretrain checkpoints under `--out` (the scripts' /tmp
+directories' names); `tokamak_refscale` does not resume from them, as its
+round-2 script did not.
 """
 from __future__ import annotations
 
@@ -173,20 +181,85 @@ BURGERS_20K = {
     "BurgersInfFTConfig": dict(InfFT_iters=3, finetune_lr=1e-5),
 }
 
+class ScriptExpr(str):
+    """A keyword argument the script computes at run time, as its source
+    text (it equals that text); the runner computes the same value."""
+
+
+# The reference-scale scripts as they stand; ROUND2 below turns each into
+# the run that wrote its round-2 results.
+TOKAMAK_REFSCALE = {
+    "generate_tokamak_dataset": dict(n_train=48950, n_cal=1000, n_test=50, gen_batch=512),
+    "TokamakPretrainConfig": dict(dim=128, batch_size=32, checkpoint_every=25_000,
+                                  compute_dtype="bfloat16"),
+    # num_steps is TOK_PRETRAIN_STEPS' default; the directories are the
+    # script's, the port's go under --out
+    "pretrain": dict(num_steps=200_000, log_every=1000, checkpoint_dir="/tmp/tok_ref_ckpt",
+                     resume_dir="/tmp/tok_ref_ckpt", steps_per_call=50),
+    "posttrain_config": {},
+    "TokamakPipeline": dict(dim=128, compute_dtype="bfloat16"),
+    "finetune_config": {},
+    # dataclasses.replace(finetune_config().conformal, ...): the backward
+    # fine-tune's composite weight at the posttrain checkpoint's settings
+    "replace.conformal": dict(
+        wo_post_train=False, finetune_quantile=ScriptExpr("float(Q_pt)"),
+        finetune_w_obj=ScriptExpr("pt_cfg.conformal.w_obj"),
+        finetune_w_safe=ScriptExpr("pt_cfg.conformal.w_safe"),
+        finetune_guidance_scaler=ScriptExpr("pt_cfg.conformal.guidance_scaler"),
+        finetune_set="test"),
+}
+
+BURGERS_REFSCALE = {
+    "generate_burgers_dataset": dict(n_train=40000, n_cal=1000, n_test=50, seed=0),
+    "BurgersPretrainConfig": dict(dim=128, batch_size=16, lr=1e-5, checkpoint_every=50_000,
+                                  compute_dtype="bfloat16"),
+    # num_steps is B_PRETRAIN_STEPS' default; directories as above
+    "pretrain": dict(num_steps=200_000, log_every=2000, checkpoint_dir="/tmp/b_ref_ckpt",
+                     resume_dir="/tmp/b_ref_ckpt", steps_per_call=50),
+    "BurgersConformalConfig": dict(w_score=500.0),
+    "BurgersPipeline": dict(dim=128, compute_dtype="bfloat16"),
+    # finetune_epoch / finetune_steps are B_PT_EPOCHS' and B_PT_STEPS' defaults
+    "BurgersPostTrainConfig": dict(finetune_epoch=5, finetune_steps=3200, finetune_batch_size=32,
+                                   finetune_subset_size=10240, finetune_lr=1e-4,
+                                   steps_per_call=25),
+    "BurgersPostTrainConfig.conformal": dict(w_score=2500.0),
+    "BurgersDataset.load": dict(subset=10240),
+    "posttrain": dict(eval_every_subset_epoch=False),
+    "BurgersInfFTConfig": dict(InfFT_iters=3, finetune_lr=1e-5),
+}
+
+# What the scripts were when their round-2 results were written (None: the
+# argument was not passed). The tokamak JSON was committed at 14357c1 from
+# the script of 3dfca3d: TOK_PRETRAIN_STEPS defaulted to 20,000, checkpoints
+# every 5,000, no resume_dir, and no finetune_guidance_scaler, which kept
+# its default of 1.0 (fe54396 later made the fine-tune carry the posttrain
+# guidance_scaler of 5.0). The Burgers JSON records pretrain_steps 50,000.
+ROUND2 = {
+    "tokamak_refscale": {"pretrain": dict(num_steps=20_000, resume_dir=None),
+                         "TokamakPretrainConfig": dict(checkpoint_every=5_000),
+                         "replace.conformal": dict(finetune_guidance_scaler=None)},
+    "burgers_refscale": {"pretrain": dict(num_steps=50_000)},
+}
+
 RECIPES = {"burgers": BURGERS, "burgers_infft": BURGERS_INFFT, "tokamak": TOKAMAK,
-           "smoke": SMOKE, "smoke_posttrain": SMOKE_POSTTRAIN, "burgers_20k": BURGERS_20K}
+           "smoke": SMOKE, "smoke_posttrain": SMOKE_POSTTRAIN, "burgers_20k": BURGERS_20K,
+           "tokamak_refscale": TOKAMAK_REFSCALE, "burgers_refscale": BURGERS_REFSCALE}
 SCRIPTS = {"burgers": "experiments/run_1d_validation.py",
            "burgers_infft": "experiments/run_1d_infft_validation.py",
            "tokamak": "experiments/run_tokamak_validation.py",
            "smoke": "experiments/run_2d_validation.py",
            "smoke_posttrain": "experiments/run_2d_posttrain_validation.py",
-           "burgers_20k": "experiments/run_1d_long.py"}
+           "burgers_20k": "experiments/run_1d_long.py",
+           "tokamak_refscale": "experiments/run_tokamak_refscale.py",
+           "burgers_refscale": "experiments/run_1d_refscale.py"}
 JAX_RESULTS = {"burgers": "experiments/validation_1d_round1.json",
                "burgers_infft": "experiments/validation_1d_infft_round1.json",
                "tokamak": "experiments/validation_tokamak_round1.json",
                "smoke": "experiments/validation_2d_round1.json",
                "smoke_posttrain": "experiments/validation_2d_posttrain_round1.json",
-               "burgers_20k": "experiments/validation_1d_20k_round1.json"}
+               "burgers_20k": "experiments/validation_1d_20k_round1.json",
+               "tokamak_refscale": "experiments/validation_tokamak_refscale_round2.json",
+               "burgers_refscale": "experiments/validation_1d_refscale_round2.json"}
 
 # Settings of the full-scale runs on the card (module docstring).
 CARD = {
@@ -196,11 +269,14 @@ CARD = {
     "smoke": {"SmokePretrainConfig": dict(conv_impl="pallas")},
     "smoke_posttrain": {"SmokePretrainConfig": dict(conv_impl="pallas")},
     "burgers_20k": {"BurgersPipeline": dict(cal_chunk=250)},
+    "tokamak_refscale": {"TokamakPipeline": dict(cal_chunk=1000)},
+    "burgers_refscale": {"BurgersPipeline": dict(cal_chunk=250)},
 }
 
 # --scale tiny: counts and widths cut, merged over the recipe (a dict over
 # each entry of a list, a list entry by entry).
 _TINY_BURGERS_CONF = dict(ddim_sampling_steps=10, cal_batch_size=8, num_cal_batch=1)
+_TINY_TOKAMAK_CONF = dict(ddim_sampling_steps=10, cal_batch_size=8)
 _TINY_SMOKE_DATA = dict(n_train=8, n_cal=4, n_test=2, n_frames=16, record_frames=2,
                         space_scale=4, gen_batch=14, accuracy=1e-4, max_iter=40)
 _TINY_SMOKE_CONF = dict(cal_batch_size=4, ddim_sampling_steps=5, test_batch_size=2,
@@ -260,6 +336,26 @@ TINY = {
         "BurgersPostTrainConfig.conformal": _TINY_BURGERS_CONF,
         "BurgersDataset.load": dict(subset=16),
     },
+    "tokamak_refscale": {
+        "generate_tokamak_dataset": dict(n_train=16, n_cal=8, n_test=4, gen_batch=16),
+        "TokamakPretrainConfig": dict(dim=8, dim_mults=(1, 2)),
+        "pretrain": dict(num_steps=4, log_every=2, steps_per_call=2),
+        "posttrain_config": dict(finetune_epoch=2, train_batch_size=4,
+                                 conformal=_TINY_TOKAMAK_CONF),
+        "TokamakPipeline": dict(dim=8, dim_mults=(1, 2)),
+        "finetune_config": dict(finetune_epoch=2, conformal=_TINY_TOKAMAK_CONF),
+    },
+    "burgers_refscale": {
+        "generate_burgers_dataset": dict(n_train=40, n_cal=8, n_test=4),
+        "BurgersPretrainConfig": dict(dim=8, dim_mults=(1, 2)),
+        "pretrain": dict(num_steps=4, log_every=2, steps_per_call=2),
+        "BurgersConformalConfig": _TINY_BURGERS_CONF,
+        "BurgersPipeline": dict(dim=8, dim_mults=(1, 2)),
+        "BurgersPostTrainConfig": dict(finetune_epoch=2, finetune_steps=2, finetune_batch_size=4,
+                                       finetune_subset_size=16, steps_per_call=2),
+        "BurgersPostTrainConfig.conformal": _TINY_BURGERS_CONF,
+        "BurgersDataset.load": dict(subset=16),
+    },
 }
 
 # Headline metrics: (name, kind, per-sample std key); kind "mean", "ratio"
@@ -279,16 +375,18 @@ HEADLINE = {
               ("unsafe_percentage", "percent", None)],
 }
 HEADLINE.update(burgers_infft=HEADLINE["burgers"], burgers_20k=HEADLINE["burgers"],
-                smoke_posttrain=HEADLINE["smoke"])
+                smoke_posttrain=HEADLINE["smoke"], tokamak_refscale=HEADLINE["tokamak"],
+                burgers_refscale=HEADLINE["burgers"])
 N_BOOTSTRAP = 200
 EVAL_SEED_BASE = 1000
 
 
 def recipe(name: str, scale: str = "full", device="cuda") -> dict:
-    """The recipe of run `name` with the tiny cuts (`scale` "tiny") and the
+    """The recipe of run `name` with its round-2 overrides (ROUND2; an
+    argument set to None is dropped), the tiny cuts (`scale` "tiny") and the
     card's settings (a CUDA `device`) merged in."""
     out = copy.deepcopy(RECIPES[name])
-    merged = [TINY[name]] if scale == "tiny" else []
+    merged = [ROUND2.get(name, {})] + ([TINY[name]] if scale == "tiny" else [])
     if torch.device(device).type == "cuda":
         merged.append(CARD[name])
     for extra in merged:
@@ -298,8 +396,18 @@ def recipe(name: str, scale: str = "full", device="cuda") -> dict:
             elif isinstance(out[key], list):
                 out[key] = [{**d, **kw} for d in out[key]]
             else:
-                out[key] = {**out[key], **kw}
+                out[key] = {k: v for k, v in {**out[key], **kw}.items() if v is not None}
     return out
+
+
+def configured(cfg, kw: dict):
+    """A config a script builds by a factory call (`posttrain_config()`),
+    with `kw` replaced; a `conformal` dict replaces fields of its
+    conformal config."""
+    kw = dict(kw)
+    if "conformal" in kw:
+        kw["conformal"] = dataclasses.replace(cfg.conformal, **kw["conformal"])
+    return dataclasses.replace(cfg, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -466,6 +574,12 @@ class Run:
     def seeded(self, kw: dict) -> dict:
         return kw if self.seed is None else {**kw, "seed": self.seed}
 
+    def in_out(self, kw: dict) -> dict:
+        """`kw` with the script's checkpoint and resume directories moved
+        under the output directory."""
+        return {k: str(self.out / Path(v).name) if k in ("checkpoint_dir", "resume_dir") else v
+                for k, v in kw.items()}
+
     def tick(self, msg: str) -> None:
         self.emit(f"[{time.perf_counter() - self.t0:7.1f}s] {msg}")
 
@@ -568,7 +682,7 @@ class Run:
 
 
 # ---------------------------------------------------------------------------
-# The four runs
+# The runs
 # ---------------------------------------------------------------------------
 
 def run_1d_validation(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
@@ -898,6 +1012,51 @@ def run_2d_posttrain_validation(scale="full", seed=None, eval_seeds=3, device="c
                       sign_pairs=[(phases[0], phases[1])])
 
 
+def burgers_fine_tuning(run: "Run", path: str, data: dict, params, names: Sequence[str]):
+    """The Burgers scripts' phases after pretrain: calibrate + evaluate
+    `params`, posttrain on the train subset, evaluate, InfFT, evaluate (the
+    scripts' eval draws 1, 2, 3). Returns (name, Q-hat, its bootstrap std,
+    the evaluations) per phase, in `names`, and the posttrain and InfFT
+    histories."""
+    from safediffcon_torch.tasks.burgers import (
+        BurgersConformalConfig, BurgersDataset, BurgersInfFTConfig, BurgersPipeline,
+        BurgersPostTrainConfig, inference_finetune, posttrain)
+
+    R, dev = run.recipe, run.device
+    conf = BurgersConformalConfig(**R["BurgersConformalConfig"])
+    pipe = BurgersPipeline(conf, **R["BurgersPipeline"], device=dev)
+    pipe.record = {}
+    out = []
+
+    def phase(name, weights, Q, draw):
+        q_std = run.q_std(pipe, Q, conf.alpha, "alpha")
+        ms, _ = run.evals(name, lambda g: pipe.evaluate(weights, data["test"], Q, generator=g),
+                          draw)
+        run.tick(f"{name} eval: Q={float(Q):.4f} {json.dumps(ms[0])}")
+        out.append((name, float(Q), q_std, ms))
+
+    with run.stage("pretrain_calibrate"):
+        Q = pipe.calibrate(params, data["cal"].data, torch.zeros((), device=dev),
+                           generator=run.gen(0))
+    phase(names[0], params, Q, 1)
+
+    pt = BurgersPostTrainConfig(
+        conformal=BurgersConformalConfig(**R["BurgersPostTrainConfig.conformal"]),
+        **run.seeded(R["BurgersPostTrainConfig"]))
+    ft = BurgersDataset.load(path, "train", **R["BurgersDataset.load"])
+    with run.stage("posttrain"):
+        state2, Q2, hist = posttrain(pt, pipe, params, ft, data["cal"], data["test"],
+                                     **R["posttrain"])
+    phase(names[1], state2.ema_params, Q2, 2)
+
+    cfg = BurgersInfFTConfig(**run.seeded(R["BurgersInfFTConfig"]))
+    with run.stage("infft"):
+        state3, Q3, hist3 = inference_finetune(cfg, pipe, state2.ema_params, data["cal"],
+                                               data["test"])
+    phase(names[2], state3.ema_params, Q3, 3)
+    return out, hist, hist3
+
+
 def run_1d_long(scale="full", seed=None, eval_seeds=3, device="cuda", out=None, emit=print,
                 state_dir: Optional[str] = None, pretrain_seconds: Optional[float] = None
                 ) -> dict:
@@ -908,9 +1067,7 @@ def run_1d_long(scale="full", seed=None, eval_seeds=3, device="cuda", out=None, 
     InfFT, evaluate. A pretrain stopped short returns before calibrating,
     with `pretrain_step` in its result and no comparison."""
     from safediffcon_torch.tasks.burgers import (
-        BurgersConformalConfig, BurgersDataset, BurgersInfFTConfig, BurgersPipeline,
-        BurgersPostTrainConfig, BurgersPretrainConfig, generate_burgers_dataset,
-        inference_finetune, posttrain, pretrain)
+        BurgersDataset, BurgersPretrainConfig, generate_burgers_dataset, pretrain)
 
     run = Run("burgers_20k", device, scale, seed, eval_seeds, out, emit)
     R, dev = run.recipe, run.device
@@ -934,59 +1091,139 @@ def run_1d_long(scale="full", seed=None, eval_seeds=3, device="cuda", out=None, 
         return dict(recipe=run.name, pretrain_step=state.step, state_dir=ckpt,
                     stages=run.stages, launches=run.launches)
 
-    conf = BurgersConformalConfig(**R["BurgersConformalConfig"])
-    pipe = BurgersPipeline(conf, **R["BurgersPipeline"], device=dev)
-    pipe.record = {}
-    with run.stage("pretrain_calibrate"):
-        Q = pipe.calibrate(state.ema_params, data["cal"].data, torch.zeros((), device=dev),
-                           generator=run.gen(0))
-    q_pre = run.q_std(pipe, Q, conf.alpha, "alpha")
-    m0s, _ = run.evals("pretrain20k", lambda g: pipe.evaluate(state.ema_params, data["test"], Q,
-                                                              generator=g), 1)
-    run.tick(f"pretrain eval: Q={float(Q):.4f} {json.dumps(m0s[0])}")
-
-    pt = BurgersPostTrainConfig(
-        conformal=BurgersConformalConfig(**R["BurgersPostTrainConfig.conformal"]),
-        **run.seeded(R["BurgersPostTrainConfig"]))
-    ft = BurgersDataset.load(path, "train", **R["BurgersDataset.load"])
-    with run.stage("posttrain"):
-        state2, Q2, hist = posttrain(pt, pipe, state.ema_params, ft, data["cal"], data["test"],
-                                     **R["posttrain"])
-    q_post = run.q_std(pipe, Q2, conf.alpha, "alpha")
-    m1s, _ = run.evals("posttrain", lambda g: pipe.evaluate(state2.ema_params, data["test"], Q2,
-                                                            generator=g), 2)
-    run.tick(f"posttrain eval: Q={float(Q2):.4f} {json.dumps(m1s[0])}")
-
-    cfg = BurgersInfFTConfig(**run.seeded(R["BurgersInfFTConfig"]))
-    with run.stage("infft"):
-        state3, Q3, hist3 = inference_finetune(cfg, pipe, state2.ema_params, data["cal"],
-                                               data["test"])
-    q_ft = run.q_std(pipe, Q3, conf.alpha, "alpha")
-    m2s, _ = run.evals("posttrain_infft", lambda g: pipe.evaluate(state3.ema_params, data["test"],
-                                                                  Q3, generator=g), 3)
-    run.tick(f"posttrain+InfFT eval: Q={float(Q3):.4f} {json.dumps(m2s[0])}")
-    summary = {"pretrain20k": m0s[0], "posttrain": m1s[0], "posttrain_infft": m2s[0],
-               "Q": [float(Q), float(Q2), float(Q3)]}
+    names = ("pretrain20k", "posttrain", "posttrain_infft")
+    res, hist, hist3 = burgers_fine_tuning(run, path, data, state.ema_params, names)
     j = run.jax
-    phases = [Phase("pretrain20k", m0s, float(Q), q_pre, j["pretrain20k"], j["Q"][0]),
-              Phase("posttrain", m1s, float(Q2), q_post, j["posttrain"], j["Q"][1]),
-              Phase("posttrain_infft", m2s, float(Q3), q_ft, j["posttrain_infft"], j["Q"][2])]
+    phases = [Phase(n, ms, Q, q_std, j[n], j["Q"][i]) for i, (n, Q, q_std, ms) in enumerate(res)]
+    summary = {"pretrain20k": res[0][3][0], "posttrain": res[1][3][0],
+               "posttrain_infft": res[2][3][0], "Q": [r[1] for r in res]}
     return run.finish(summary, phases, HEADLINE["burgers_20k"], len(data["test"]),
                       sign_pairs=[(phases[0], phases[1]), (phases[1], phases[2])],
                       extra=dict(posttrain_history=hist, infft_history=hist3,
                                  state_dir=ckpt))
 
 
+def run_1d_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
+                    emit=print) -> dict:
+    """experiments/run_1d_refscale.py at its round-2 size (ROUND2): Burgers
+    datagen of 40,000 + 1,000 + 50, pretrain of the turbo UNet2D in bf16 at
+    batch 16 and lr 1e-5 for 50,000 steps (checkpoints under `out`),
+    calibrate + evaluate, posttrain 5 x 3,200 at batch 32, evaluate, InfFT,
+    evaluate."""
+    from safediffcon_torch.tasks.burgers import (
+        BurgersDataset, BurgersPretrainConfig, generate_burgers_dataset, pretrain)
+
+    run = Run("burgers_refscale", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    path = str(run.out / "burgers_ref.npz")
+    with run.stage("datagen"):
+        generate_burgers_dataset(path, **R["generate_burgers_dataset"], device=dev)
+    data = {s: BurgersDataset.load(path, s) for s in ("train", "cal", "test")}
+    run.tick(f"dataset generated ({sum(len(d) for d in data.values())})")
+
+    pre = BurgersPretrainConfig(**run.seeded(R["BurgersPretrainConfig"]))
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **run.in_out(R["pretrain"]), device=dev)
+    run.tick(f"pretrain {state.step} steps done")
+
+    names = ("pretrain", "posttrain", "infft")
+    res, hist, hist3 = burgers_fine_tuning(run, path, data, state.ema_params, names)
+    j = run.jax
+    phases = [Phase(n, ms, Q, q_std, j[f"{n}_eval"], j[f"Q_{n}"]) for n, Q, q_std, ms in res]
+    summary = {"pretrain_steps": R["pretrain"]["num_steps"]}
+    for n, Q, _, ms in res:
+        summary[f"{n}_eval"], summary[f"Q_{n}"] = ms[0], Q
+    return run.finish(summary, phases, HEADLINE["burgers_refscale"], len(data["test"]),
+                      sign_pairs=[(phases[0], phases[1]), (phases[1], phases[2])],
+                      extra=dict(posttrain_history=hist, infft_history=hist3))
+
+
+def run_tokamak_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
+                         emit=print) -> dict:
+    """experiments/run_tokamak_refscale.py as it ran for round 2 (ROUND2):
+    closed-loop datagen of 48,950 + 1,000 + 50, pretrain of the turbo UNet1D
+    in bf16 at batch 32 for 20,000 steps (checkpoints under `out`),
+    calibrate + evaluate at `posttrain_config()`'s conformal settings,
+    post-training (`posttrain_config()`, 8 epochs), then the backward
+    fine-tune (`finetune_config()`, 5 epochs on the test set) from the
+    posttrained weights on a pipeline whose calibration weights carry the
+    posttrain Q-hat's composite factor. The posttrain and fine-tune values
+    are each phase's last epoch's evaluation, then the extra eval seeds."""
+    from safediffcon_torch.tasks.tokamak import (
+        TokamakDataset, TokamakPipeline, TokamakPretrainConfig, finetune_config,
+        generate_tokamak_dataset, posttrain_config, pretrain, run_inference)
+
+    run = Run("tokamak_refscale", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    path = str(run.out / "tok_ref.npz")
+    with run.stage("datagen"):
+        generate_tokamak_dataset(path, **R["generate_tokamak_dataset"], device=dev)
+    data = {s: TokamakDataset.load(path, s) for s in ("train", "cal", "test")}
+    run.tick(f"splits loaded: {', '.join(f'{s}={len(d)}' for s, d in data.items())}")
+
+    pre = TokamakPretrainConfig(**run.seeded(R["TokamakPretrainConfig"]))
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **run.in_out(R["pretrain"]), device=dev)
+    run.tick(f"pretrain {state.step} steps done")
+
+    def fine_tune(name, cfg, pipe, params):
+        """run_inference, then the extra eval seeds on its weights and Q-hat."""
+        pipe.record = {}
+        with run.stage(name):
+            params, Q, hist = run_inference(cfg, pipe, params, data["train"], data["cal"],
+                                            data["test"])
+        q_std = run.q_std(pipe, Q, cfg.conformal.alpha, "alpha")
+        extra, _ = run.evals(name, lambda g: pipe.evaluate(params, data["test"], Q, generator=g),
+                             None)
+        run.tick(f"{name} done: Q={float(Q):.4f} {json.dumps(hist[-1]['eval'])}")
+        return params, float(Q), q_std, [hist[-1]["eval"]] + extra, hist
+
+    pt = configured(posttrain_config(), run.seeded(R["posttrain_config"]))
+    pipe = TokamakPipeline(pt.conformal, **R["TokamakPipeline"], device=dev)
+    pipe.record = {}
+    with run.stage("pretrain_calibrate"):
+        Q0 = pipe.calibrate(state.ema_params, data["cal"], torch.zeros((), device=dev),
+                            generator=run.gen(0))
+    q0_std = run.q_std(pipe, Q0, pt.conformal.alpha, "alpha")
+    m0s, _ = run.evals("pretrain", lambda g: pipe.evaluate(state.ema_params, data["test"], Q0,
+                                                           generator=g), 1)
+    run.tick(f"pretrain eval: Q={float(Q0):.4f} {json.dumps(m0s[0])}")
+    params_pt, Q_pt, q_pt_std, m1s, hist_pt = fine_tune("posttrain", pt, pipe, state.ema_params)
+    del pipe, state
+
+    ft = configured(finetune_config(), run.seeded(R["finetune_config"]))
+    computed = {"finetune_quantile": Q_pt, "finetune_w_obj": pt.conformal.w_obj,
+                "finetune_w_safe": pt.conformal.w_safe,
+                "finetune_guidance_scaler": pt.conformal.guidance_scaler}
+    conformal = {k: computed[k] if isinstance(v, ScriptExpr) else v
+                 for k, v in R["replace.conformal"].items()}
+    ft = dataclasses.replace(ft, conformal=dataclasses.replace(ft.conformal, **conformal))
+    pipe_ft = TokamakPipeline(ft.conformal, **R["TokamakPipeline"], device=dev)
+    _, Q_ft, q_ft_std, m2s, hist_ft = fine_tune("finetune", ft, pipe_ft, params_pt)
+
+    summary = {"pretrain_eval": m0s[0], "Q_pretrain": float(Q0),
+               "posttrain_history": hist_pt, "posttrain_eval": m1s[0], "Q_posttrain": Q_pt,
+               "finetune_history": hist_ft, "finetune_eval": m2s[0], "Q_finetune": Q_ft}
+    j = run.jax
+    phases = [Phase("pretrain", m0s, float(Q0), q0_std, j["pretrain_eval"], j["Q_pretrain"]),
+              Phase("posttrain", m1s, Q_pt, q_pt_std, j["posttrain_eval"], j["Q_posttrain"]),
+              Phase("finetune", m2s, Q_ft, q_ft_std, j["finetune_eval"], j["Q_finetune"])]
+    return run.finish(summary, phases, HEADLINE["tokamak_refscale"], len(data["test"]),
+                      sign_pairs=[(phases[0], phases[1]), (phases[1], phases[2])],
+                      extra=dict(finetune_conformal=dataclasses.asdict(ft.conformal)))
+
+
 RUNS = {"burgers": run_1d_validation, "burgers_infft": run_1d_infft_validation,
         "tokamak": run_tokamak_validation, "smoke": run_2d_validation,
-        "smoke_posttrain": run_2d_posttrain_validation, "burgers_20k": run_1d_long}
+        "smoke_posttrain": run_2d_posttrain_validation, "burgers_20k": run_1d_long,
+        "tokamak_refscale": run_tokamak_refscale, "burgers_refscale": run_1d_refscale}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m safediffcon_torch.experiments.round1",
-        description="The JAX package's round-1 validation runs on the port, held against "
-                    "its recorded results")
+        description="The JAX package's round-1 and reference-scale validation runs on the "
+                    "port, held against its recorded results")
     ap.add_argument("recipe", choices=sorted(RUNS))
     ap.add_argument("--seed", type=int, default=None,
                     help="training seed (default: the configs' own)")

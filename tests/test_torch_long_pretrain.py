@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from tokamak_replay import (  # noqa: F401  (data, flax_params: fixtures)
-    PIPE, SHAPE, data, flax_params, jax_data, sd_from_flax, train_draws,
+    PIPE, data, flax_params, jax_data, pretrain_draws, sd_from_flax,
 )
 from safediffcon_tpu.tasks.tokamak import config as JC
 from safediffcon_tpu.tasks.tokamak import pipeline as JP
@@ -41,13 +41,9 @@ def test_long_pretrain_follows_jax(data, flax_params, monkeypatch, compute_dtype
                          num_steps=STEPS, log_every=1,
                          params=jax.tree_util.tree_map(jnp.asarray, flax_params))
     cfg = TokamakPretrainConfig(**pre)
-    rng, draws = jax.random.PRNGKey(cfg.seed), []
-    for _ in range(STEPS):  # run_train_loop's split, then accumulated_grads' split
-        rng, key = jax.random.split(rng)
-        draws.append(train_draws(jax.random.split(key, 1)[0], SHAPE, 100))
     losses = []
     state = pretrain(cfg, data["train"], num_steps=STEPS, params=sd_from_flax(flax_params),
-                     device="cpu", noise=iter(draws), losses=losses)
+                     device="cpu", noise=pretrain_draws(cfg.seed, STEPS), losses=losses)
     losses = np.array([float(v) for v in losses])
     losses_ref = np.array(losses_ref)
     assert losses.shape == losses_ref.shape == (STEPS,)

@@ -82,7 +82,7 @@ def test_tokamak_sgd_posttrain_epoch_matches_jax(data, flax_params):
         TR.jax_data(cal), TR.jax_data(test))
 
     tp = TokamakPipeline(cfg.conformal, device="cpu", **TR.PIPE)
-    noise = iter(TR._epoch_draws(cfg, backward=False))
+    noise = TR.epoch_draws(cfg, backward=False)
     params, q, hist = run_inference(cfg, tp, TR.sd_from_flax(flax_params), train, cal, test,
                                     noise=noise)
     assert next(noise, None) is None

@@ -40,9 +40,29 @@ def _callee(func) -> str:
 
 
 def _of_interest(name: str) -> bool:
-    return (name.endswith(("Config", "Pipeline")) or name in _FINETUNE_CALLS
+    return (name.endswith(("Config", "Pipeline", "_config")) or name in _FINETUNE_CALLS
             or (name.startswith("generate_") and name.endswith("_dataset"))
-            or name.endswith("Dataset.load"))
+            or name.endswith("Dataset.load") or name == "replace")
+
+
+def _constants(tree) -> dict:
+    """Module-level names bound to a literal, or to an environment
+    variable's default (`int(os.environ.get("X", 200_000))`)."""
+    out = {}
+    for node in tree.body:
+        if not (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)):
+            continue
+        value = node.value
+        if (isinstance(value, ast.Call) and isinstance(value.func, ast.Name)
+                and value.func.id == "int" and len(value.args) == 1
+                and isinstance(value.args[0], ast.Call)
+                and ast.unparse(value.args[0].func) == "os.environ.get"):
+            value = value.args[0].args[1]
+        literal = _literal(value)
+        if literal is not None:
+            out[node.targets[0].id] = literal
+    return out
 
 
 def _literal(node):
@@ -55,11 +75,30 @@ def _literal(node):
     return eval(compile(ast.Expression(node), "<kwarg>", "eval"), {"__builtins__": {}})
 
 
+def _kwarg(node, constants: dict, in_replace: bool):
+    """A keyword argument's value: a literal, a module constant's value, or,
+    in a `dataclasses.replace`, the source text of what the script computes
+    there; None for anything else (a call of interest is recorded on its
+    own)."""
+    literal = _literal(node)
+    if literal is not None:
+        return literal
+    if isinstance(node, ast.Name) and node.id in constants:
+        return constants[node.id]
+    if in_replace and not (isinstance(node, ast.Call) and _of_interest(_callee(node.func))):
+        return ast.unparse(node)
+    return None
+
+
 def script_calls(path: Path) -> dict:
     """{callee: literal keyword arguments} of the calls of interest of a
     script, a list in source order where one callee takes two argument
-    sets; a call that is another's keyword argument is "Outer.keyword"."""
+    sets; a call that is another's keyword argument is "Outer.keyword". A
+    config factory (`posttrain_config()`) counts without arguments too; a
+    name bound at module level to a constant (or an environment variable's
+    default) stands for its value."""
     tree = ast.parse(path.read_text())
+    constants = _constants(tree)
     nested = {}
     for node in ast.walk(tree):
         if isinstance(node, ast.Call):
@@ -73,9 +112,9 @@ def script_calls(path: Path) -> dict:
         name = _callee(node.func)
         if not _of_interest(name):
             continue
-        kwargs = {kw.arg: _literal(kw.value) for kw in node.keywords}
+        kwargs = {kw.arg: _kwarg(kw.value, constants, name == "replace") for kw in node.keywords}
         kwargs = {k: v for k, v in kwargs.items() if v is not None}
-        if not kwargs:
+        if not kwargs and not name.endswith("_config"):
             continue
         key = nested.get(id(node), name)
         sets = found.setdefault(key, [])
@@ -100,7 +139,12 @@ def test_tiny_and_card_settings_change_no_recipe_key():
     for name in R1.RECIPES:
         assert set(R1.TINY[name]) <= set(R1.RECIPES[name])
         assert set(R1.CARD[name]) <= set(R1.RECIPES[name])
-        assert R1.recipe(name, "full", "cpu") == R1.RECIPES[name]
+        round2 = R1.ROUND2.get(name, {})
+        assert set(round2) <= set(R1.RECIPES[name])
+        want = copy.deepcopy(R1.RECIPES[name])
+        for key, kw in round2.items():  # the round-2 overrides; an argument at None is dropped
+            want[key] = {k: v for k, v in {**want[key], **kw}.items() if v is not None}
+        assert R1.recipe(name, "full", "cpu") == want
     for name in ("smoke", "smoke_posttrain"):
         assert R1.recipe(name, "full", "cuda")["SmokePretrainConfig"]["conv_impl"] == "pallas"
     # a list of tiny cuts goes entry by entry: the backward fine-tune keeps its one step
@@ -149,7 +193,7 @@ def check_tiny_run(name, tmp_path, eval_seeds=2):
     headline = R1.HEADLINE[name]
     compares = [x for x in lines if x.startswith("COMPARE ")]
     n_phases = {"burgers": 2, "burgers_infft": 3, "tokamak": 2, "smoke": 1, "smoke_posttrain": 3,
-                "burgers_20k": 3}[name]
+                "burgers_20k": 3, "tokamak_refscale": 3, "burgers_refscale": 3}[name]
     assert len(compares) == n_phases * (len(headline) + 1)
     for row in res["comparison"]:
         assert row["result"] in ("in", "out") and math.isfinite(row["band"])

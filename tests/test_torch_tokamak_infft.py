@@ -14,3 +14,11 @@ torch.set_num_threads(1)
 
 def test_infft_epoch_matches_jax(data, flax_params):
     check_epoch_against_jax(data, flax_params, backward=True)
+
+
+def test_infft_epochs_match_jax(data, flax_params):
+    """Two epochs over the test split in two batches: the key chain across
+    batches and epochs (`tokamak_replay.epoch_draws`, which
+    `tools/tokamak_weight_swap.py` replays too); each value within
+    tokamak_replay.LATER_RTOL."""
+    check_epoch_against_jax(data, flax_params, backward=True, epochs=2, batches=2)

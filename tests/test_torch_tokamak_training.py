@@ -10,8 +10,7 @@ import jax.numpy as jnp
 import torch
 
 from tokamak_replay import (  # noqa: F401  (data, flax_params: fixtures)
-    PIPE, SHAPE, check_epoch_against_jax, data, flax_params, jax_data, sd_from_flax,
-    train_draws,
+    PIPE, check_epoch_against_jax, data, flax_params, jax_data, pretrain_draws, sd_from_flax,
 )
 from safediffcon_tpu.tasks.tokamak import config as JC
 from safediffcon_tpu.tasks.tokamak import pipeline as JP
@@ -34,12 +33,8 @@ def test_pretrain_matches_jax(data, flax_params, monkeypatch):
     jstate = JP.pretrain(JC.TokamakPretrainConfig(**pre), jax_data(data["train"]), num_steps=3,
                          log_every=1, params=jax.tree_util.tree_map(jnp.asarray, flax_params))
     cfg = TokamakPretrainConfig(**pre)
-    rng, draws = jax.random.PRNGKey(cfg.seed), []
-    for _ in range(3):  # run_train_loop's split, then accumulated_grads' split
-        rng, key = jax.random.split(rng)
-        draws.append(train_draws(jax.random.split(key, 1)[0], SHAPE, 100))
     losses = []
-    noise = iter(draws)
+    noise = pretrain_draws(cfg.seed, 3)
     state = pretrain(cfg, data["train"], num_steps=3, params=sd_from_flax(flax_params),
                      device="cpu", noise=noise, losses=losses)
     assert next(noise, None) is None and state.step == 3
@@ -55,3 +50,10 @@ def test_pretrain_matches_jax(data, flax_params, monkeypatch):
 
 def test_posttrain_epoch_matches_jax(data, flax_params):
     check_epoch_against_jax(data, flax_params, backward=False)
+
+
+def test_posttrain_epochs_match_jax(data, flax_params):
+    """Two epochs of two steps: the key chain across steps and epochs
+    (`tokamak_replay.epoch_draws`, which `tools/tokamak_weight_swap.py`
+    replays too); each value within tokamak_replay.LATER_RTOL."""
+    check_epoch_against_jax(data, flax_params, backward=False, epochs=2, batches=2)

@@ -104,7 +104,8 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
       recalibration, then one evaluate, and the same posttrain on an eager
       pipeline (capture=False) for its seconds and peak memory beside the
       captured one's; InfFT_iters 2 (one step at B = 50, calibrate,
-      evaluate); both calibrate on 50 cal sims;
+      evaluate); both calibrate on 50 cal sims, all at DDIM 50 (the
+      configs' 200);
   B7. the samplers beyond DDIM and two-model composition:
       (a) tiny UNet2Ds (dim 16) on the card and on the CPU with the same
           weights and draws, TF32 off: a two-model (prior_beta 0.5) DPM
@@ -117,12 +118,12 @@ mults (1, 2, 4, 8), 3 channels, 140,710,147 parameters, seeded weights):
           steps after one warm-up step;
       (c) BurgersPipeline(two_model=True, prior_beta=0.5), the JAX CLI's
           default beta, with B5's EMA as the main model and (b)'s as the
-          prior, DDIM 50: calibrate on 50 cal sims, guided
+          prior, DDIM 25: calibrate on 50 cal sims, guided
           evaluate on the 50 test sims;
       (d) sampler "dpm", 25 steps, B5's EMA: calibrate on 50 cal sims,
           guided evaluate on the 50 test sims;
       (e) the ancestral sampler through calibrate (ddim_sampling_steps
-          = timesteps, B7_E_T = 250 conditioned steps, the reference's
+          = timesteps, B7_E_T = 100 conditioned steps, the reference's
           1,000 cut for phases 16 and 14) on 50 cal sims;
       ms per step and peak memory of each.
 
@@ -161,9 +162,9 @@ parameters, seeded weights):
   T5. pretraining with the TokamakPretrainConfig defaults (batch 16) for 10
       steps after one warm-up step, the loop's set-up timed apart;
   T6. from T5's EMA: run_inference with posttrain_config() for 1 epoch of
-      1 step at batch 1,000, and with finetune_config() (DDIM 250) for 1
-      epoch of 1 InfFT step at B = 50, each epoch calibrating on 250 of the
-      cal sims in one chunk; peak memory;
+      1 step at batch 1,000, and with finetune_config() for 1 epoch of 1
+      InfFT step at B = 50, both at DDIM 50 (the configs' 200 and 250), each
+      epoch calibrating on 250 of the cal sims in one chunk; peak memory;
   T7. from T5's EMA, sampler "dpm" with 25 steps: calibrate on the 1,000
       cal sims as one chunk, then an unguided evaluate on the 50 test sims;
       ms per step and peak memory.
@@ -248,9 +249,11 @@ round1.py, the port of the JAX package's experiments/run_*_validation.py):
       every distinct conv shape of one forward of the smoke recipe's UNet3D
       (dim 32, mults (1, 2), 4 x 32 frames of 64^2) and of its tiny cut
       (dim 8, 2 x 2 frames of 32^2);
- 14b. the eight recipes (burgers, burgers_infft, tokamak, smoke,
-      smoke_posttrain, burgers_20k, tokamak_refscale, burgers_refscale) at
-      --scale tiny on the card, one
+ 14b. the nine recipes (burgers, burgers_infft, tokamak, smoke,
+      smoke_posttrain, burgers_20k, tokamak_refscale, burgers_refscale,
+      burgers_dpm_refscale: five sampler arms, each calibration's three
+      chunks a warm-up, a capture and a replay as its pipeline counts its
+      graphs) at --scale tiny on the card, one
       evaluation per phase, K1 and K2 counts zeroed before each and read
       after: each SUMMARY has exactly the keys of the JAX run's results JSON
       and finite values, and prints its comparison lines; the two smoke
@@ -259,7 +262,11 @@ round1.py, the port of the JAX package's experiments/run_*_validation.py):
       (bf16), the Burgers and tokamak ones neither.
 
 Depth cut to make room for phase 14: 13(e)'s calibrate at DDIM 10 on 24
-cal sims (DDIM 20 on 50 before).
+cal sims (DDIM 20 on 50 before). For its ninth recipe,
+burgers_dpm_refscale: phase 4's calibrate and evaluate at DDIM 10 (20
+before), B7(c)'s two-model serving at DDIM 25 (50 before), B6's and T6's
+epochs at DDIM 50 (the configs' 200 and 250 before), B7(e)'s ancestral
+calibration at 100 timesteps (250 before).
 
 Depth cut to make room for phase 15: phase 4's calibrate and evaluate at
 DDIM 50 (100 before).
@@ -356,7 +363,7 @@ CG_FLOPS_PER_CELL = 23
 CELLS = 127
 N_CAL, N_TEST = 50, 50  # sims per split (reference: 200 cal, 50 test)
 SERVE_CAL = 10  # cal sims of phase 4's calibrate, to keep the script in its budget
-SERVE_DDIM = 20  # DDIM steps of phase 4 (reference 100; 50 before the refscale recipes)
+SERVE_DDIM = 10  # DDIM steps of phase 4 (reference 100; 50, then 20, before the refscale recipes)
 N_TRAIN = 16  # one pretrain batch (reference: 19,800 train sims)
 GEN_BATCH = 50
 K1_REPS = 20  # timed K1 calls per case
@@ -385,10 +392,11 @@ B_SOLVER_BATCH = 50
 B_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 B_FT_CAL = 50  # cal sims of the fine-tuning phases (reference 1,000; 100 before)
 B4_CAL = 50  # cal sims of B4's and B7(d)'s calibrate (reference 1,000; 100 before)
+B_FT_DDIM = 50  # DDIM steps of B6's epochs (the configs' 200)
 B7_CAL = 50  # cal sims of B7's two-model and ancestral calibrations (reference 1,000)
-B7_DDIM = 50  # DDIM steps of B7(c)'s two-model serving (reference 200; 100 before)
+B7_DDIM = 25  # DDIM steps of B7(c)'s two-model serving (reference 200; 100, then 50, before)
 B7_ANCESTRAL_T = 100  # timesteps of B7(a)'s ancestral chain
-B7_E_T = 250  # timesteps of B7(e)'s ancestral calibration (reference 1,000; 500 before)
+B7_E_T = 100  # timesteps of B7(e)'s ancestral calibration (reference 1,000; 500, then 250, before)
 SMOKE_STEPS = 5  # timed pretrain steps (after one more) and guided DDIM steps of phase 10
 # Tokamak: the reference "turbo" UNet1D; trajectories per split (reference
 # 48,950 train, 1,000 cal, 50 test; the train split cut to what T5-T6 read)
@@ -396,6 +404,7 @@ T_N_TRAIN, T_N_CAL, T_N_TEST = 2048, 1000, 50
 T_BATCH = 50  # test batch (reference)
 T_CAL_CHUNK = 1000  # calibrate the reference's batch of 1,000 as one chunk
 T_FT_CAL = 250  # cal sims of T6's epochs, one chunk (reference 1,000)
+T_FT_DDIM = 50  # DDIM steps of T6's epochs (the configs' 200 and 250)
 T_PRETRAIN_STEPS = 10  # the EMA first moves at step 10
 # Phase 12: the command line's scratch directory (under the gitignored build/),
 # its splits (train, cal, test) for Burgers and tokamak and for smoke, smoke
@@ -1375,7 +1384,7 @@ def phase_burgers_finetune(burgers, data, params):
     from safediffcon_torch.tasks.burgers.pipeline import infft_step, make_train_state
     from safediffcon_torch.core.train import make_optimizer
 
-    cut = dict(cal_batch_size=B_FT_CAL, num_cal_batch=1)
+    cut = dict(cal_batch_size=B_FT_CAL, num_cal_batch=1, ddim_sampling_steps=B_FT_DDIM)
     cal, test, train = data["cal"], data["test"], data["train"]
     out = {}
     for name in ("posttrain", "infft"):
@@ -2084,9 +2093,9 @@ def phase_tokamak_pretrain(tokamak, data):
 
 def phase_tokamak_finetune(tokamak, data, params):
     """T6: from T5's EMA, run_inference with posttrain_config() for 1 epoch
-    of 1 step at batch 1,000, and with finetune_config() (DDIM 250) for 1
-    epoch of 1 InfFT step at B = 50; each epoch calibrates on T_FT_CAL cal
-    sims in one chunk. InfFT's loss relu(threshold - min q95 + Q) has no
+    of 1 step at batch 1,000, and with finetune_config() for 1 epoch of 1
+    InfFT step at B = 50, both at DDIM T_FT_DDIM; each epoch calibrates on
+    T_FT_CAL cal sims in one chunk. InfFT's loss relu(threshold - min q95 + Q) has no
     gradient where the sample's x0 estimate of q95 sits at the clip, as with
     barely trained weights; one more InfFT step with w_obj 1 (the βp and li
     objective) must then move the weights."""
@@ -2094,8 +2103,10 @@ def phase_tokamak_finetune(tokamak, data, params):
 
     cal, test, train = data["cal"], data["test"], data["train"]
     cal = tokamak.TokamakDataset(data=cal.data[:T_FT_CAL], state_phys=cal.state_phys[:T_FT_CAL])
-    runs = {"posttrain": dataclasses.replace(tokamak.posttrain_config(), finetune_epoch=1),
-            "infft": dataclasses.replace(tokamak.finetune_config(), finetune_epoch=1)}
+    runs = {name: dataclasses.replace(cfg, finetune_epoch=1, conformal=dataclasses.replace(
+                cfg.conformal, ddim_sampling_steps=T_FT_DDIM))
+            for name, cfg in (("posttrain", tokamak.posttrain_config()),
+                              ("infft", tokamak.finetune_config()))}
     out = {}
     for name, cfg in runs.items():
         pipe = tokamak.TokamakPipeline(cfg.conformal, cal_chunk=T_CAL_CHUNK, device="cuda")
@@ -2868,7 +2879,7 @@ def _key_structure(x):
 
 
 def phase_round1(K, C) -> dict:
-    """14: the eight recipes of the validation runner (`python -m
+    """14: the nine recipes of the validation runner (`python -m
     safediffcon_torch.experiments.round1 <recipe> --scale tiny`) on the
     card, K1 and K2 counts zeroed before each and read after; K2 in bf16
     first held against its plain version at the tiny smoke model's conv
@@ -2906,6 +2917,17 @@ def phase_round1(K, C) -> dict:
             raise AssertionError(f"14 {name}: a SUMMARY value is not finite: {res['summary']}")
         if sum(x.startswith("COMPARE ") for x in lines) != len(res["comparison"]):
             raise AssertionError(f"14 {name}: the comparison lines are missing")
+        if name == "burgers_dpm_refscale":
+            # each few-step arm's FEWSTEP line; as each arm's pipeline counted
+            # its graphs: the calibration's three chunks a warm-up, a capture
+            # and a replay, the evaluation's eval seeds likewise
+            n = R1_EVAL_SEEDS
+            route = dict(calibrate=dict(graphs=1, replays=1),
+                         evaluate=dict(graphs=int(n > 1), replays=max(n - 2, 0)))
+            if (sum(x.startswith("FEWSTEP ") for x in lines) != len(res["summary"]) - 1
+                    or sum(x.startswith("ROUTE ") for x in lines) != len(res["summary"])
+                    or any(r != route for r in res["routes"].values())):
+                raise AssertionError(f"14 {name}: FEWSTEP or ROUTE lines wrong: {res['routes']}")
         runs[name] = dict(seconds=time.perf_counter() - t, launches=counts,
                           stages=res["stages"], per_stage=res["launches"])
         k2_total = sum(counts["k2"].values()) + counts["k2_simt"]

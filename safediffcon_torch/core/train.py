@@ -605,6 +605,14 @@ class Graphs:
             self.calls[key] = StaticCall(self.device, self.pool)
         return self.calls[key](fn, **inputs)
 
+    def counts(self) -> Dict[str, int]:
+        """What the calls since `clear` ran as: `graphs` captured (a call
+        whose signature came once ran eagerly, as its warm-up) and the
+        `replays` after each capture."""
+        past = [c.calls - c.warm_calls for sc in self.calls.values()
+                for _, c in sc.graphs.values() if c.calls > c.warm_calls]
+        return dict(graphs=len(past), replays=sum(n - 1 for n in past))
+
     def clear(self) -> None:
         self.calls.clear()
         self._pool = None

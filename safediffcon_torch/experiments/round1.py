@@ -4,23 +4,25 @@ the port, held against the JAX package's recorded results.
 Port of `experiments/run_1d_validation.py`, `run_1d_infft_validation.py`,
 `run_tokamak_validation.py`, `run_2d_validation.py`,
 `run_2d_posttrain_validation.py`, `run_1d_long.py`,
-`run_tokamak_refscale.py` and `run_1d_refscale.py`: datagen, pretrain,
-calibrate and evaluate, then posttrain, InfFT or the smoke and tokamak
-backward fine-tunes, with each script's own arguments (the recipe dicts
+`run_tokamak_refscale.py`, `run_1d_refscale.py` and
+`run_1d_dpm_refscale_r4.py`: datagen, pretrain, calibrate and evaluate,
+then posttrain, InfFT or the smoke and tokamak backward fine-tunes (or, in
+`burgers_dpm_refscale`, calibrate and evaluate under five samplers), with each script's own arguments (the recipe dicts
 below; the two reference-scale scripts with the overrides that make them
 the runs of their round-2 results, ROUND2), through the port's entry
 points:
 
     python -m safediffcon_torch.experiments.round1
         {burgers,burgers_infft,tokamak,smoke,smoke_posttrain,burgers_20k,
-         tokamak_refscale,burgers_refscale}
+         tokamak_refscale,burgers_refscale,burgers_dpm_refscale}
         [--seed S] [--eval-seeds N] [--device cuda|cpu] [--scale full|tiny] [--out DIR]
         [--state-dir DIR] [--pretrain-seconds S]
 
 Each run prints the JAX script's `SUMMARY {...}` line (its keys and metric
 names), then the comparison with the JAX run's committed results
 (`experiments/validation_*_round1.json`, `validation_tokamak_refscale_round2.json`,
-`validation_1d_refscale_round2.json`, read as data):
+`validation_1d_refscale_round2.json`, `validation_1d_dpm_round4.json`, read
+as data):
 
     COMPARE <phase> <metric>: port <mean> +- <across-seed std> | jax <value>
             | band <b> | in/out
@@ -97,6 +99,12 @@ REPO = Path(__file__).resolve().parents[2]
 # config built as another config's keyword argument is "Outer.keyword".
 # ---------------------------------------------------------------------------
 
+class ScriptExpr(str):
+    """A keyword argument the script computes at run time (a `for` loop's
+    variable, too), as its source text (it equals that text); the runner
+    computes the same value."""
+
+
 BURGERS = {
     "generate_burgers_dataset": dict(n_train=20000, n_cal=1000, n_test=50, seed=0),
     "BurgersPretrainConfig": dict(dim=128, batch_size=16, lr=1e-4, checkpoint_every=10**9,
@@ -118,7 +126,8 @@ BURGERS_INFFT = {
     "pretrain": dict(num_steps=2500, log_every=500),
     "BurgersConformalConfig": dict(w_score=500.0),
     # the dtype check's pipeline (compute_dtype per dtype), then InfFT's
-    "BurgersPipeline": [dict(dim=128), dict(dim=128, compute_dtype="bfloat16")],
+    "BurgersPipeline": [dict(dim=128, compute_dtype=ScriptExpr("dt")),
+                        dict(dim=128, compute_dtype="bfloat16")],
     "BurgersInfFTConfig": dict(InfFT_iters=3, finetune_lr=1e-5),
 }
 DTYPE_CHECK = ("bfloat16", "float32")
@@ -181,11 +190,6 @@ BURGERS_20K = {
     "BurgersInfFTConfig": dict(InfFT_iters=3, finetune_lr=1e-5),
 }
 
-class ScriptExpr(str):
-    """A keyword argument the script computes at run time, as its source
-    text (it equals that text); the runner computes the same value."""
-
-
 # The reference-scale scripts as they stand; ROUND2 below turns each into
 # the run that wrote its round-2 results.
 TOKAMAK_REFSCALE = {
@@ -228,6 +232,23 @@ BURGERS_REFSCALE = {
     "BurgersInfFTConfig": dict(InfFT_iters=3, finetune_lr=1e-5),
 }
 
+# experiments/run_1d_dpm_refscale_r4.py: burgers_refscale's round-2 EMA
+# (its datagen and pretrain, ROUND2's 50,000 steps) calibrated and evaluated
+# under five samplers, one pipeline each; N_SEEDS is DPM_EVAL_SEEDS' default
+BURGERS_DPM_REFSCALE = {
+    "variants": [("ddim", 200), ("ddim", 20), ("ddim", 50), ("dpm", 50), ("dpm", 20)],
+    "N_SEEDS": 3,
+    "generate_burgers_dataset": dict(n_train=40000, n_cal=1000, n_test=50, seed=0),
+    "BurgersConformalConfig": dict(sampler=ScriptExpr("sampler"),
+                                   ddim_sampling_steps=ScriptExpr("steps")),
+    "BurgersPipeline": dict(dim=128, compute_dtype="bfloat16"),
+}
+# its calls' positional arguments: calibrate(params, cal, 0.0, PRNGKey(0)),
+# then evaluate(..., PRNGKey(5000 + s)) for s < N_SEEDS
+DPM_CALIBRATE_Q, DPM_CALIBRATE_KEY, DPM_EVAL_KEY_BASE = 0.0, 0, 5000
+# which arm's J the few-step arms' are held against (FEWSTEP lines)
+DPM_BASELINE = "ddim200"
+
 # What the scripts were when their round-2 results were written (None: the
 # argument was not passed). The tokamak JSON was committed at 14357c1 from
 # the script of 3dfca3d: TOK_PRETRAIN_STEPS defaulted to 20,000, checkpoints
@@ -243,7 +264,8 @@ ROUND2 = {
 
 RECIPES = {"burgers": BURGERS, "burgers_infft": BURGERS_INFFT, "tokamak": TOKAMAK,
            "smoke": SMOKE, "smoke_posttrain": SMOKE_POSTTRAIN, "burgers_20k": BURGERS_20K,
-           "tokamak_refscale": TOKAMAK_REFSCALE, "burgers_refscale": BURGERS_REFSCALE}
+           "tokamak_refscale": TOKAMAK_REFSCALE, "burgers_refscale": BURGERS_REFSCALE,
+           "burgers_dpm_refscale": BURGERS_DPM_REFSCALE}
 SCRIPTS = {"burgers": "experiments/run_1d_validation.py",
            "burgers_infft": "experiments/run_1d_infft_validation.py",
            "tokamak": "experiments/run_tokamak_validation.py",
@@ -251,7 +273,8 @@ SCRIPTS = {"burgers": "experiments/run_1d_validation.py",
            "smoke_posttrain": "experiments/run_2d_posttrain_validation.py",
            "burgers_20k": "experiments/run_1d_long.py",
            "tokamak_refscale": "experiments/run_tokamak_refscale.py",
-           "burgers_refscale": "experiments/run_1d_refscale.py"}
+           "burgers_refscale": "experiments/run_1d_refscale.py",
+           "burgers_dpm_refscale": "experiments/run_1d_dpm_refscale_r4.py"}
 JAX_RESULTS = {"burgers": "experiments/validation_1d_round1.json",
                "burgers_infft": "experiments/validation_1d_infft_round1.json",
                "tokamak": "experiments/validation_tokamak_round1.json",
@@ -259,7 +282,8 @@ JAX_RESULTS = {"burgers": "experiments/validation_1d_round1.json",
                "smoke_posttrain": "experiments/validation_2d_posttrain_round1.json",
                "burgers_20k": "experiments/validation_1d_20k_round1.json",
                "tokamak_refscale": "experiments/validation_tokamak_refscale_round2.json",
-               "burgers_refscale": "experiments/validation_1d_refscale_round2.json"}
+               "burgers_refscale": "experiments/validation_1d_refscale_round2.json",
+               "burgers_dpm_refscale": "experiments/validation_1d_dpm_round4.json"}
 
 # Settings of the full-scale runs on the card (module docstring).
 CARD = {
@@ -271,6 +295,7 @@ CARD = {
     "burgers_20k": {"BurgersPipeline": dict(cal_chunk=250)},
     "tokamak_refscale": {"TokamakPipeline": dict(cal_chunk=1000)},
     "burgers_refscale": {"BurgersPipeline": dict(cal_chunk=250)},
+    "burgers_dpm_refscale": {"BurgersPipeline": dict(cal_chunk=250)},
 }
 
 # --scale tiny: counts and widths cut, merged over the recipe (a dict over
@@ -356,6 +381,14 @@ TINY = {
         "BurgersPostTrainConfig.conformal": _TINY_BURGERS_CONF,
         "BurgersDataset.load": dict(subset=16),
     },
+    "burgers_dpm_refscale": {
+        # five arms still, each sampler at fewer steps
+        "variants": [("ddim", 20), ("ddim", 10), ("ddim", 15), ("dpm", 15), ("dpm", 10)],
+        "generate_burgers_dataset": dict(n_train=40, n_cal=12, n_test=4),
+        # three calibration chunks: a captured calibration's warm-up, capture, replay
+        "BurgersConformalConfig": dict(cal_batch_size=4, num_cal_batch=3),
+        "BurgersPipeline": dict(dim=8, dim_mults=(1, 2)),
+    },
 }
 
 # Headline metrics: (name, kind, per-sample std key); kind "mean", "ratio"
@@ -376,7 +409,7 @@ HEADLINE = {
 }
 HEADLINE.update(burgers_infft=HEADLINE["burgers"], burgers_20k=HEADLINE["burgers"],
                 smoke_posttrain=HEADLINE["smoke"], tokamak_refscale=HEADLINE["tokamak"],
-                burgers_refscale=HEADLINE["burgers"])
+                burgers_refscale=HEADLINE["burgers"], burgers_dpm_refscale=HEADLINE["burgers"])
 N_BOOTSTRAP = 200
 EVAL_SEED_BASE = 1000
 
@@ -384,14 +417,19 @@ EVAL_SEED_BASE = 1000
 def recipe(name: str, scale: str = "full", device="cuda") -> dict:
     """The recipe of run `name` with its round-2 overrides (ROUND2; an
     argument set to None is dropped), the tiny cuts (`scale` "tiny") and the
-    card's settings (a CUDA `device`) merged in."""
+    card's settings (a CUDA `device`) merged in: a dict of keyword arguments
+    over the recipe's, a list of them entry by entry, anything else (a
+    value, a list of values) in place of the recipe's."""
     out = copy.deepcopy(RECIPES[name])
     merged = [ROUND2.get(name, {})] + ([TINY[name]] if scale == "tiny" else [])
     if torch.device(device).type == "cuda":
         merged.append(CARD[name])
     for extra in merged:
         for key, kw in extra.items():
-            if isinstance(kw, list):
+            if not isinstance(kw, (dict, list)) or (
+                    isinstance(kw, list) and not all(isinstance(k, dict) for k in kw)):
+                out[key] = copy.deepcopy(kw)  # a value, or a list of values
+            elif isinstance(kw, list):
                 out[key] = [{**d, **k} for d, k in zip(out[key], kw)]
             elif isinstance(out[key], list):
                 out[key] = [{**d, **kw} for d in out[key]]
@@ -1103,6 +1141,32 @@ def run_1d_long(scale="full", seed=None, eval_seeds=3, device="cuda", out=None, 
                                  state_dir=ckpt))
 
 
+def burgers_refscale_pretrain(run: "Run", checkpoints: bool = True):
+    """`burgers_refscale`'s datagen (the run's own `generate_burgers_dataset`
+    arguments, the same in both recipes) and its pretrain at the run's scale
+    and device (the turbo UNet2D in bf16 at batch 16 and lr 1e-5, ROUND2's
+    50,000 steps); with `checkpoints`, its checkpoints under the run's
+    output directory, else none (the state stays in memory). Returns the
+    data's path, its splits and the pretrained state."""
+    from safediffcon_torch.tasks.burgers import (
+        BurgersDataset, BurgersPretrainConfig, generate_burgers_dataset, pretrain)
+
+    R, dev = recipe("burgers_refscale", run.scale, run.device), run.device
+    path = str(run.out / "burgers_ref.npz")
+    with run.stage("datagen"):
+        generate_burgers_dataset(path, **run.recipe["generate_burgers_dataset"], device=dev)
+    data = {s: BurgersDataset.load(path, s) for s in ("train", "cal", "test")}
+    run.tick(f"dataset generated ({sum(len(d) for d in data.values())})")
+
+    pre = BurgersPretrainConfig(**run.seeded(R["BurgersPretrainConfig"]))
+    kw = (run.in_out(R["pretrain"]) if checkpoints else
+          {k: v for k, v in R["pretrain"].items() if k not in ("checkpoint_dir", "resume_dir")})
+    with run.stage("pretrain"):
+        state = pretrain(pre, data["train"], **kw, device=dev)
+    run.tick(f"pretrain {state.step} steps done")
+    return path, data, state
+
+
 def run_1d_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
                     emit=print) -> dict:
     """experiments/run_1d_refscale.py at its round-2 size (ROUND2): Burgers
@@ -1110,32 +1174,91 @@ def run_1d_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", out=No
     batch 16 and lr 1e-5 for 50,000 steps (checkpoints under `out`),
     calibrate + evaluate, posttrain 5 x 3,200 at batch 32, evaluate, InfFT,
     evaluate."""
-    from safediffcon_torch.tasks.burgers import (
-        BurgersDataset, BurgersPretrainConfig, generate_burgers_dataset, pretrain)
-
     run = Run("burgers_refscale", device, scale, seed, eval_seeds, out, emit)
-    R, dev = run.recipe, run.device
-    path = str(run.out / "burgers_ref.npz")
-    with run.stage("datagen"):
-        generate_burgers_dataset(path, **R["generate_burgers_dataset"], device=dev)
-    data = {s: BurgersDataset.load(path, s) for s in ("train", "cal", "test")}
-    run.tick(f"dataset generated ({sum(len(d) for d in data.values())})")
-
-    pre = BurgersPretrainConfig(**run.seeded(R["BurgersPretrainConfig"]))
-    with run.stage("pretrain"):
-        state = pretrain(pre, data["train"], **run.in_out(R["pretrain"]), device=dev)
-    run.tick(f"pretrain {state.step} steps done")
+    path, data, state = burgers_refscale_pretrain(run)
 
     names = ("pretrain", "posttrain", "infft")
     res, hist, hist3 = burgers_fine_tuning(run, path, data, state.ema_params, names)
     j = run.jax
     phases = [Phase(n, ms, Q, q_std, j[f"{n}_eval"], j[f"Q_{n}"]) for n, Q, q_std, ms in res]
-    summary = {"pretrain_steps": R["pretrain"]["num_steps"]}
+    summary = {"pretrain_steps": run.recipe["pretrain"]["num_steps"]}
     for n, Q, _, ms in res:
         summary[f"{n}_eval"], summary[f"Q_{n}"] = ms[0], Q
     return run.finish(summary, phases, HEADLINE["burgers_refscale"], len(data["test"]),
                       sign_pairs=[(phases[0], phases[1]), (phases[1], phases[2])],
                       extra=dict(posttrain_history=hist, infft_history=hist3))
+
+
+def run_1d_dpm_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
+                        emit=print) -> dict:
+    """experiments/run_1d_dpm_refscale_r4.py: `burgers_refscale`'s datagen
+    and round-2 pretrain (50,000 steps; the EMA kept in memory, no
+    checkpoint), then per sampler arm (`variants`: DDIM 200, stochastic DDIM
+    20 and 50, DPM-Solver++ 2M at 50 and 20) a pipeline of that sampler that
+    calibrates the EMA at Q = 0 and evaluates it over the eval seeds (the
+    script's keys 5000 + s). Per arm the JAX run's J, R_p, R_s, R_t and
+    Q-hat are compared (COMPARE), each few-step arm's J minus DDIM 200's
+    set beside JAX's (FEWSTEP), and the route its calls took printed
+    (ROUTE: the graphs the pipeline captured and replayed in each)."""
+    from safediffcon_torch.tasks.burgers import BurgersConformalConfig, BurgersPipeline
+
+    run = Run("burgers_dpm_refscale", device, scale, seed, eval_seeds, out, emit)
+    R, dev = run.recipe, run.device
+    _, data, state = burgers_refscale_pretrain(run, checkpoints=False)
+    params = state.ema_params
+    del state
+    results, phases, routes = {}, [], {}
+    # each arm under its JAX result's name (at --scale tiny: fewer steps)
+    for (sampler, steps), (s0, n0) in zip(R["variants"], BURGERS_DPM_REFSCALE["variants"]):
+        key = f"{s0}{n0}"
+        conf = BurgersConformalConfig(**{**R["BurgersConformalConfig"], "sampler": sampler,
+                                         "ddim_sampling_steps": steps})
+        pipe = BurgersPipeline(conf, **R["BurgersPipeline"], device=dev)
+        pipe.record = {}
+        with run.stage(f"{key}_calibrate"):
+            Q = pipe.calibrate(params, data["cal"].data, torch.full((), DPM_CALIBRATE_Q,
+                                                                      device=dev),
+                               generator=run.gen(DPM_CALIBRATE_KEY))
+        q_std = run.q_std(pipe, Q, conf.alpha, "alpha")
+        routes[key] = {"calibrate": pipe.graphs.counts()}
+        pipe.graphs.clear()
+        ms, times = [], []
+        for s in range(run.eval_seeds):
+            t = time.perf_counter()
+            with run.stage(f"{key}_evaluate"):
+                ms.append(pipe.evaluate(params, data["test"], Q,
+                                        generator=run.gen(DPM_EVAL_KEY_BASE + s)))
+            times.append(time.perf_counter() - t)
+            run.tick(f"{key} seed {s}: {json.dumps(ms[-1])}")
+        routes[key]["evaluate"] = pipe.graphs.counts()
+        del pipe
+        emit(f"ROUTE {key}: " + ", ".join(
+            f"{k} {v['graphs']} graphs captured, {v['replays']} replays"
+            for k, v in routes[key].items()))
+        agg = {k: {"mean": float(np.mean([m[k] for m in ms])),
+                   "std": float(np.std([m[k] for m in ms]))} for k in ms[0]}
+        results[key] = {"sampler": sampler, "steps": steps, "Q": float(Q),
+                        "calibrate_s": run.stages[f"{key}_calibrate"], "per_seed": ms,
+                        "agg": agg, "eval_s_first": times[0],
+                        "eval_s_steady": float(np.mean(times[1:])) if len(times) > 1 else None}
+        jax = run.jax[key]
+        phases.append(Phase(key, ms, float(Q), q_std,
+                            {k: v["mean"] for k, v in jax["agg"].items()}, jax["Q"]))
+        run.tick(f"{key}: J={agg['control_mse_mean (J)']['mean']:.5f} Q={float(Q):.4f}")
+    j_name = "control_mse_mean (J)"
+    few = {}
+    base = results[DPM_BASELINE]["agg"][j_name]["mean"]
+    jax_base = run.jax[DPM_BASELINE]["agg"][j_name]["mean"]
+    for key, res in results.items():
+        if key == DPM_BASELINE:
+            continue
+        port = res["agg"][j_name]["mean"] - base
+        jax = run.jax[key]["agg"][j_name]["mean"] - jax_base
+        few[key] = dict(port=port, jax=jax, port_rel=port / base, jax_rel=jax / jax_base)
+        emit(f"FEWSTEP {key} J - {DPM_BASELINE} J: port {port:+.6g} ({port / base:+.1%}) | "
+             f"jax {jax:+.6g} ({jax / jax_base:+.1%})")
+    return run.finish(results, phases, HEADLINE["burgers_dpm_refscale"], len(data["test"]),
+                      extra=dict(fewstep=few, routes=routes))
 
 
 def run_tokamak_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
@@ -1216,7 +1339,8 @@ def run_tokamak_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", o
 RUNS = {"burgers": run_1d_validation, "burgers_infft": run_1d_infft_validation,
         "tokamak": run_tokamak_validation, "smoke": run_2d_validation,
         "smoke_posttrain": run_2d_posttrain_validation, "burgers_20k": run_1d_long,
-        "tokamak_refscale": run_tokamak_refscale, "burgers_refscale": run_1d_refscale}
+        "tokamak_refscale": run_tokamak_refscale, "burgers_refscale": run_1d_refscale,
+        "burgers_dpm_refscale": run_1d_dpm_refscale}
 
 
 def main(argv=None) -> int:

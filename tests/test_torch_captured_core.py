@@ -161,7 +161,8 @@ class _Shard:
 def test_graphs_gate_calls_and_clear(monkeypatch, caplog):
     """`Graphs`: off without `capture` and for a split batch (logged once);
     one StaticCall per kind and per set of tensors written in place, all
-    on one pool; `clear` frees them and the next call takes a new pool."""
+    on one pool; `counts` of graphs captured and replayed; `clear` frees
+    them and the next call takes a new pool."""
     standin.install(monkeypatch)
     assert not Graphs("cpu", False, "p").on(_Shard(1))
     graphs = Graphs("cpu", True, "p")
@@ -182,5 +183,8 @@ def test_graphs_gate_calls_and_clear(monkeypatch, caplog):
     assert float(a[0]) == 3.0 and float(b[0]) == 1.0
     pool = graphs.pool
     assert all(c.pool is pool for c in graphs.calls.values())
+    # a's three calls: warm-up, capture, one replay; b's and other's one call, eager
+    assert graphs.counts() == dict(graphs=1, replays=1)
     graphs.clear()
     assert not graphs.calls and graphs.pool is not pool
+    assert graphs.counts() == dict(graphs=0, replays=0)

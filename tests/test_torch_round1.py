@@ -69,22 +69,24 @@ def _literal(node):
     """The value of a keyword argument made of constants (10**9 included),
     or None where it names a variable or calls something."""
     for sub in ast.walk(node):
-        if not isinstance(sub, (ast.Constant, ast.Tuple, ast.BinOp, ast.UnaryOp, ast.operator,
-                                ast.unaryop, ast.Load)):
+        if not isinstance(sub, (ast.Constant, ast.Tuple, ast.List, ast.BinOp, ast.UnaryOp,
+                                ast.operator, ast.unaryop, ast.Load)):
             return None
     return eval(compile(ast.Expression(node), "<kwarg>", "eval"), {"__builtins__": {}})
 
 
-def _kwarg(node, constants: dict, in_replace: bool):
+def _kwarg(node, constants: dict, in_replace: bool, loop_names=frozenset()):
     """A keyword argument's value: a literal, a module constant's value, or,
-    in a `dataclasses.replace`, the source text of what the script computes
-    there; None for anything else (a call of interest is recorded on its
-    own)."""
+    in a `dataclasses.replace` or for a `for` loop's variable, the source
+    text of what the script computes there; None for anything else (a call
+    of interest is recorded on its own)."""
     literal = _literal(node)
     if literal is not None:
         return literal
     if isinstance(node, ast.Name) and node.id in constants:
         return constants[node.id]
+    if isinstance(node, ast.Name) and node.id in loop_names:
+        return node.id
     if in_replace and not (isinstance(node, ast.Call) and _of_interest(_callee(node.func))):
         return ast.unparse(node)
     return None
@@ -96,9 +98,13 @@ def script_calls(path: Path) -> dict:
     sets; a call that is another's keyword argument is "Outer.keyword". A
     config factory (`posttrain_config()`) counts without arguments too; a
     name bound at module level to a constant (or an environment variable's
-    default) stands for its value."""
+    default) stands for its value, and a `for` loop's variable for its
+    name. A module constant a `for` loop runs over (`for v in NAME`, `for s
+    in range(NAME)`) is recorded under its name."""
     tree = ast.parse(path.read_text())
     constants = _constants(tree)
+    loops = [n for n in ast.walk(tree) if isinstance(n, ast.For)]
+    loop_names = {sub.id for n in loops for sub in ast.walk(n.target) if isinstance(sub, ast.Name)}
     nested = {}
     for node in ast.walk(tree):
         if isinstance(node, ast.Call):
@@ -106,13 +112,21 @@ def script_calls(path: Path) -> dict:
                 if isinstance(kw.value, ast.Call):
                     nested[id(kw.value)] = f"{_callee(node.func)}.{kw.arg}"
     found = {}
+    for n in loops:
+        it = n.iter
+        if (isinstance(it, ast.Call) and isinstance(it.func, ast.Name) and it.func.id == "range"
+                and len(it.args) == 1):
+            it = it.args[0]
+        if isinstance(it, ast.Name) and it.id in constants:
+            found[it.id] = [constants[it.id]]
     calls = sorted((n for n in ast.walk(tree) if isinstance(n, ast.Call)),
                    key=lambda n: (n.lineno, n.col_offset))
     for node in calls:
         name = _callee(node.func)
         if not _of_interest(name):
             continue
-        kwargs = {kw.arg: _kwarg(kw.value, constants, name == "replace") for kw in node.keywords}
+        kwargs = {kw.arg: _kwarg(kw.value, constants, name == "replace", loop_names)
+                  for kw in node.keywords}
         kwargs = {k: v for k, v in kwargs.items() if v is not None}
         if not kwargs and not name.endswith("_config"):
             continue
@@ -133,6 +147,34 @@ def test_dtype_check_equals_the_script():
     loops = [n for n in ast.walk(tree) if isinstance(n, ast.For)
              and isinstance(n.target, ast.Name) and n.target.id == "dt"]
     assert len(loops) == 1 and ast.literal_eval(loops[0].iter) == R1.DTYPE_CHECK
+
+
+def test_dpm_calls_equal_the_script():
+    """run_1d_dpm_refscale_r4.py: calibrate at Q = 0 with PRNGKey(0), evaluate
+    with PRNGKey(5000 + s) for s < N_SEEDS, one pipeline per variant; its
+    datagen is burgers_refscale's."""
+    tree = ast.parse((ROOT / R1.SCRIPTS["burgers_dpm_refscale"]).read_text())
+    calls = {ast.unparse(n.func).split(".")[-1]: n for n in ast.walk(tree)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+             and n.func.attr in ("calibrate", "evaluate")}
+    cal, ev = calls["calibrate"], calls["evaluate"]
+    assert ast.literal_eval(cal.args[2]) == R1.DPM_CALIBRATE_Q
+    assert ast.unparse(cal.args[3]) == "rng"
+    keys = [n for n in ast.walk(tree) if isinstance(n, ast.Assign)
+            and ast.unparse(n.targets[0]) == "rng"]
+    assert [ast.unparse(n.value) for n in keys] == [
+        f"jax.random.PRNGKey({R1.DPM_CALIBRATE_KEY})"]
+    assert ast.unparse(ev.args[3]) == f"jax.random.PRNGKey({R1.DPM_EVAL_KEY_BASE} + s)"
+    loop = next(n for n in ast.walk(tree) if isinstance(n, ast.For)
+                and ast.unparse(n.target) == "s")
+    assert ast.unparse(loop.iter) == "range(N_SEEDS)"
+    assert R1.RECIPES["burgers_dpm_refscale"]["N_SEEDS"] == 3  # the runner's --eval-seeds default
+    assert (R1.RECIPES["burgers_dpm_refscale"]["generate_burgers_dataset"]
+            == R1.RECIPES["burgers_refscale"]["generate_burgers_dataset"])
+    with open(ROOT / R1.JAX_RESULTS["burgers_dpm_refscale"]) as f:
+        arms = json.load(f)
+    assert sorted(arms) == sorted(f"{s}{n}" for s, n in R1.BURGERS_DPM_REFSCALE["variants"])
+    assert R1.DPM_BASELINE in arms
 
 
 def test_tiny_and_card_settings_change_no_recipe_key():
@@ -193,7 +235,8 @@ def check_tiny_run(name, tmp_path, eval_seeds=2):
     headline = R1.HEADLINE[name]
     compares = [x for x in lines if x.startswith("COMPARE ")]
     n_phases = {"burgers": 2, "burgers_infft": 3, "tokamak": 2, "smoke": 1, "smoke_posttrain": 3,
-                "burgers_20k": 3, "tokamak_refscale": 3, "burgers_refscale": 3}[name]
+                "burgers_20k": 3, "tokamak_refscale": 3, "burgers_refscale": 3,
+                "burgers_dpm_refscale": 5}[name]
     assert len(compares) == n_phases * (len(headline) + 1)
     for row in res["comparison"]:
         assert row["result"] in ("in", "out") and math.isfinite(row["band"])

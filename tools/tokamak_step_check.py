@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Does each step of the port's tokamak pretrain still compute what JAX's
+computes once the weights have moved far from their start? The settings of
+`tools/tokamak_weight_swap.py --pretrain-steps 4000 --dim 32 --dtype
+float32` (batch 32, the `tokamak_refscale` recipe's Adam, cosine learning
+rate and EMA, the 1,000 train sims, JAX's key chain replayed): the port
+pretrains 4,000 steps in float32 and keeps its weights every 500; at each
+of those points both frameworks take the loss and its gradient from the
+same weights, on the same batch
+(the first 32 train sims) with that step's draws. A fault in a step shows
+as an error that grows past the float32 rounding of the first points (the
+4e-7 of `tests/test_torch_long_pretrain.py`); a trajectory that parts by
+rounding alone keeps it flat. Printed: one `POINT {...}` line per point
+(the loss's relative difference, the gradient's relative L2 error, the
+worst leaf's largest difference over its largest entry) and a last JSON
+line. It imports JAX, so it is not part of the port:
+
+    JAX_PLATFORMS=cpu python tools/tokamak_step_check.py --data tok_swap.npz \\
+        [--threads 6] [--out r.json]
+"""
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+
+# as the `tokamak_weight_swap.py --pretrain-steps 4000 --dim 32 --dtype float32` run
+STEPS, EVERY, DIM, DTYPE = 4000, 500, 32, "float32"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--data", required=True, help="the swap's tokamak npz (generated if missing)")
+    ap.add_argument("--threads", type=int, default=os.cpu_count() or 1)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    import tokamak_replay as TR
+    from safediffcon_tpu.core import diffusion as JDiff
+    from safediffcon_tpu.core.schedules import make_schedule as j_schedule
+    from safediffcon_tpu.tasks.tokamak import pipeline as JP
+    from safediffcon_tpu.tasks.tokamak.task import train_conditioner as j_cond
+    from safediffcon_torch.core.diffusion import DiffusionConfig, p_losses
+    from safediffcon_torch.core.schedules import make_schedule
+    from safediffcon_torch.models.convert import state_dict_to_flax
+    from safediffcon_torch.tasks.tokamak import (
+        TokamakDataset, TokamakPretrainConfig, generate_tokamak_dataset, pretrain)
+    from safediffcon_torch.tasks.tokamak.pipeline import build_model, init_params
+    from safediffcon_torch.tasks.tokamak.task import train_conditioner
+    from safediffcon_torch.utils.checkpoint import load_checkpoint
+
+    torch.set_num_threads(args.threads)
+    if not os.path.exists(args.data):
+        generate_tokamak_dataset(args.data, n_train=1000, n_cal=1000, n_test=50, seed=0,
+                                 device="cpu")
+    train = TokamakDataset.load(args.data, "train")
+    cfg = TokamakPretrainConfig(dim=DIM, batch_size=32, checkpoint_every=EVERY,
+                                compute_dtype=DTYPE)
+    shape = (cfg.batch_size, 128, 12)
+    net = init_params(build_model(dim=DIM, device="cpu"), seed=cfg.seed)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    tmp = tempfile.TemporaryDirectory()  # the weights every EVERY steps, removed at exit
+    ckpt = tmp.name
+    t0 = time.perf_counter()
+    pretrain(cfg, train, num_steps=STEPS, params=start, device="cpu", checkpoint_dir=ckpt,
+             noise=TR.pretrain_draws(cfg.seed, STEPS, shape, cfg.timesteps))
+    pre_s = time.perf_counter() - t0
+
+    # the loss of one step on both sides, from the same weights, batch and draws
+    jmodel = JP.build_model(DIM, (1, 2, 4, 8), 1, DTYPE)
+    jsched = j_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective)
+    jdcfg = JDiff.DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective)
+    jcond = j_cond()
+
+    @jax.jit
+    def j_value_and_grad(params, batch, t, noise):
+        return jax.value_and_grad(lambda p: JDiff.p_losses(
+            lambda q, x, s: jmodel.apply(q, x, s), p, jsched, jdcfg, batch, t, noise,
+            jcond).mean())(params)
+
+    model = build_model(DIM, compute_dtype=DTYPE, device="cpu")
+    sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective, device="cpu")
+    dcfg = DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective,
+                           beta_schedule=cfg.beta_schedule)
+    cond = train_conditioner()
+    batch = torch.from_numpy(np.ascontiguousarray(train.data[: cfg.batch_size]))
+    draws = TR.pretrain_draws(cfg.seed, STEPS + 1, shape, cfg.timesteps)
+    points = []
+    for step in range(STEPS + 1):
+        t, noise = next(draws)
+        if step % EVERY:
+            continue
+        weights = start if step == 0 else load_checkpoint(ckpt, step)["params"]
+        model.load_state_dict(weights)
+        model.zero_grad()
+        loss_t = p_losses(model, sched, dcfg, batch, t, noise, cond).mean()
+        loss_t.backward()
+        loss = float(loss_t.detach())
+        got = state_dict_to_flax(model, {k: p.grad for k, p in model.named_parameters()})
+        ref_loss, ref = j_value_and_grad(
+            jax.tree_util.tree_map(jnp.asarray, state_dict_to_flax(model, weights)),
+            jnp.asarray(batch.numpy()), jnp.asarray(t.numpy(), jnp.int32),
+            jnp.asarray(noise.numpy()))
+        got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+        num = den = worst = 0.0
+        for path, r in jax.tree_util.tree_flatten_with_path(ref)[0]:
+            r, g = np.asarray(r, np.float64), np.asarray(got[path], np.float64)
+            num += float(((g - r) ** 2).sum())
+            den += float((r ** 2).sum())
+            worst = max(worst, float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30)))
+        point = dict(step=step, loss=[loss, float(ref_loss)],
+                     loss_rel=abs(loss - float(ref_loss)) / abs(float(ref_loss)),
+                     grad_rel_l2=(num / den) ** 0.5, worst_leaf_rel=worst)
+        points.append(point)
+        print("POINT " + json.dumps(point), flush=True)
+    tmp.cleanup()
+    out = json.dumps(dict(steps=STEPS, every=EVERY, dtype=DTYPE,
+                          pretrain_seconds=pre_s, points=points))
+    print(out, flush=True)
+    if args.out:
+        Path(args.out).write_text(out + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

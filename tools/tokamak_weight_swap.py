@@ -10,12 +10,13 @@ the `tokamak_refscale` recipe's settings, on which both frameworks run steps
 of step 0. Both get the same data (the port's `generate_tokamak_dataset`,
 1,000 / 1,000 / 50 sims, seed 0, written to `--data` if missing), the
 `posttrain_config()` conformal settings (DDIM 200, alpha 0.9) with the
-1,000 calibration sims in one batch of chunks of 50, bf16 compute, and
+1,000 calibration sims in one batch of chunks of 50, bf16 compute (float32
+with `--dtype float32`, both U-Nets then in exact float32 on the CPU), and
 JAX's key chain replayed into the port's `noise=` iterators by the helpers
 the parity tests use (`tests/tokamak_replay.py`):
 
   0. with `--pretrain-steps`: the `tokamak_refscale` recipe's pretrain
-     (batch 32, bf16, Adam, the cosine learning rate, the EMA) of both from
+     (batch 32, Adam, the cosine learning rate, the EMA) of both from
      the port's seeded weights: each step's loss, and how far the EMAs
      part against how far they moved;
   1. one UNet1D forward on N(0, 1) input at t = 999, 500, 10: the largest
@@ -36,7 +37,7 @@ It prints one JSON line and writes it to `--out`. It imports JAX and the
 JAX package, so it is not part of the port:
 
     JAX_PLATFORMS=cpu python tools/tokamak_weight_swap.py --dim 32 \\
-        (--weights w.npz | --pretrain-steps N) [--data tok_swap.npz]
+        (--weights w.npz | --pretrain-steps N) [--dtype float32] [--data tok_swap.npz]
         [--posttrain-epochs 1] [--finetune-epochs 1] [--out r.json]
 """
 import argparse
@@ -54,7 +55,6 @@ sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 N_TRAIN = N_CAL = 1000
 CAL_CHUNK = 50
-DTYPE = "bfloat16"
 
 
 def rel(a, b) -> float:
@@ -69,9 +69,13 @@ def main(argv=None) -> int:
     src.add_argument("--pretrain-steps", type=int,
                      help="pretrain both sides this many steps from the same seeded weights")
     ap.add_argument("--dim", type=int, default=128)
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="compute dtype of both frameworks' U-Nets (default bfloat16)")
     ap.add_argument("--data", default=None, help="tokamak npz (generated if missing)")
     ap.add_argument("--posttrain-epochs", type=int, default=0)
     ap.add_argument("--finetune-epochs", type=int, default=0)
+    ap.add_argument("--threads", type=int, default=os.cpu_count() or 1,
+                    help="the port's CPU threads")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -91,7 +95,8 @@ def main(argv=None) -> int:
         finetune_config, generate_tokamak_dataset, posttrain_config, pretrain, run_inference)
     from safediffcon_torch.tasks.tokamak.pipeline import build_model, init_params
 
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(args.threads)
+    DTYPE = args.dtype
     data_path = args.data or str(Path(args.out or "tok_swap.json").with_name("tok_swap.npz"))
     if not os.path.exists(data_path):
         generate_tokamak_dataset(data_path, n_train=N_TRAIN, n_cal=N_CAL, n_test=50, seed=0,

@@ -341,6 +341,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2905,6 +2906,9 @@ def phase_round1(K, C) -> dict:
         zero_k2_counts(C)
         t = time.perf_counter()
         lines = []
+        # from an empty directory: the refscale recipes reuse a data file
+        # they find there, and each run here is to generate its own
+        shutil.rmtree(R1_DIR / name, ignore_errors=True)
         res = R1.RUNS[name](scale="tiny", eval_seeds=R1_EVAL_SEEDS, device="cuda",
                             out=str(R1_DIR / name), emit=lines.append)
         counts = dict(k1=K.pressure_cg_cuda.launches, k2=dict(C.conv3d_fused_cuda.launches),
@@ -2917,6 +2921,8 @@ def phase_round1(K, C) -> dict:
             raise AssertionError(f"14 {name}: a SUMMARY value is not finite: {res['summary']}")
         if sum(x.startswith("COMPARE ") for x in lines) != len(res["comparison"]):
             raise AssertionError(f"14 {name}: the comparison lines are missing")
+        if any(x.split()[:2] != ["DATA", "generated"] for x in lines if x.startswith("DATA ")):
+            raise AssertionError(f"14 {name}: its data were not generated on the card")
         if name == "burgers_dpm_refscale":
             # each few-step arm's FEWSTEP line; as each arm's pipeline counted
             # its graphs: the calibration's three chunks a warm-up, a capture

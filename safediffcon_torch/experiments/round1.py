@@ -43,12 +43,16 @@ evaluated `--eval-seeds` times (the script's draw, then seeds 1001, 1002,
     (score, weight) pairs (numpy seed 0).
 
 `--seed` replaces the training configs' seed (weights, batch order, draws);
-the data keep the scripts' seeds. On the card the full-scale runs take
-settings that change no result's distribution: smoke pretrain on kernel K2
-(conv_impl "pallas", the port of the Pallas conv; JAX's default is its XLA
-conv), and calibration in chunks of a whole calibration batch. `--scale
-tiny` cuts every count and width to seconds of work (the tests' and
-chip_smoke.py's size), not the recipes' shapes of data.
+the data keep the scripts' seeds. The three reference-scale recipes, as
+their scripts do, generate their data file (`<out>/tok_ref.npz`,
+`<out>/burgers_ref.npz`) only when it is missing, and print `DATA
+generated|reused <path> <sha256 of its first MiB>`. On the card the
+full-scale runs take settings that change no result's distribution: smoke
+pretrain on kernel K2 (conv_impl "pallas", the port of the Pallas conv;
+JAX's default is its XLA conv), and calibration in chunks of a whole
+calibration batch. `--scale tiny` cuts every count and width to seconds of
+work (the tests' and chip_smoke.py's size), not the recipes' shapes of
+data.
 
 Each run also prints the seconds and peak device memory of every stage, the
 card's `name, power.limit` (nvidia-smi), and, per stage, the launches of K1
@@ -76,9 +80,11 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import logging
 import math
+import os
 import subprocess
 import sys
 import time
@@ -583,6 +589,35 @@ def _launch_delta(before, after) -> Dict[str, object]:
             "K2_simt": after["K2_simt"] - before["K2_simt"]}
 
 
+def split_shapes(kw: dict, **tails: tuple) -> Dict[str, tuple]:
+    """The npz keys and shapes of a generator's splits: `{split}_{name}`
+    (n, *tail) for n the generator's keyword `n_{split}` in `kw`."""
+    return {f"{s}_{name}": (kw[f"n_{s}"], *tail)
+            for s in ("train", "cal", "test") for name, tail in tails.items()}
+
+
+def data_file(run: "Run", path: str, generate: Callable[[str], None],
+              shapes: Dict[str, tuple]) -> str:
+    """`path`, written by `generate(path)` (in the stage "datagen") only when
+    it is missing, as the reference-scale scripts guard their data; prints
+    `DATA generated|reused <path> <sha256 of its first MiB>`. The file must
+    hold exactly `shapes` ({npz key: shape}, this run's splits): one written
+    at another scale or with other sizes raises."""
+    with run.stage("datagen"):
+        made = not os.path.exists(path)
+        if made:
+            generate(path)
+    with np.load(path) as z:
+        found = {k: z[k].shape for k in z.files}
+    if found != shapes:
+        raise ValueError(f"{path} holds {found}, not this run's {shapes}: it was written at "
+                         f"another scale or with other sizes; remove it or give another --out")
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read(1 << 20)).hexdigest()
+    run.emit(f"DATA {'generated' if made else 'reused'} {path} {digest}")
+    return path
+
+
 class Run:
     """One recipe's run on `device`: stages, the lines it prints, its
     result."""
@@ -593,7 +628,8 @@ class Run:
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.eval_seeds = max(int(eval_seeds), 1)
-        self.out = Path(out) if out else REPO / "build" / "round1" / name
+        self.out = Path(out) if out else REPO / "build" / "round1" / (
+            name if scale == "full" else f"{name}-{scale}")
         self.out.mkdir(parents=True, exist_ok=True)
         self.emit = emit
         self.recipe = recipe(name, scale, device)
@@ -1143,20 +1179,23 @@ def run_1d_long(scale="full", seed=None, eval_seeds=3, device="cuda", out=None, 
 
 def burgers_refscale_pretrain(run: "Run", checkpoints: bool = True):
     """`burgers_refscale`'s datagen (the run's own `generate_burgers_dataset`
-    arguments, the same in both recipes) and its pretrain at the run's scale
-    and device (the turbo UNet2D in bf16 at batch 16 and lr 1e-5, ROUND2's
-    50,000 steps); with `checkpoints`, its checkpoints under the run's
-    output directory, else none (the state stays in memory). Returns the
-    data's path, its splits and the pretrained state."""
+    arguments, the same in both recipes; only when its file is missing) and
+    its pretrain at the run's scale and device (the turbo UNet2D in bf16 at
+    batch 16 and lr 1e-5, ROUND2's 50,000 steps); with `checkpoints`, its
+    checkpoints under the run's output directory, else none (the state stays
+    in memory). Returns the data's path, its splits and the pretrained
+    state."""
     from safediffcon_torch.tasks.burgers import (
         BurgersDataset, BurgersPretrainConfig, generate_burgers_dataset, pretrain)
+    from safediffcon_torch.tasks.burgers import task as BT
 
     R, dev = recipe("burgers_refscale", run.scale, run.device), run.device
-    path = str(run.out / "burgers_ref.npz")
-    with run.stage("datagen"):
-        generate_burgers_dataset(path, **run.recipe["generate_burgers_dataset"], device=dev)
+    kw = run.recipe["generate_burgers_dataset"]
+    path = data_file(run, str(run.out / "burgers_ref.npz"),
+                     lambda p: generate_burgers_dataset(p, **kw, device=dev),
+                     split_shapes(kw, u=(BT.NT, BT.NX), f=(BT.NT - 1, BT.NX)))
     data = {s: BurgersDataset.load(path, s) for s in ("train", "cal", "test")}
-    run.tick(f"dataset generated ({sum(len(d) for d in data.values())})")
+    run.tick(f"splits loaded ({sum(len(d) for d in data.values())})")
 
     pre = BurgersPretrainConfig(**run.seeded(R["BurgersPretrainConfig"]))
     kw = (run.in_out(R["pretrain"]) if checkpoints else
@@ -1264,8 +1303,9 @@ def run_1d_dpm_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", ou
 def run_tokamak_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", out=None,
                          emit=print) -> dict:
     """experiments/run_tokamak_refscale.py as it ran for round 2 (ROUND2):
-    closed-loop datagen of 48,950 + 1,000 + 50, pretrain of the turbo UNet1D
-    in bf16 at batch 32 for 20,000 steps (checkpoints under `out`),
+    closed-loop datagen of 48,950 + 1,000 + 50 (when `<out>/tok_ref.npz` is
+    missing), pretrain of the turbo UNet1D in bf16 at batch 32 for 20,000
+    steps (checkpoints under `out`),
     calibrate + evaluate at `posttrain_config()`'s conformal settings,
     post-training (`posttrain_config()`, 8 epochs), then the backward
     fine-tune (`finetune_config()`, 5 epochs on the test set) from the
@@ -1275,12 +1315,15 @@ def run_tokamak_refscale(scale="full", seed=None, eval_seeds=3, device="cuda", o
     from safediffcon_torch.tasks.tokamak import (
         TokamakDataset, TokamakPipeline, TokamakPretrainConfig, finetune_config,
         generate_tokamak_dataset, posttrain_config, pretrain, run_inference)
+    from safediffcon_torch.tasks.tokamak import task as TT
 
     run = Run("tokamak_refscale", device, scale, seed, eval_seeds, out, emit)
     R, dev = run.recipe, run.device
-    path = str(run.out / "tok_ref.npz")
-    with run.stage("datagen"):
-        generate_tokamak_dataset(path, **R["generate_tokamak_dataset"], device=dev)
+    kw = R["generate_tokamak_dataset"]
+    path = data_file(run, str(run.out / "tok_ref.npz"),
+                     lambda p: generate_tokamak_dataset(p, **kw, device=dev),
+                     split_shapes(kw, states=(TT.NT, TT.N_STATES),
+                                  actions=(TT.NT - 1, TT.N_ACTIONS)))
     data = {s: TokamakDataset.load(path, s) for s in ("train", "cal", "test")}
     run.tick(f"splits loaded: {', '.join(f'{s}={len(d)}' for s, d in data.items())}")
 

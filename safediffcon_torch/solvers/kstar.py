@@ -27,8 +27,9 @@ card the latter is cuDNN's RNN, which `torch.backends.cudnn.allow_tf32`
 Matmuls stay float32 as long as `torch.backends.cuda.matmul.allow_tf32` is
 False, its default.
 
-The weights are the JAX package's archive, read by path
-(`DEFAULT_WEIGHTS`); nothing of that package is imported.
+The weights are the port's own copy of the JAX package's archive
+(`DEFAULT_WEIGHTS`, `tasks/tokamak/assets/kstar_weights.npz`, byte for byte
+the same file); nothing of that package is imported or read.
 """
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-DEFAULT_WEIGHTS = str(Path(__file__).resolve().parents[2] / "safediffcon_tpu" / "tasks"
-                      / "tokamak" / "assets" / "kstar_weights.npz")
+DEFAULT_WEIGHTS = str(Path(__file__).resolve().parents[1] / "tasks" / "tokamak" / "assets"
+                      / "kstar_weights.npz")
 
 # --- physical constants of the reference setup (kstar_solver.py:49-105) ----
 YEAR_IN = 2021.0

@@ -207,6 +207,10 @@ class BurgersPipeline:
         # when set to a dict, `calibrate` stores its per-sample scores and
         # raw weights there ("cal_scores", "cal_weights", on the CPU)
         self.record: Optional[Dict[str, torch.Tensor]] = None
+        # what `evaluate` ends in: (pred, controlled, u_target, u_bound) ->
+        # {metric: scalar}; a caller may wrap it before the first evaluation
+        # (a captured evaluation keeps the one it was captured with)
+        self.metrics = evaluate_samples
 
     def _bind(self, params: Params, x, t):
         if params is None:
@@ -354,7 +358,7 @@ class BurgersPipeline:
             controlled = control_trajectories(pred, NT)
         if sh is not None:
             pred, controlled = sh.gather(pred), sh.gather(controlled)
-        return evaluate_samples(pred, controlled, u_target, self.task_cfg.u_bound)
+        return self.metrics(pred, controlled, u_target, self.task_cfg.u_bound)
 
     def evaluate(self, params: Params, test: BurgersDataset, Q,
                  generator: Optional[torch.Generator] = None, guided: bool = True,

@@ -58,7 +58,19 @@ def generate_tokamak_dataset(
     states = np.concatenate(states)
     actions = np.concatenate(actions)
     t1 = time.perf_counter()
+    save_tokamak_splits(path, states, actions, n_train, n_cal, n_test)
+    if phase_seconds is not None:
+        phase_seconds.update(rollout=t1 - t0, save=time.perf_counter() - t1)
 
+
+def save_tokamak_splits(path: str, states: np.ndarray, actions: np.ndarray, n_train: int,
+                        n_cal: int, n_test: int) -> None:
+    """Save states (N, NT, 3) and actions (N, NT-1, 9) of N = n_train +
+    n_cal + n_test sims as one npz, split in that order under the keys
+    {split}_states, {split}_actions."""
+    total = n_train + n_cal + n_test
+    if len(states) != total or len(actions) != total:
+        raise ValueError(f"{len(states)} states, {len(actions)} actions for {total} sims")
     splits = {
         "train": slice(0, n_train),
         "cal": slice(n_train, n_train + n_cal),
@@ -73,8 +85,6 @@ def generate_tokamak_dataset(
             for name, arr in (("states", states), ("actions", actions))
         },
     )
-    if phase_seconds is not None:
-        phase_seconds.update(rollout=t1 - t0, save=time.perf_counter() - t1)
 
 
 def stack_and_pad(states: np.ndarray, actions: np.ndarray, normalize=True) -> np.ndarray:

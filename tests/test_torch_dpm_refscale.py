@@ -4,10 +4,13 @@
 SUMMARY keys of `experiments/validation_1d_dpm_round4.json`, 25 COMPARE
 rows (J, R_p, R_s, R_t and Q-hat of each of the five sampler arms), one
 FEWSTEP line per few-step arm, each arm's route, no launch of K1 or K2 in
-any stage, and no pretrain state written (the EMA stays in memory). The
+any stage, and no pretrain state written (the EMA stays in memory); run
+again on a copy of the data file it generated, it reuses the file and gives
+the same results. The
 recipe against the script by `ast` is a case of `tests/test_torch_round1.py`."""
 import torch
 
+from tests.test_torch_refscale_data import check_reused
 from tests.test_torch_round1 import check_tiny_run
 from safediffcon_torch.experiments import round1 as R1
 
@@ -49,3 +52,5 @@ def test_tiny_run_prints_25_rows_and_the_few_step_lines(tmp_path):
     # burgers_refscale's pretrain, without its checkpoints
     assert not [p for p in tmp_path.iterdir() if p.is_dir()]
     assert all(summary[a]["eval_s_steady"] is not None for a in arms)
+    # its data file, copied to a fresh directory, is reused to the same results
+    check_reused("burgers_dpm_refscale", tmp_path, res, lines, eval_seeds=2)

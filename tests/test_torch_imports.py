@@ -59,3 +59,30 @@ def test_module_imports_without_a_card(name):
     before = dict(build._LOADED)
     importlib.import_module(name)
     assert build._LOADED == before  # no kernel was built or loaded
+
+
+def _strings_outside_docstrings(path: Path):
+    """(line, value) of every string constant of `path` that is not a bare
+    string statement (a docstring); comments are not in the tree."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bare = {id(node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in bare):
+            yield node.lineno, node.value
+
+
+def test_names_no_path_of_the_jax_package():
+    """No module of the port reads a file of the JAX package: no string
+    outside comments and docstrings names `safediffcon_tpu` (the surrogate's
+    weights are the port's own copy)."""
+    paths = sorted((ROOT / "safediffcon_torch").rglob("*.py"))
+    assert len(paths) > 50
+    bad = {}
+    for path in paths:
+        hits = [(line, v) for line, v in _strings_outside_docstrings(path)
+                if "safediffcon_tpu" in v]
+        if hits:
+            bad[str(path.relative_to(ROOT))] = hits
+    assert not bad, f"modules of the port name the JAX package: {bad}"

@@ -4,15 +4,17 @@
 they wrote `experiments/validation_{tokamak,1d}_refscale_round2.json`, and
 each recipe at `--scale tiny` on the CPU prints the SUMMARY keys of its JAX
 results JSON, 15 COMPARE rows, the SIGN lines of its two steps, and counts
-no launch of K1 or K2 in any stage. (The recipes against today's scripts by
-`ast`, and the tiny and card settings, are cases of
-`tests/test_torch_round1.py`.)"""
+no launch of K1 or K2 in any stage; run again on a copy of the data file it
+generated, it reuses the file and gives the same results. (The recipes
+against today's scripts by `ast`, and the tiny and card settings, are cases
+of `tests/test_torch_round1.py`.)"""
 import json
 from pathlib import Path
 
 import pytest
 import torch
 
+from tests.test_torch_refscale_data import check_reused
 from tests.test_torch_round1 import check_tiny_run
 from safediffcon_torch.experiments import round1 as R1
 from safediffcon_torch.tasks.tokamak import posttrain_config
@@ -77,3 +79,5 @@ def test_tiny_run_prints_the_jax_summary(name, tmp_path):
         assert [h["epoch"] for h in res["summary"]["finetune_history"]] == [0, 1]
     else:
         assert res["summary"]["pretrain_steps"] == 4
+    # its data file, copied to a fresh directory, is reused to the same results
+    check_reused(name, tmp_path, res, lines, eval_seeds=2)

@@ -3,7 +3,9 @@ goldens (tests/golden/kstar_reference_rollouts.npz, the reference Keras
 solver's rollouts) and against the JAX solver on the same weights: the
 networks, the steady start, the clip and quantisation, and the closed loop
 with JAX's random targets replayed."""
+import hashlib
 import os
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -35,7 +37,11 @@ def golden():
 
 
 def test_weights_are_the_jax_archive(params):
-    assert K.DEFAULT_WEIGHTS == os.path.abspath(JK.DEFAULT_WEIGHTS)
+    # the port's own copy, inside the port, byte for byte the JAX archive
+    port, jax_archive = Path(K.DEFAULT_WEIGHTS).resolve(), Path(JK.DEFAULT_WEIGHTS).resolve()
+    assert port.is_relative_to(Path(__file__).resolve().parents[1] / "safediffcon_torch")
+    assert hashlib.sha256(port.read_bytes()).hexdigest() == hashlib.sha256(
+        jax_archive.read_bytes()).hexdigest()
     assert params["rl"]["n_layers"] == 2
     assert params["lstm"]["lstm0"]["kernel"].shape == (18, 400)
     assert params["lstm"]["lstm0"]["kernel"].dtype == torch.float32

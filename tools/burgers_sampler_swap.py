@@ -47,6 +47,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+import weight_nudge  # noqa: E402  (tools/, the script's own directory)
 
 ARMS = (("ddim", 200), ("dpm", 50))
 DTYPES = ("bfloat16", "float32")
@@ -120,9 +121,7 @@ def main(argv=None) -> int:
     flax_params = jax.tree_util.tree_map(jnp.asarray, load_flax_npz(args.weights))
     dim = int(flax_params["params"]["init_conv"]["kernel"].shape[-1])
     params = flax_to_state_dict(build_model(dim=dim, device="meta"), load_flax_npz(args.weights))
-    gen = torch.Generator().manual_seed(0)
-    nudged = {k: v + 2.0**-9 * v.abs() * torch.randn(v.shape, generator=gen)
-              if v.is_floating_point() else v for k, v in params.items()}
+    nudged = weight_nudge.nudged(params)
 
     def as_tensor(a):
         return torch.from_numpy(np.array(a))

@@ -33,6 +33,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+from weight_nudge import nudged  # noqa: E402  (tools/, the script's own directory)
 
 STEPS = 4000  # as the `tokamak_weight_swap.py --pretrain-steps 4000` run
 
@@ -69,13 +70,8 @@ def main(argv=None) -> int:
     pipe = TokamakPipeline(posttrain_config().conformal, dim=32, compute_dtype="bfloat16",
                            cal_chunk=50, device="cpu")
 
-    def nudged(seed: int) -> dict:
-        gen = torch.Generator().manual_seed(seed)
-        return {k: v + 2.0**-9 * v.abs() * torch.randn(v.shape, generator=gen)
-                if v.is_floating_point() else v for k, v in start.items()}
-
     for arm in args.arms:
-        params = start if arm == "seeded" else nudged(int(arm))
+        params = start if arm == "seeded" else nudged(start, int(arm))
         losses = []
         t = time.perf_counter()
         state = pretrain(cfg, data["train"], num_steps=STEPS, params=params, device="cpu",

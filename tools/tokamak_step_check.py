@@ -13,10 +13,11 @@ as an error that grows past the float32 rounding of the first points (the
 rounding alone keeps it flat. Printed: one `POINT {...}` line per point
 (the loss's relative difference, the gradient's relative L2 error, the
 worst leaf's largest difference over its largest entry) and a last JSON
-line. It imports JAX, so it is not part of the port:
+line. `--dim 128 --steps 2000` takes the check to the recipe's width (its
+points every `--steps` / 8). It imports JAX, so it is not part of the port:
 
     JAX_PLATFORMS=cpu python tools/tokamak_step_check.py --data tok_swap.npz \\
-        [--threads 6] [--out r.json]
+        [--dim 32] [--steps 4000] [--threads 6] [--out r.json]
 """
 import argparse
 import json
@@ -30,12 +31,14 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 # as the `tokamak_weight_swap.py --pretrain-steps 4000 --dim 32 --dtype float32` run
-STEPS, EVERY, DIM, DTYPE = 4000, 500, 32, "float32"
+DTYPE, POINTS = "float32", 8
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", required=True, help="the swap's tokamak npz (generated if missing)")
+    ap.add_argument("--dim", type=int, default=32, help="the UNet1D's width (recipe: 128)")
+    ap.add_argument("--steps", type=int, default=4000, help="pretrain steps (a multiple of 8)")
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 1)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -60,24 +63,25 @@ def main(argv=None) -> int:
     from safediffcon_torch.utils.checkpoint import load_checkpoint
 
     torch.set_num_threads(args.threads)
+    dim, steps, every = args.dim, args.steps, args.steps // POINTS
     if not os.path.exists(args.data):
         generate_tokamak_dataset(args.data, n_train=1000, n_cal=1000, n_test=50, seed=0,
                                  device="cpu")
     train = TokamakDataset.load(args.data, "train")
-    cfg = TokamakPretrainConfig(dim=DIM, batch_size=32, checkpoint_every=EVERY,
+    cfg = TokamakPretrainConfig(dim=dim, batch_size=32, checkpoint_every=every,
                                 compute_dtype=DTYPE)
     shape = (cfg.batch_size, 128, 12)
-    net = init_params(build_model(dim=DIM, device="cpu"), seed=cfg.seed)
+    net = init_params(build_model(dim=dim, device="cpu"), seed=cfg.seed)
     start = {k: v.clone() for k, v in net.state_dict().items()}
-    tmp = tempfile.TemporaryDirectory()  # the weights every EVERY steps, removed at exit
+    tmp = tempfile.TemporaryDirectory()  # the weights every `every` steps, removed at exit
     ckpt = tmp.name
     t0 = time.perf_counter()
-    pretrain(cfg, train, num_steps=STEPS, params=start, device="cpu", checkpoint_dir=ckpt,
-             noise=TR.pretrain_draws(cfg.seed, STEPS, shape, cfg.timesteps))
+    pretrain(cfg, train, num_steps=steps, params=start, device="cpu", checkpoint_dir=ckpt,
+             noise=TR.pretrain_draws(cfg.seed, steps, shape, cfg.timesteps))
     pre_s = time.perf_counter() - t0
 
     # the loss of one step on both sides, from the same weights, batch and draws
-    jmodel = JP.build_model(DIM, (1, 2, 4, 8), 1, DTYPE)
+    jmodel = JP.build_model(dim, (1, 2, 4, 8), 1, DTYPE)
     jsched = j_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective)
     jdcfg = JDiff.DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective)
     jcond = j_cond()
@@ -88,17 +92,17 @@ def main(argv=None) -> int:
             lambda q, x, s: jmodel.apply(q, x, s), p, jsched, jdcfg, batch, t, noise,
             jcond).mean())(params)
 
-    model = build_model(DIM, compute_dtype=DTYPE, device="cpu")
+    model = build_model(dim, compute_dtype=DTYPE, device="cpu")
     sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective, device="cpu")
     dcfg = DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective,
                            beta_schedule=cfg.beta_schedule)
     cond = train_conditioner()
     batch = torch.from_numpy(np.ascontiguousarray(train.data[: cfg.batch_size]))
-    draws = TR.pretrain_draws(cfg.seed, STEPS + 1, shape, cfg.timesteps)
+    draws = TR.pretrain_draws(cfg.seed, steps + 1, shape, cfg.timesteps)
     points = []
-    for step in range(STEPS + 1):
+    for step in range(steps + 1):
         t, noise = next(draws)
-        if step % EVERY:
+        if step % every:
             continue
         weights = start if step == 0 else load_checkpoint(ckpt, step)["params"]
         model.load_state_dict(weights)
@@ -124,7 +128,7 @@ def main(argv=None) -> int:
         points.append(point)
         print("POINT " + json.dumps(point), flush=True)
     tmp.cleanup()
-    out = json.dumps(dict(steps=STEPS, every=EVERY, dtype=DTYPE,
+    out = json.dumps(dict(dim=dim, steps=steps, every=every, dtype=DTYPE,
                           pretrain_seconds=pre_s, points=points))
     print(out, flush=True)
     if args.out:

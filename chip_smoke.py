@@ -234,9 +234,9 @@ backend named in its log line:
       sample); K2 idle;
  13e. Burgers and tokamak calibrate at the turbo widths on 24 cal sims,
       DDIM 5: Q-hat within 1e-5 relative; K1 and K2 idle.
-      With more than one card visible, 13b and 13d run again over NCCL
-      across two cards. Times of two ranks sharing one card are a
-      correctness check and say nothing of scaling over NVLink.
+      Times of two ranks sharing one card are a correctness check and say
+      nothing of scaling over NVLink; NCCL across cards is phase 17's
+      (`--cards 4`, below), which runs 13(b) and 13(d) at dp 4.
 
 Depth cut to make room for phase 13: phase 4's and phase 11's calibrate on
 10 cal sims (25 before), phase 9 at DDIM 15 (25).
@@ -331,13 +331,68 @@ timesteps (500), T6's calibrations on 250 cal sims (1,000), 13(e) at DDIM 5
 (10), phase 15's profiler over one step per arm (three), phase 16 at DDIM
 10 (25) with its profiler windows under `--serving-graphs` only.
 
-`python3 chip_smoke.py --cli-rank <command line>` is 13a's rank under
-torchrun, not a way to run the script.
+Four cards over NCCL (phase 17; `python3 chip_smoke.py --cards 4`, a mode
+of its own that needs exactly four visible cards and exits non-zero before
+any result with fewer; the default run above is unchanged, needs one card
+and still ends with `"count": 1`). Phase 2's build, once (ranks find the
+libraries by hash), then, comparisons with TF32 off and speed arms at the
+default flags, each rank on its own card (phase 13's spawned ranks, here
+four NCCL ranks of one group) against the same work in one process on
+card 0:
+
+ 17a. each card's name and power limit and `nvidia-smi topo -m`; pmesh's
+      all-reduce, all-gather and reduce-scatter over the four ranks, each
+      equal to its exact value, on the native route; a captured all-reduce
+      of the turbo UNet2D's gradient size equal to the eager one bit for
+      bit; the all-reduce's ms (the slowest rank's, CUDA events) and bus
+      bandwidth at the UNet3D's, the turbo UNet1D's and the turbo UNet2D's
+      float32 gradient sizes (92.3, 229.4 and 562.8 MB);
+ 17b. from this process, its current device cuda:0, K1 (B = 8 and 50,
+      127^2, 1e-8) and K2 (TF32 and bf16 at (64, 64, 64), B = 16, F = 32)
+      on cuda:1-3 against their plain versions there: K1 within 1e-4 of
+      max|x| and a residual under 1e-3 (phase 3), K2 TF32 within twice
+      cuDNN's TF32 error + 1e-4 and 5e-3 of max, bf16 within 1e-2 of max
+      (phase 6); each launch counted once, its output on its card; the
+      kernels' ms, their plain versions' and F.conv3d's on cuda:1;
+ 17c. 13(b) at dp 4 (global batch 16, 4 rows per rank; losses within 1e-5
+      relative, weights within 2.5 lr, the ranks' weights equal, 90 K2
+      3xTF32 launches per rank and step) and 13(d) at dp 4 (8 cal and 8
+      test sims, Q-hat within 1e-5 relative, the metrics within 1e-3
+      relative and a rate within one sample; 255 K1 launches per rank, K2
+      idle);
+ 17d. 13(c) at sp 4 (8 + 2 halo frames per rank) and at dp 2 x sp 2 (a
+      rank's row, 16 + 2 frames): the output and every gradient within
+      1e-4 of their largest entry; 90 K2 launches per rank (tensor-core and
+      SIMT forms reported), peak memory per rank;
+ 17e. Burgers (turbo UNet2D, global batch 16) and tokamak (turbo UNet1D,
+      32) at dp 4 on P17_SPLITS sims: with TF32 off in float32, a captured
+      pretrain of 9 steps in chunks of 3 (a warm-up chunk, the capture, a
+      replay) and a captured calibrate (three chunks of 8) and evaluate
+      (three calls, DDIM 5) against one process: losses and Q-hat within
+      1e-5 relative, metrics within 1e-3; at the default flags in bf16 (the
+      recipes' dtype), the same calls eagerly and captured on the four
+      ranks, equal bit for bit (losses, weights, EMA, Q-hat, metrics), and
+      the graphs counted; steps/s (steps 20-40 in chunks of 10) on one card
+      captured, four cards eager and four cards captured, with each card's
+      peak memory; K1 and K2 idle;
+ 17f. `torchrun --nproc_per_node=4 -m safediffcon_torch.cli.main burgers
+      pretrain`, the same command with no launcher (it starts four
+      workers) and `smoke pretrain --sp 2 --conv-impl pallas` on four
+      torchrun ranks (`--cli-rank`), each with a few steps: exit 0 and the
+      NCCL group in the log; the smoke ranks each 90 K2 launches per step.
+
+It prints a `kernels` line of phase 17's launches with 17b's errors and
+times, the four cards' `nvidia-smi` lines and {"ok": true, "device": {...,
+"count": 4}}.
+
+`python3 chip_smoke.py --cli-rank <command line>` is the rank of 13a's and
+17f's torchrun, not a way to run the script.
 
 Its last three lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2407,31 +2462,42 @@ P13_SP_BATCH = 2  # 13(c)
 
 def _p13_rank(rank: int, world: int, backend: str, init_file: str, parts: list,
               out_dir: str) -> None:
-    """One spawned rank of phase 13 (its card, TF32 off): joins the group,
-    runs each (name, (dp, sp)) part on that mesh and saves what it measured
-    to out_dir/rank<r>.pt."""
+    """One spawned rank of phase 13 or 17 (its card, TF32 off): joins the
+    group, runs each (name, (dp, sp)) part on that mesh and saves what it
+    measured to out_dir/rank<r>.pt, with the parts done before a failure
+    and its traceback. A collective that waits P17_TIMEOUT_S fails."""
+    import datetime
+    import traceback
+
     sys.path.insert(0, str(ROOT))
     import torch.distributed as dist
 
     from safediffcon_torch.parallel import mesh as pmesh
 
     results = {}
+    path = os.path.join(out_dir, f"rank{rank}.pt")
     try:
         torch.cuda.set_device(rank % torch.cuda.device_count())
         torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
-                                world_size=world)
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=P17_TIMEOUT_S))
         for name, (dp, sp) in parts:
+            t0 = time.perf_counter()
             mesh = pmesh.get_mesh_2d(dp, sp) if sp > 1 else pmesh.get_mesh()
             pmesh.activate_mesh(mesh)
-            results[name] = P13_PARTS[name]()
+            results[name] = {**P13_PARTS, **P17_PARTS}[name]()
             results[name]["route"] = pmesh.describe(mesh)
             pmesh.activate_mesh(None)
             torch.cuda.empty_cache()
+            if rank == 0:
+                log(f"rank 0: part {name} on {results[name]['route']} in "
+                    f"{time.perf_counter() - t0:.1f} s")
         dist.destroy_process_group()
-        torch.save({"ok": results}, os.path.join(out_dir, f"rank{rank}.pt"))
+        torch.save({"ok": results}, path)
     except BaseException as e:
-        torch.save({"error": f"{type(e).__name__}: {e}"}, os.path.join(out_dir, f"rank{rank}.pt"))
+        torch.save({"ok": results, "error": f"{type(e).__name__}: {e}\n"
+                    f"{traceback.format_exc()[-3000:]}"}, path)
         raise
 
 
@@ -2479,15 +2545,18 @@ def _p13_sp_inputs():
 
 
 def p13_unet3d() -> dict:
-    """13(c) and its unsharded reference: one forward and backward of the
-    reference UNet3D (conv_impl "pallas", remat "full") on seeded weights,
-    loss = sum(out * cot), gradients summed over the frame ranks."""
+    """13(c), 17(d) and their unsharded reference: one forward and backward
+    of the reference UNet3D (conv_impl "pallas", remat "full") on seeded
+    weights, loss = sum(out * cot) over the batch; a rank of a data split
+    takes its rows and weighs its part of the sum by dp, which the
+    gradient reduce averages over the data ranks."""
     from safediffcon_torch.parallel import mesh as pmesh
     from safediffcon_torch.tasks.smoke.pipeline import build_model, init_params
 
     net = init_params(build_model(conv_impl="pallas", device="cuda"), seed=3)
     x, t, cot = _p13_sp_inputs()
     sh = pmesh.batch_shard(P13_SP_BATCH, frames=FRAMES)
+    x, t, cot = sh.take(x), sh.take(t), sh.take(cot)
     params = list(net.parameters())
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2496,10 +2565,10 @@ def p13_unet3d() -> dict:
     _p13_zero()
     t0 = time.perf_counter()
     y = net(x, t)
-    loss = (y * cot).sum()
+    loss = (y * cot).sum() * sh.dp
     loss, grads = sh.reduce(loss, torch.autograd.grad(loss, params))
     torch.cuda.synchronize()
-    return dict(seconds=time.perf_counter() - t0, counts=_p13_counts(),
+    return dict(seconds=time.perf_counter() - t0, counts=_p13_counts(), rows=(sh.lo, sh.hi),
                 frames=None if sh.frames is None else sh.frames.length,
                 peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9, out=y.detach().cpu(),
                 loss=float(loss), grads=[g.cpu() for g in grads])
@@ -2566,9 +2635,10 @@ def p13_calibrate() -> dict:
 P13_PARTS = {"b": p13_pretrain, "c": p13_unet3d, "d": p13_smoke_serving, "e": p13_calibrate}
 
 
-def p13_spawn(parts: list, world: int, backend: str) -> list:
-    """Run the parts on `world` spawned ranks of one group per part; returns
-    each rank's results. A rank that fails or hangs fails the phase."""
+def p13_spawn(parts: list, world: int, backend: str):
+    """Run the parts on `world` spawned ranks of one group; returns (each
+    rank's results of the parts it finished, the failures: a rank that
+    failed or hung)."""
     import multiprocessing as mp
     import shutil
 
@@ -2587,16 +2657,15 @@ def p13_spawn(parts: list, world: int, backend: str) -> list:
     for p in hung:
         p.kill()
         p.join()
-    out = []
+    out, errors = [], []
     for r in range(world):
         path = out_dir / f"rank{r}.pt"
         got = torch.load(path, weights_only=False) if path.exists() else {
-            "error": "no result"}
+            "ok": {}, "error": "no result"}
         if "error" in got or hung:
-            raise AssertionError(f"phase 13 rank {r} of {world} ({backend}): "
-                                 f"{got.get('error', 'hung')}")
+            errors.append(f"rank {r} of {world} ({backend}): {got.get('error', 'hung')}")
         out.append(got["ok"])
-    return out
+    return out, errors
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2656,9 +2725,18 @@ def cli_rank(argv: list) -> int:
     zero_k2_counts(C)
     rc = cli_main(argv)
     print("P13A " + json.dumps(dict(k2=C.conv3d_fused_cuda.launches,
-                                    k2_simt=C.conv3d_fused_simt_cuda.launches, group=group)),
-          flush=True)
+                                    k2_simt=C.conv3d_fused_simt_cuda.launches, group=group,
+                                    rank=int(os.environ["RANK"]))), flush=True)
     return rc
+
+
+def save_p13_smoke(train, cal, test) -> None:
+    """The smoke sims that parts b and d read, from the smoke splits."""
+    P13_DIR.mkdir(parents=True, exist_ok=True)
+    np.save(P13_DIR / "train.npy", np.ascontiguousarray(train.data[:K2_BATCH]))
+    np.save(P13_DIR / "smoke_cal.npy", np.ascontiguousarray(cal.data[:P13_SMOKE_SIMS]))
+    np.save(P13_DIR / "smoke_test.npy", np.ascontiguousarray(test.data[:P13_SMOKE_SIMS]))
+    np.save(P13_DIR / "smoke_test_raw.npy", np.ascontiguousarray(test.raw[:P13_SMOKE_SIMS]))
 
 
 def phase_p13(C, smoke, train, cal, test, b_data, t_data) -> dict:
@@ -2666,10 +2744,7 @@ def phase_p13(C, smoke, train, cal, test, b_data, t_data) -> dict:
     the one card against the same work in this process, TF32 off."""
     P13_DIR.mkdir(parents=True, exist_ok=True)
     res = dict(a=phase_p13_torchrun(C))
-    np.save(P13_DIR / "train.npy", np.ascontiguousarray(train.data[:K2_BATCH]))
-    np.save(P13_DIR / "smoke_cal.npy", np.ascontiguousarray(cal.data[:P13_SMOKE_SIMS]))
-    np.save(P13_DIR / "smoke_test.npy", np.ascontiguousarray(test.data[:P13_SMOKE_SIMS]))
-    np.save(P13_DIR / "smoke_test_raw.npy", np.ascontiguousarray(test.raw[:P13_SMOKE_SIMS]))
+    save_p13_smoke(train, cal, test)
     np.save(P13_DIR / "burgers_cal.npy", np.ascontiguousarray(b_data["cal"].data[:P13_CAL_SIMS]))
     np.save(P13_DIR / "tokamak_cal.npy", np.ascontiguousarray(t_data["cal"].data[:P13_CAL_SIMS]))
     np.save(P13_DIR / "tokamak_cal_state.npy",
@@ -2683,7 +2758,9 @@ def phase_p13(C, smoke, train, cal, test, b_data, t_data) -> dict:
             torch.cuda.empty_cache()
     parts = [("b", (2, 1)), ("c", (1, 2)), ("d", (2, 1)), ("e", (2, 1))]
     t0 = time.perf_counter()
-    ranks = p13_spawn(parts, 2, "gloo")
+    ranks, errors = p13_spawn(parts, 2, "gloo")
+    if errors:
+        raise AssertionError("phase 13 " + "\n".join(errors))
     res["spawn_s"] = time.perf_counter() - t0
     n_convs = sum(n for *_, n in K2_SHAPES)
 
@@ -2787,13 +2864,6 @@ def phase_p13(C, smoke, train, cal, test, b_data, t_data) -> dict:
                     q_ref=(re_["q_burgers"], re_["q_tokamak"]),
                     seconds=[g["e"]["seconds"] for g in ranks], ref_s=re_["seconds"])
 
-    if torch.cuda.device_count() > 1:  # (b) and (d) over NCCL across two cards
-        for r, got in enumerate(p13_spawn([("b", (2, 1)), ("d", (2, 1))], 2, "nccl")):
-            log(f"13 NCCL rank {r} ({got['b']['route']}): losses {got['b']['losses']}, "
-                f"Q {got['d']['q']:.6g}")
-            if (max(abs(a - b) / abs(b) for a, b in zip(got["b"]["losses"], rb["losses"]))
-                    > 1e-5 or abs(got["d"]["q"] - rd["q"]) > 1e-5 * abs(rd["q"])):
-                raise AssertionError("13: the NCCL ranks disagree with one process")
     return res
 
 
@@ -3498,6 +3568,675 @@ def phase_serving_graphs(burgers, tokamak, b_data, t_data, ddim: int = S_DDIM) -
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: four cards over NCCL (`python3 chip_smoke.py --cards 4`)
+# ---------------------------------------------------------------------------
+
+P17_CARDS = 4
+P17_DIR = ROOT / "build" / "chip_smoke" / "p17"
+# float32 gradients all-reduced by a data-parallel step, one per model
+P17_GRADS = {"UNet3D dim 64": 23_066_887, "turbo UNet1D": 57_341_452,
+             "turbo UNet2D": 140_710_147}
+P17_AR_REPS = 20  # timed all-reduces per size
+P17_KERNEL_CARDS = (1, 2, 3)  # 17b: the cards other than the current one
+P17_K1_BATCHES = (8, N_TEST)
+P17_K2_SHAPE = (64, 64, 64)  # 17b: (H, Cin, Cout), one of phase 6's shapes
+# 17e: the reference-scale recipes' global batches and compute dtype
+P17_BATCH = {"burgers": 16, "tokamak": 32}
+P17_CMP_K, P17_CMP_STEPS = 3, 9  # chunks: the warm-up, the capture, a replay
+P17_SPEED_K, P17_SPEED_STEPS, P17_SPEED_TIME = 10, 40, (20, 40)
+P17_SPLITS = (128, 24, 16)  # 17e's train, cal and test sims per task
+P17_DDIM, P17_CAL_CHUNK = 5, 8  # 17e: three calibration chunks (2 rows per rank)
+P17_EVAL_SEEDS = (2, 3, 2)  # the warm-up, the capture on other draws, a replay
+P17_CLI_STEPS = 4  # 17f: Burgers pretrain steps (steps_per_call 2); smoke: P13_STEPS
+P17_TIMEOUT_S = 180  # a rank that waits this long in a collective fails
+# the parts the ranks run, each on its (dp, sp) mesh: 17a, 17d, 17c, 17e
+P17_RANK_PARTS = [("a", (P17_CARDS, 1)), ("c", (1, P17_CARDS)), ("c2", (2, 2)),
+                  ("b", (P17_CARDS, 1)), ("d", (P17_CARDS, 1)), ("eb", (P17_CARDS, 1)),
+                  ("et", (P17_CARDS, 1))]
+
+
+def p17_collectives() -> dict:
+    """17a on every rank: pmesh's all-reduce, all-gather and reduce-scatter
+    over the group, each against its exact value; a captured all-reduce of
+    a gradient-sized buffer against the eager one on the same inputs, bit
+    for bit; the all-reduce's ms (CUDA events, the slowest rank's is read)
+    at each P17_GRADS size."""
+    import torch.distributed as dist
+
+    from safediffcon_torch.core.train import CapturedCall
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    r, n = pmesh.rank(), pmesh.world_size()
+    base = torch.arange(6, dtype=torch.float32, device="cuda").reshape(2, 3)
+    y = base + 10 * r
+    dist.all_reduce(y)
+    gathered = pmesh.all_gather(base + 10 * r, 0, None)
+    stacked = torch.arange(12 * n, dtype=torch.float32, device="cuda").reshape(2 * n, 6) + r
+    scattered = pmesh.reduce_scatter(stacked, 0, None)
+    cpu = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    want_rs = (n * torch.arange(12 * n, dtype=torch.float32).reshape(2 * n, 6)
+               + sum(range(n)))[2 * r : 2 * r + 2]
+    exact = dict(all_reduce=torch.equal(y.cpu(), n * cpu + 10 * sum(range(n))),
+                 all_gather=torch.equal(gathered.cpu(), torch.cat([cpu + 10 * q
+                                                                   for q in range(n)])),
+                 reduce_scatter=torch.equal(scattered.cpu(), want_rs))
+
+    # the gradient all-reduce inside a graph against the eager one
+    g = torch.Generator(device="cuda").manual_seed(100 + r)
+    grad = torch.randn(P17_GRADS["turbo UNet2D"], generator=g, device="cuda")
+    eager = grad.clone()
+    dist.all_reduce(eager)
+    buf = torch.empty_like(grad)
+    call = CapturedCall(torch.device("cuda"))
+
+    def reduce():
+        dist.all_reduce(buf)
+        return buf
+
+    outs = []
+    for _ in range(3):  # the warm-up, the capture, a replay
+        buf.copy_(grad)
+        outs.append(call(reduce))
+    captured = [float((o - eager).abs().max()) for o in outs]
+    del grad, eager, buf, outs, call
+    ms = {}
+    for name, numel in P17_GRADS.items():
+        x = torch.zeros(numel, device="cuda")
+        for _ in range(3):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        dist.barrier()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(P17_AR_REPS):
+            dist.all_reduce(x)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / P17_AR_REPS
+        del x
+    torch.cuda.empty_cache()
+    return dict(exact=exact, collective_route=pmesh.collective_route(None),
+                captured_vs_eager=captured, all_reduce_ms=ms)
+
+
+def _p17_task(name: str):
+    """(task module, pretrain config at P17_BATCH, data splits, pipeline
+    maker(capture, compute dtype), seeded weights made on the CPU) of 17e,
+    on P17_DIR's data."""
+    if name == "burgers":
+        import safediffcon_torch.tasks.burgers as mod
+        from safediffcon_torch.tasks.burgers import pipeline as pl
+
+        cfg = dataclasses.replace(mod.BurgersPretrainConfig(), **B_MODEL,
+                                  batch_size=P17_BATCH[name])
+        data = {s: mod.BurgersDataset.load(str(P17_DIR / "burgers.npz"), s)
+                for s in ("train", "cal", "test")}
+        data["cal"] = data["cal"].data
+
+        def pipe(capture, dtype):
+            return mod.BurgersPipeline(mod.BurgersConformalConfig(ddim_sampling_steps=P17_DDIM),
+                                       **B_MODEL, compute_dtype=dtype, cal_chunk=P17_CAL_CHUNK,
+                                       capture=capture)
+    else:
+        import safediffcon_torch.tasks.tokamak as mod
+        from safediffcon_torch.tasks.tokamak import pipeline as pl
+
+        cfg = dataclasses.replace(mod.TokamakPretrainConfig(), batch_size=P17_BATCH[name])
+        data = {s: mod.TokamakDataset.load(str(P17_DIR / "tokamak.npz"), s)
+                for s in ("train", "cal", "test")}
+
+        def pipe(capture, dtype):
+            return mod.TokamakPipeline(mod.TokamakConformalConfig(ddim_sampling_steps=P17_DDIM),
+                                       compute_dtype=dtype, cal_chunk=P17_CAL_CHUNK,
+                                       capture=capture)
+    torch.manual_seed(3)  # seeded weights (torch's default init), the same on every rank
+    net = pl.build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups, device="cpu")
+    return mod, cfg, data, pipe, {k: v.detach() for k, v in net.state_dict().items()}
+
+
+def _p17_pretrain(mod, cfg, train, init, k: int, steps: int, capture: bool,
+                  timed=None) -> dict:
+    """`pretrain` from `init`: the losses, the final weights and EMA (on
+    the card), the peak memory and, with `timed` = (a, b), steps/s over
+    steps a to b."""
+    clock = {}
+
+    def stamp(n):
+        def fn():
+            torch.cuda.synchronize()
+            clock[n] = time.perf_counter()
+        return fn
+
+    marks = StepMarks({n: stamp(n) for n in (timed or ())})
+    torch.cuda.synchronize()
+    gc.collect()  # an earlier arm's pipelines and graph pools
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = mod.pretrain(cfg, train, num_steps=steps, params=init, device="cuda",
+                         steps_per_call=k, losses=marks, capture=capture)
+    torch.cuda.synchronize()
+    out = dict(losses=[float(v) for v in marks], step=state.step,
+               params={n: v.detach().clone() for n, v in state.model.state_dict().items()},
+               ema={n: v.clone() for n, v in state.ema_params.items()},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if timed:
+        out["steps_per_s"] = (timed[1] - timed[0]) / (clock[timed[1]] - clock[timed[0]])
+    return out
+
+
+def _p17_serve(pipe, init, data) -> dict:
+    """Calibrate (P17_CAL_CHUNK-sim chunks) and an evaluate per seed of
+    P17_EVAL_SEEDS; Q-hat, metrics, the pipeline's graph counts, seconds,
+    peak memory."""
+    pipe.model.load_state_dict(init)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = pipe.calibrate(None, data["cal"], 0.0,
+                       generator=torch.Generator(device="cuda").manual_seed(1))
+    ms = [pipe.evaluate(None, data["test"], q,
+                        generator=torch.Generator(device="cuda").manual_seed(s))
+          for s in P17_EVAL_SEEDS]
+    torch.cuda.synchronize()
+    return dict(q=float(q), m=ms, counts=pipe.graphs.counts(),
+                seconds=time.perf_counter() - t0, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _strip(res: dict) -> dict:
+    return {k: v for k, v in res.items() if k not in ("params", "ema")}
+
+
+def p17_task(name: str, one_process: bool = False) -> dict:
+    """17e for one task, on this rank (or in one process): with TF32 off, a
+    captured float32 pretrain of P17_CMP_STEPS steps in chunks of
+    P17_CMP_K and a captured calibrate and evaluate (the compare arms,
+    held against one process); then at the default flags in bf16, the
+    recipes' dtype: the same pretrain and serving calls eagerly and
+    captured on these ranks (bit for bit, ranks only), and the speed arms,
+    P17_SPEED_STEPS steps in chunks of P17_SPEED_K, eager (ranks only) and
+    captured, steps/s and peak memory; in one process also captured at a
+    rank's share of the batch (the step without its all-reduce)."""
+    from safediffcon_torch.ops import conv3d_mxu as C
+    from safediffcon_torch.ops import pressure_cg as K
+
+    mod, cfg, data, make_pipe, init = _p17_task(name)
+    _p13_zero()
+    res = {}
+    t0 = time.perf_counter()
+    with tf32_flag(False):
+        res["cmp_train"] = _strip(_p17_pretrain(mod, cfg, data["train"], init, P17_CMP_K,
+                                                P17_CMP_STEPS, capture=True))
+        res["cmp_serve"] = _p17_serve(make_pipe(True, None), init, data)
+    res["cmp_s"] = time.perf_counter() - t0
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    with tf32_flag(True):
+        if not one_process:
+            t0 = time.perf_counter()
+            arms = {c: _p17_pretrain(mod, bf16, data["train"], init, P17_CMP_K, P17_CMP_STEPS,
+                                     capture=c) for c in (False, True)}
+            res["bitwise_train"] = dict(
+                losses=_same(arms[False]["losses"], arms[True]["losses"]),
+                params=_same(arms[False]["params"], arms[True]["params"]),
+                ema=_same(arms[False]["ema"], arms[True]["ema"]),
+                losses_eager=arms[False]["losses"])
+            del arms
+            serve = {c: _p17_serve(make_pipe(c, "bfloat16"), init, data) for c in (False, True)}
+            res["bitwise_serve"] = dict(q=_same(serve[False]["q"], serve[True]["q"]),
+                                        m=_same(serve[False]["m"], serve[True]["m"]),
+                                        counts=serve[True]["counts"],
+                                        eager_counts=serve[False]["counts"],
+                                        eager_s=serve[False]["seconds"],
+                                        captured_s=serve[True]["seconds"])
+            res["bitwise_s"] = time.perf_counter() - t0
+        for capture in ((True,) if one_process else (False, True)):
+            arm = _p17_pretrain(mod, bf16, data["train"], init, P17_SPEED_K, P17_SPEED_STEPS,
+                                capture=capture, timed=P17_SPEED_TIME)
+            res["speed_" + ("captured" if capture else "eager")] = dict(
+                steps_per_s=arm["steps_per_s"], peak_gb=arm["peak_gb"],
+                finite=all(math.isfinite(v) for v in arm["losses"]))
+        if one_process:
+            share = dataclasses.replace(bf16, batch_size=cfg.batch_size // P17_CARDS)
+            arm = _p17_pretrain(mod, share, data["train"], init, P17_SPEED_K, P17_SPEED_STEPS,
+                                capture=True, timed=P17_SPEED_TIME)
+            res["speed_share"] = dict(steps_per_s=arm["steps_per_s"], peak_gb=arm["peak_gb"])
+    res["counts"] = _p13_counts()
+    res["k1_k2"] = (K.pressure_cg_cuda.launches, k2_launches(C) + C.conv3d_fused_simt_cuda.launches)
+    return res
+
+
+P17_PARTS = {"a": p17_collectives, "c2": p13_unet3d,
+             "eb": lambda: p17_task("burgers"), "et": lambda: p17_task("tokamak")}
+
+
+def phase_p17_kernels(K, C, S) -> dict:
+    """17b: from a process whose current device is cuda:0, K1 (B = 8 and
+    50, 127^2, 1e-8, checked every iteration) and K2 (TF32 and bf16 at
+    P17_K2_SHAPE, B = 16, F = 32) on each card of P17_KERNEL_CARDS against
+    their plain versions there, with phase 3's and phase 6's tolerances;
+    then each kernel's, its plain version's and (K2) F.conv3d's ms on the
+    first of those cards."""
+    torch.cuda.set_device(0)
+    h, cin, cout = P17_K2_SHAPE
+    out = dict(k1=[], k2=[])
+    for card in P17_KERNEL_CARDS:
+        dev = torch.device("cuda", card)
+        masks = S.build_masks(dev)
+        gen = torch.Generator(device=dev).manual_seed(card)
+        for batch in P17_K1_BATCHES:
+            v = 0.3 * torch.randn((batch, 128, 128, 2), generator=gen, device=dev)
+            div = S.divergence(v * masks.velocity_mask).contiguous()
+            args = (div, torch.zeros_like(div), masks.planes, 1e-8, 500, 1)
+            before = K.pressure_cg_cuda.launches
+            xk, ik = K.pressure_cg(*args)
+            xp, ip = K.pressure_cg_plain(*args)
+            torch.cuda.synchronize(dev)
+            diff, scale = rel_err(xk, xp)
+            res_k = float((K.apply_A_planes(masks.planes, xk) - div).abs().max())
+            case = dict(card=card, batch=batch, max_diff=diff, max_abs=scale, residual=res_k,
+                        iterations=ik.tolist(), plain_iterations=ip.tolist(),
+                        launches=K.pressure_cg_cuda.launches - before, on=str(xk.device))
+            log("17b K1 " + json.dumps(case))
+            # phase 3's tolerances
+            if not (diff <= 1e-4 * scale and res_k < 1e-3 and case["launches"] == 1
+                    and xk.device == dev and torch.cuda.current_device() == 0):
+                raise AssertionError(f"17b: K1 on cuda:{card} {case}")
+            if card == P17_KERNEL_CARDS[0] and batch == N_TEST:
+                with torch.cuda.device(dev):
+                    kernel_ms = cuda_ms(lambda: K.pressure_cg_cuda(*args), reps=K1_REPS)
+                    plain_ms = cuda_ms(lambda: K.pressure_cg_plain(*args), reps=2)
+                bound_ms, bound_by = cg_bound_ms(batch, ik.tolist())
+                out["k1_time"] = dict(card=card, ms=kernel_ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)
+            out["k1"].append(case)
+        del masks, v, div, xk, xp
+
+        shape = (K2_BATCH, FRAMES, h, h, cin)
+        x = torch.randn(shape, generator=gen, device=dev)
+        w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev) / (27 * cin) ** 0.5
+        wf = C.flatten_weight(w)
+        xn = x.permute(0, 4, 1, 2, 3)
+        with tf32_flag(False):
+            plain = C.conv3d_fused_plain(x, wf)
+        with tf32_flag(True):
+            lib, _ = rel_err(F.conv3d(xn, w, padding=1).permute(0, 2, 3, 4, 1), plain)
+            before = dict(C.conv3d_fused_cuda.launches)
+            got = C.conv3d_fused(x, wf)
+        xb, wbf = x.bfloat16(), C.flatten_weight(w.bfloat16())
+        ref_b = C.conv3d_fused_plain(xb, wbf)
+        got_b = C.conv3d_fused(xb, wbf)
+        torch.cuda.synchronize(dev)
+        launched = {m: n - before[m] for m, n in C.conv3d_fused_cuda.launches.items()}
+        diff, scale = rel_err(got, plain)
+        diff_b, scale_b = rel_err(got_b, ref_b)
+        case = dict(card=card, shape=list(shape), tf32_max_diff=diff, max_abs=scale,
+                    cudnn_tf32_diff=lib, bf16_max_diff=diff_b, bf16_max_abs=scale_b,
+                    launches=launched, on=str(got.device))
+        log("17b K2 " + json.dumps(case))
+        # phase 6's tolerances: TF32 within twice cuDNN's TF32 error + 1e-4 and
+        # 5e-3 of max; bf16 within 1e-2 of max
+        if not (diff <= 2 * lib + 1e-4 * scale and diff <= 5e-3 * scale
+                and diff_b <= 1e-2 * scale_b and got.device == dev
+                and launched == dict(dict.fromkeys(C.MODES, 0), tf32=1, bf16=1)
+                and torch.cuda.current_device() == 0):
+            raise AssertionError(f"17b: K2 on cuda:{card} {case}")
+        if card == P17_KERNEL_CARDS[0]:
+            with torch.cuda.device(dev), tf32_flag(True):
+                kernel_ms = cuda_ms(lambda: C.conv3d_fused(x, wf), reps=K2_REPS)
+                plain_ms = cuda_ms(lambda: C.conv3d_fused_plain(x, wf), reps=1)
+                library_ms = cuda_ms(lambda: F.conv3d(xn, w, padding=1), reps=K2_REPS)
+            bound_ms, bound_by = conv_bound_ms(K2_BATCH, h, cin, cout, torch.float32)
+            out["k2_time"] = dict(card=card, ms=kernel_ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        out["k2"].append(case)
+        del x, w, wf, xn, plain, got, xb, wbf, ref_b, got_b
+        with torch.cuda.device(dev):
+            torch.cuda.empty_cache()
+    log("17b times on cuda:%d " % P17_KERNEL_CARDS[0]
+        + json.dumps(dict(k1=out["k1_time"], k2=out["k2_time"])))
+    return out
+
+
+def p17_cli(cmd: list, name: str, timeout: int = 420) -> tuple:
+    """Run one 17f command from the repository root; returns (seconds,
+    stdout + stderr), its output also saved under P17_DIR; fails on a
+    non-zero exit."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=str(ROOT),
+                          env=env)
+    seconds = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    (P17_DIR / f"{name}.log").write_text(text)
+    if proc.returncode != 0:
+        raise AssertionError(f"17f {name} exited {proc.returncode}:\n{text[-4000:]}")
+    return seconds, text
+
+
+def phase_p17_cli(errors: list) -> dict:
+    """17f: `torchrun --nproc_per_node=4 -m safediffcon_torch.cli.main
+    burgers pretrain`, the same command with no launcher (the command line
+    starts one worker per card), and `smoke pretrain --sp 2 --conv-impl
+    pallas` on four torchrun ranks (`--cli-rank`, which prints each rank's
+    K2 counts): each exits 0 and logs its NCCL group; the smoke ranks each
+    launch K2, 90 times per step. A failed command is added to `errors`
+    and the next one still runs."""
+    cli = P17_DIR / "cli"
+    b_data, s_data = cli / "burgers" / "burgers.npz", cli / "smoke" / "smoke.npz"
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={P17_CARDS}"]
+    b_args = ["burgers", "pretrain", "--data", str(b_data), "--steps", str(P17_CLI_STEPS),
+              "--steps-per-call", "2"]
+    res = {}
+    group = f"rank 0 of {P17_CARDS} in the nccl process group"
+    for name, cmd, marks in (
+            ("torchrun", torchrun + ["-m", "safediffcon_torch.cli.main"] + b_args
+             + ["--out", str(cli / "b_torchrun")], (group,)),
+            ("spawn", [sys.executable, "-m", "safediffcon_torch.cli.main"] + b_args
+             + ["--out", str(cli / "b_spawn")],
+             (f"{P17_CARDS} CUDA devices visible: starting one rank per card", group))):
+        try:
+            seconds, text = p17_cli(cmd, name)
+        except AssertionError as e:
+            errors.append(str(e))
+            continue
+        missing = [m for m in marks if m not in text]
+        log(f"17f {name} burgers pretrain --steps {P17_CLI_STEPS}: rc 0 in {seconds:.1f} s; "
+            f"missing from its log: {missing}")
+        if missing:
+            errors.append(f"17f {name}: the log lacks {missing}")
+        res[name] = dict(seconds=seconds)
+    cmd = torchrun + [str(ROOT / "chip_smoke.py"), "--cli-rank", "smoke", "pretrain", "--data",
+                      str(s_data), "--out", str(cli / "s_sp2"), "--steps", str(P13_STEPS),
+                      "--sp", "2", "--conv-impl", "pallas"]
+    try:
+        seconds, text = p17_cli(cmd, "smoke_sp2")
+    except AssertionError as e:
+        errors.append(str(e))
+        return res
+    reps = sorted((json.loads(ln[5:]) for ln in text.splitlines() if ln.startswith("P13A ")),
+                  key=lambda d: d["rank"])
+    n_convs = sum(n for *_, n in K2_SHAPES)
+    k2 = [sum(rep["k2"].values()) + rep["k2_simt"] for rep in reps]
+    log(f"17f torchrun --nproc_per_node={P17_CARDS} smoke pretrain --sp 2 --conv-impl pallas "
+        f"--steps {P13_STEPS}: rc 0 in {seconds:.1f} s; "
+        + "; ".join(f"rank {rep['rank']}: {rep['group']}, K2 {rep['k2']} + {rep['k2_simt']} "
+                    f"SIMT" for rep in reps))
+    if (len(reps) != P17_CARDS or k2 != [3 * n_convs * P13_STEPS] * P17_CARDS
+            or not all(rep["group"].startswith(f"nccl group of {P17_CARDS}") for rep in reps)):
+        errors.append(f"17f smoke --sp 2: {reps}")
+    res["smoke_sp2"] = dict(seconds=seconds, k2_per_rank=k2,
+                            k2_modes=[rep["k2"] for rep in reps],
+                            k2_simt=[rep["k2_simt"] for rep in reps])
+    return res
+
+
+def _p17_data(burgers, tokamak, smoke) -> None:
+    """17's data: P17_SPLITS Burgers and tokamak sims, the command line's
+    smoke (16 + 8 + 8, on K1) and Burgers generate-data; phase 13's smoke
+    files."""
+    P17_DIR.mkdir(parents=True, exist_ok=True)
+    n_train, n_cal, n_test = P17_SPLITS
+    burgers.generate_burgers_dataset(str(P17_DIR / "burgers.npz"), n_train=n_train,
+                                     n_cal=n_cal, n_test=n_test, seed=0, solve_batch=4096,
+                                     device="cuda")
+    tokamak.generate_tokamak_dataset(str(P17_DIR / "tokamak.npz"), n_train=n_train,
+                                     n_cal=n_cal, n_test=n_test, seed=0, gen_batch=8192,
+                                     device="cuda")
+    cli = P17_DIR / "cli"
+    s_train, s_cal, s_test = CLI_S_SPLITS
+    run_cli(["smoke", "generate-data", "--n-train", str(s_train), "--n-cal", str(s_cal),
+             "--n-test", str(s_test), "--out", str(cli / "smoke")])
+    run_cli(["burgers", "generate-data", "--n-train", str(CLI_B_SPLITS[0]), "--n-cal",
+             str(CLI_B_SPLITS[1]), "--n-test", str(CLI_B_SPLITS[2]), "--out",
+             str(cli / "burgers")])
+    path = str(cli / "smoke" / "smoke.npz")
+    save_p13_smoke(*(smoke.SmokeDataset.load(path, s) for s in ("train", "cal", "test")))
+
+
+def p17_check(ranks: list, errors: list, ref: dict) -> dict:
+    """17a and 17c-e: each rank's results against their exact values, one
+    process's (`ref`) and the launch counts its share implies; every
+    failed check is listed in `errors`."""
+    res = {}
+
+    def need(ok: bool, what: str) -> None:
+        if not ok:
+            errors.append(what)
+
+    import safediffcon_torch.tasks.smoke as smoke
+
+    n_convs = sum(n for *_, n in K2_SHAPES)
+    lr = smoke.SmokePretrainConfig().lr
+    got = [g.get("a") for g in ranks]
+    if all(got):
+        slow = {k: max(g["all_reduce_ms"][k] for g in got) for k in P17_GRADS}
+        bus = {k: 2 * (P17_CARDS - 1) / P17_CARDS * 4 * n / (slow[k] / 1e3) / 1e9
+               for k, n in P17_GRADS.items()}
+        res["a"] = dict(all_reduce_ms=slow, bus_gb_per_s=bus,
+                        captured_vs_eager=[g["captured_vs_eager"] for g in got])
+        log("17a " + json.dumps(dict(res["a"], exact=[g["exact"] for g in got],
+                                     route=[g["collective_route"] for g in got])))
+        for r, g in enumerate(got):
+            need(all(g["exact"].values()) and g["collective_route"] == "native"
+                 and not any(g["captured_vs_eager"]),
+                 f"17a rank {r}: {g['exact']} {g['collective_route']} {g['captured_vs_eager']}")
+    else:
+        errors.append("17a: a rank has no result")
+
+    rb = ref["b"]
+    for r, g in enumerate(gr.get("b") for gr in ranks):
+        if g is None:
+            errors.append(f"17c pretrain: rank {r} has no result")
+            continue
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], rb["losses"]))
+        wabs = max(float((g["params"][k] - v).abs().max()) for k, v in rb["params"].items())
+        tc = g["counts"]["k2"]["3xtf32"]
+        log(f"17c pretrain rank {r} ({g['route']}): losses {g['losses']} against "
+            f"{rb['losses']} (rel {lerr:.2e}); weights max |diff| {wabs / lr:.3f} lr; K2 {tc} "
+            f"3xTF32, {g['counts']['k2_simt']} SIMT; {g['seconds']:.2f} s, peak "
+            f"{g['peak_gb']:.2f} GB (one process {rb['seconds']:.2f} s, {rb['peak_gb']:.2f} GB)")
+        need(lerr <= 1e-5 and wabs <= 2.5 * lr, f"17c pretrain rank {r}: {lerr} {wabs}")
+        need(tc == 3 * n_convs * P13_STEPS and not g["counts"]["k2_simt"]
+             and sum(g["counts"]["k2"].values()) == tc, f"17c pretrain rank {r}: {g['counts']}")
+    if all(gr.get("b") for gr in ranks):
+        p0 = ranks[0]["b"]["params"]
+        need(all(torch.equal(v, gr["b"]["params"][k]) for gr in ranks for k, v in p0.items()),
+             "17c pretrain: the ranks' weights differ")
+        res["b"] = dict(k2_per_rank=[gr["b"]["counts"]["k2"]["3xtf32"] for gr in ranks],
+                        peak_gb=[gr["b"]["peak_gb"] for gr in ranks], ref_peak_gb=rb["peak_gb"])
+
+    rd = ref["d"]
+    for r, g in enumerate(gr.get("d") for gr in ranks):
+        if g is None:
+            errors.append(f"17c serving: rank {r} has no result")
+            continue
+        qerr = abs(g["q"] - rd["q"]) / abs(rd["q"])
+        log(f"17c serving rank {r} ({g['route']}): Q {g['q']:.6g} against {rd['q']:.6g} (rel "
+            f"{qerr:.2e}); K1 {g['counts']['k1']} (one process {rd['counts']['k1']}), K2 "
+            f"{sum(g['counts']['k2'].values())}; {g['seconds']:.2f} s (one process "
+            f"{rd['seconds']:.2f} s); metrics {json.dumps(g['metrics'])}")
+        need(qerr <= 1e-5 and g["counts"]["k1"] == SOLVER_STEPS
+             and not sum(g["counts"]["k2"].values()), f"17c serving rank {r}: {g['counts']}")
+        for name, v in rd["metrics"].items():
+            # as 13(d): K1 solves each rank's chunk of 2 as one system
+            tol = (100 / P13_SMOKE_SIMS + 1e-9 if "percentage" in name
+                   else 1e-3 * abs(v) + 1e-9)
+            need(abs(g["metrics"][name] - v) <= tol, f"17c serving rank {r}: {name}")
+    if all(gr.get("d") for gr in ranks):
+        res["d"] = dict(k1_per_rank=[gr["d"]["counts"]["k1"] for gr in ranks],
+                        q=[gr["d"]["q"] for gr in ranks], q_ref=rd["q"])
+
+    rc = ref["c"]
+    for part, label in (("c", "sp 4"), ("c2", "dp 2 x sp 2")):
+        for r, g in enumerate(gr.get(part) for gr in ranks):
+            if g is None:
+                errors.append(f"17d {label}: rank {r} has no result")
+                continue
+            lo, hi = g["rows"]
+            oerr = _rel(g["out"], rc["out"][lo:hi])
+            gerr = max(_rel(a, b) for a, b in zip(g["grads"], rc["grads"]))
+            k2 = g["counts"]["k2"]
+            log(f"17d {label} rank {r} ({g['route']}): rows {lo}:{hi}, {g['frames']} + 2 frames; "
+                f"out rel {oerr:.2e}, gradients rel {gerr:.2e}; K2 {k2} tensor-core, "
+                f"{g['counts']['k2_simt']} SIMT; peak {g['peak_gb']:.2f} GB above the weights "
+                f"and inputs (unsharded {rc['peak_gb']:.2f} GB)")
+            frames = FRAMES // (P17_CARDS if part == "c" else 2)
+            need(g["frames"] == frames and oerr <= 1e-4 and gerr <= 1e-4
+                 and sum(k2.values()) + g["counts"]["k2_simt"] == 3 * n_convs,
+                 f"17d {label} rank {r}: {oerr} {gerr} {g['counts']}")
+        if all(gr.get(part) for gr in ranks):
+            res[part] = dict(k2_per_rank=[gr[part]["counts"]["k2"] for gr in ranks],
+                             simt_per_rank=[gr[part]["counts"]["k2_simt"] for gr in ranks],
+                             peak_gb=[gr[part]["peak_gb"] for gr in ranks],
+                             ref_peak_gb=rc["peak_gb"])
+
+    for part, name in (("eb", "burgers"), ("et", "tokamak")):
+        one = ref[part]
+        for r, g in enumerate(gr.get(part) for gr in ranks):
+            if g is None:
+                errors.append(f"17e {name}: rank {r} has no result")
+                continue
+            lerr = max(abs(a - b) / abs(b) for a, b in zip(g["cmp_train"]["losses"],
+                                                          one["cmp_train"]["losses"]))
+            qerr = abs(g["cmp_serve"]["q"] - one["cmp_serve"]["q"]) / abs(one["cmp_serve"]["q"])
+            merr = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                       for a, b in zip(g["cmp_serve"]["m"], one["cmp_serve"]["m"]) for k in b)
+            bt, bs = g["bitwise_train"], g["bitwise_serve"]
+            log(f"17e {name} rank {r}: float32 pretrain losses rel {lerr:.2e}, Q-hat "
+                f"{g['cmp_serve']['q']:.6g} against {one['cmp_serve']['q']:.6g} (rel "
+                f"{qerr:.2e}), metrics max rel {merr:.2e}, graphs {g['cmp_serve']['counts']}; "
+                f"bf16 captured against eager: pretrain {json.dumps({k: bt[k] for k in ('losses', 'params', 'ema')})}, "
+                f"serving Q {bs['q']} metrics {bs['m']} (graphs {bs['counts']}, eager "
+                f"{bs['eager_counts']}; {bs['captured_s']:.1f} s against {bs['eager_s']:.1f} s); "
+                f"steps/s eager {g['speed_eager']['steps_per_s']:.2f} captured "
+                f"{g['speed_captured']['steps_per_s']:.2f} (one card captured "
+                f"{one['speed_captured']['steps_per_s']:.2f}, at a rank's batch "
+                f"{one['speed_share']['steps_per_s']:.2f}); peak GB eager "
+                f"{g['speed_eager']['peak_gb']:.2f} captured {g['speed_captured']['peak_gb']:.2f} "
+                f"(one card {one['speed_captured']['peak_gb']:.2f}); K1 / K2 {g['k1_k2']}; "
+                f"seconds compare {g['cmp_s']:.1f} bitwise {g['bitwise_s']:.1f}")
+            need(lerr <= 1e-5 and qerr <= 1e-5, f"17e {name} rank {r}: {lerr} {qerr}")
+            need(merr <= 1e-3, f"17e {name} rank {r}: metrics {merr}")
+            n_graphs = dict(graphs=2, replays=1 + len(P17_EVAL_SEEDS) - 2)
+            need(g["cmp_serve"]["counts"] == bs["counts"] == n_graphs
+                 and bs["eager_counts"] == dict(graphs=0, replays=0),
+                 f"17e {name} rank {r}: graph counts {g['cmp_serve']['counts']} {bs}")
+            need(not any(bt[k] for k in ("losses", "params", "ema")) and not bs["q"]
+                 and not bs["m"], f"17e {name} rank {r}: captured differs from eager {bt} {bs}")
+            need(g["speed_eager"]["finite"] and g["speed_captured"]["finite"]
+                 and not any(g["k1_k2"]), f"17e {name} rank {r}: {g['k1_k2']}")
+        if all(gr.get(part) for gr in ranks):
+            res[part] = dict(
+                steps_per_s=dict(one_card_captured=one["speed_captured"]["steps_per_s"],
+                                 one_card_captured_rank_batch=one["speed_share"]["steps_per_s"],
+                                 four_eager=min(gr[part]["speed_eager"]["steps_per_s"]
+                                                for gr in ranks),
+                                 four_captured=min(gr[part]["speed_captured"]["steps_per_s"]
+                                                   for gr in ranks)),
+                peak_gb=dict(one_card=one["speed_captured"]["peak_gb"],
+                             one_card_rank_batch=one["speed_share"]["peak_gb"],
+                             eager=[gr[part]["speed_eager"]["peak_gb"] for gr in ranks],
+                             captured=[gr[part]["speed_captured"]["peak_gb"] for gr in ranks]),
+                batch=P17_BATCH[name])
+            log(f"17e {name} " + json.dumps(res[part]))
+    return res
+
+
+def cards_main(n_cards: int) -> int:
+    """`python3 chip_smoke.py --cards 4`: phase 2's build, then phase 17."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards != P17_CARDS or count != n_cards:
+        print(f"chip_smoke --cards {n_cards}: needs exactly {P17_CARDS} visible CUDA cards and "
+              f"--cards {P17_CARDS}; {count} visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from safediffcon_torch.ops import build
+    from safediffcon_torch.ops import conv3d_mxu as C
+    from safediffcon_torch.ops import pressure_cg as K
+    from safediffcon_torch.solvers import smoke as S
+    import safediffcon_torch.tasks.burgers as burgers
+    import safediffcon_torch.tasks.smoke as smoke
+    import safediffcon_torch.tasks.tokamak as tokamak
+
+    card = card_line()
+    log(f"device: {torch.cuda.get_device_name(0)} x {count}; nvidia-smi:\n{card}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True).stdout
+    log(f"nvidia-smi topo -m:\n{topo}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} nccl "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    libs = build.build_all(["pressure_cg", "conv3d_wgmma", "conv3d_simt"])
+    log(f"phase build: {', '.join(str(p.relative_to(ROOT)) for p in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    laps = {}
+
+    def lap(name):
+        torch.cuda.synchronize()
+        laps[name] = time.perf_counter() - t_start - sum(laps.values())
+
+    shutil.rmtree(P17_DIR, ignore_errors=True)
+    _p17_data(burgers, tokamak, smoke)
+    lap("data")
+    kernels = phase_p17_kernels(K, C, S)
+    lap("17b")
+
+    # one process on card 0: phase 13's references and 17e's
+    ref = {}
+    with tf32_flag(False):
+        for name in ("b", "c", "d"):
+            ref[name] = P13_PARTS[name]()
+            torch.cuda.empty_cache()
+    ref["eb"] = p17_task("burgers", one_process=True)
+    ref["et"] = p17_task("tokamak", one_process=True)
+    torch.cuda.empty_cache()
+    lap("one process")
+
+    ranks, errors = p13_spawn(P17_RANK_PARTS, P17_CARDS, "nccl")
+    lap("ranks")
+    res = p17_check(ranks, errors, ref)
+    res["f"] = phase_p17_cli(errors)
+    lap("17f")
+    log(f"phase 17 seconds {json.dumps(laps)}; total {time.perf_counter() - t_start:.1f} s")
+    if errors:
+        raise AssertionError("phase 17: " + "\n".join(errors))
+
+    k1_launches = {f"17b cuda:{c['card']} B = {c['batch']}": c["launches"] for c in kernels["k1"]}
+    k1_launches["17c DP 4 serving, per rank"] = res["d"]["k1_per_rank"]
+    k2_launches = {f"17b cuda:{c['card']}": c["launches"] for c in kernels["k2"]}
+    k2_launches.update({"17c DP 4 pretrain, per rank (3xTF32)": res["b"]["k2_per_rank"],
+                        "17d SP 4, per rank": res["c"]["k2_per_rank"],
+                        "17d DP 2 x SP 2, per rank": res["c2"]["k2_per_rank"],
+                        "17f smoke --sp 2, per rank": res["f"]["smoke_sp2"]["k2_modes"]})
+    main_k1 = sum(res["d"]["k1_per_rank"])
+    main_k2 = (sum(res["b"]["k2_per_rank"]) + sum(res["f"]["smoke_sp2"]["k2_per_rank"])
+               + sum(sum(d.values()) for p in ("c", "c2") for d in res[p]["k2_per_rank"]))
+    k1t, k2t = kernels["k1_time"], kernels["k2_time"]
+    print(json.dumps({"kernels": [
+        dict(name="pressure_cg", route="cuda", source="safediffcon_torch/csrc/pressure_cg.cu",
+             replaces="safediffcon_tpu/ops/pressure_cg.py:42", launches=main_k1,
+             main_path_launches=k1_launches,
+             max_abs_err=max(c["max_diff"] for c in kernels["k1"]),
+             ms=k1t["ms"], plain_ms=k1t["plain_ms"], bound_ms=k1t["bound_ms"],
+             bound_by=k1t["bound_by"], library_ms=None, timed_on=f"cuda:{k1t['card']}"),
+        dict(name="conv3d_fused", route="cuda", source="safediffcon_torch/csrc/conv3d_wgmma.cu",
+             replaces="safediffcon_tpu/ops/conv3d_mxu.py:46", launches=main_k2,
+             main_path_launches=k2_launches,
+             max_abs_err=max(c["tf32_max_diff"] for c in kernels["k2"]),
+             ms=k2t["ms"], plain_ms=k2t["plain_ms"], bound_ms=k2t["bound_ms"],
+             bound_by=k2t["bound_by"], library_ms=k2t["library_ms"],
+             timed_on=f"cuda:{k2t['card']}")]}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def serving_graphs_only() -> int:
     """`python3 chip_smoke.py --serving-graphs`: B2's and T2's data, then
     phase 16 alone at DDIM 200 (the configs' depth; the whole run takes
@@ -3754,4 +4493,6 @@ if __name__ == "__main__":
         sys.exit(cli_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--serving-graphs"]:
         sys.exit(serving_graphs_only())
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_main(int(sys.argv[2]) if sys.argv[2:3] else 0))
     sys.exit(main())

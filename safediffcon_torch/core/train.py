@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from safediffcon_torch.core.diffusion import DiffusionConfig, draw_t_noise, p_losses
@@ -450,7 +451,9 @@ class CapturedCall:
     def __init__(self, device, warm_calls: int = 1,
                  generators: Sequence[torch.Generator] = (), pool=None):
         self.warm_calls = warm_calls
-        self.generators = list(generators)
+        # a data-parallel rank's sliced generator draws from the one it wraps
+        self.generators = [g.generator if isinstance(g, pmesh.SlicedGenerator) else g
+                           for g in generators]
         self.pool = pool
         self.stream = torch.cuda.Stream(device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -472,8 +475,12 @@ class CapturedCall:
             graph = torch.cuda.CUDAGraph()
             for g in self.generators:
                 graph.register_generator_state(g)
-            pool = {} if self.pool is None else {"pool": self.pool}
-            with torch.cuda.graph(graph, stream=self.stream, **pool):
+            kw = {} if self.pool is None else {"pool": self.pool}
+            if dist.is_available() and dist.is_initialized():
+                # NCCL's watchdog thread queries its events while a rank
+                # captures, which a global capture would refuse
+                kw["capture_error_mode"] = "thread_local"
+            with torch.cuda.graph(graph, stream=self.stream, **kw):
                 self.out = fn()
             self.graph = graph
             graph.replay()
@@ -577,14 +584,17 @@ class Graphs:
 
     def on(self, sh: pmesh.BatchShard) -> bool:
         """Whether a call on a batch split as `sh` runs as a graph: with
-        `capture`, on a CUDA device, in one process (NCCL is not captured:
-        a split batch runs eagerly, which the log says once)."""
+        `capture`, on a CUDA device, in one process or split over an NCCL
+        group, whose collectives the graph holds (`pmesh.graph_collectives`).
+        A batch split over another backend (gloo) runs eagerly, which the
+        log says once. The answer depends on the group and the flags alone,
+        so every rank takes the same route."""
         if not (self.capture and graphs_on(self.device)):
             return False
-        if sh.split:
+        if sh.split and not pmesh.graph_collectives(sh.group):
             if not self._split_logged:
-                log.info("%s: eager calls (a CUDA graph covers one process, not %d ranks)",
-                         self.name, sh.dp)
+                log.info("%s: eager calls (a CUDA graph holds NCCL collectives only, not "
+                         "those of these %d ranks)", self.name, sh.dp)
                 self._split_logged = True
             return False
         return True
@@ -743,15 +753,16 @@ def run_train_loop(
     The parameters and their EMA are broadcast from rank 0 first.
 
     `capture` (the counterpart of JAX's jitted step and `lax.scan` chunk):
-    on a CUDA model in one process, every full chunk of `steps_per_call`
-    steps is one CUDA graph (`ChunkGraph`), captured once and replayed with
-    the same batches, draws and step values as the eager loop. `step_fn`
+    on a CUDA model, every full chunk of `steps_per_call` steps is one CUDA
+    graph (`ChunkGraph`), captured once and replayed with the same batches,
+    draws and step values as the eager loop; a data-parallel split over an
+    NCCL group captures the gradient all-reduce with the steps. `step_fn`
     then takes `scalars=` (its step's device row of
     `TrainState.scalar_table`) for `apply_gradients`, and `generators` are
     the CUDA generators it draws from. A chunk shorter than
     `steps_per_call` (the last, or one clamped at a checkpoint) runs
-    eagerly. CPU models run eagerly, and so does a data-parallel split
-    (NCCL is not captured), which the log says once."""
+    eagerly. CPU models run eagerly, and so does a split over gloo, whose
+    collectives run on the host, which the log says once."""
     if checkpoint_dir:
         from safediffcon_torch.utils.checkpoint import save_checkpoint
     device = next(state.model.parameters()).device
@@ -850,11 +861,11 @@ def run_train_loop(
         return out
 
     graph = None
-    if capture and cuda:
-        if split:
+    if capture and graphs_on(device):
+        if split and not pmesh.graph_collectives(shard.group):
             if logger:
-                logger.info("%s: eager steps (a CUDA graph covers one process, not %d ranks)",
-                            log_prefix, shard.dp)
+                logger.info("%s: eager steps (a CUDA graph holds NCCL collectives only, not "
+                            "those of these %d ranks)", log_prefix, shard.dp)
         else:
             graph = ChunkGraph(step_fn, state, k, (take,) + sample_shape, generators)
 

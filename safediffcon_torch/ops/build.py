@@ -5,11 +5,14 @@ interface under `build/kernels/` at the repository root, named by a hash of
 the source, every `csrc/` header it includes and the compiler flags, so an
 edited source or header rebuilds and an unchanged one is reused. The
 library is loaded with ctypes. Nothing here runs at import time: the first
-call of a kernel's wrapper builds it.
+call of a kernel's wrapper builds it. Processes that build at once (the
+ranks of one launch) take turns on a lock file beside the libraries: the
+first compiles, the others find its libraries by their hash.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -69,13 +72,23 @@ def build(name: str) -> Path:
 
 def build_all(names: List[str]) -> List[Path]:
     """Compile the named sources that have no library of the same hash yet,
-    one nvcc process each, all started together; returns the libraries."""
+    one nvcc process each, all started together, holding the build
+    directory's lock; returns the libraries."""
     outs = [library_path(name) for name in names]
+    if all(out.exists() for out in outs):
+        return outs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released as the file closes
+        _compile_missing(names, outs)
+    return outs
+
+
+def _compile_missing(names: List[str], outs: List[Path]) -> None:
     jobs = []
     for name, out in zip(names, outs):
         if out.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs.append((name, out, tmp, subprocess.Popen(
@@ -89,7 +102,6 @@ def build_all(names: List[str]) -> List[Path]:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return outs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -137,14 +137,17 @@ def kernel_mode(dtype) -> str:
 
 
 def _launch(fn, x, args, counter):
-    """Run one launch on the current stream, raising on a refused launch;
-    time it when `counter.events` is a list. The caller counts it."""
+    """Run one launch on the current stream of x's card, with that card the
+    current device (the kernel's attributes are set on the current one),
+    raising on a refused launch; time it when `counter.events` is a list.
+    The caller counts it."""
     stream = torch.cuda.current_stream(x.device)
     events = counter.events
     if events is not None:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(stream)
-    err = fn(*args, stream.cuda_stream)
+    with torch.cuda.device(x.device):
+        err = fn(*args, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"{counter.__name__}: kernel launch failed with CUDA error {err}")
     if events is not None:

@@ -147,7 +147,9 @@ def max_active_clusters(n: int) -> int:
 
 def pressure_cg_cuda(div, guess, planes, accuracy: float, max_iter: int,
                      check_every: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1 on the current stream with `cluster_layout`'s layout:
+    """Launch K1 on the current stream of the tensors' card (made the
+    current device for the launch: the kernel's attributes are set there)
+    with `cluster_layout`'s layout:
     returns (x, iterations per chunk). Raises for a grid the kernel cannot
     take. Counts its launches in `pressure_cg_cuda.launches`; when
     `pressure_cg_cuda.iterations` is a list, appends each launch's
@@ -170,9 +172,10 @@ def pressure_cg_cuda(div, guess, planes, accuracy: float, max_iter: int,
     if events is not None:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(stream)
-    err = fn(div.data_ptr(), guess.data_ptr(), planes.data_ptr(), x.data_ptr(), iters.data_ptr(),
-             b, n, float(accuracy), int(max_iter), int(check_every), lay.cluster, lay.smem_bytes,
-             stream.cuda_stream)
+    with torch.cuda.device(div.device):
+        err = fn(div.data_ptr(), guess.data_ptr(), planes.data_ptr(), x.data_ptr(),
+                 iters.data_ptr(), b, n, float(accuracy), int(max_iter), int(check_every),
+                 lay.cluster, lay.smem_bytes, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"pressure_cg kernel launch failed with CUDA error {err}")
     pressure_cg_cuda.launches += 1

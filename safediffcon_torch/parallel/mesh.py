@@ -25,11 +25,12 @@ HF-Accelerate DDP did, and writes its collectives out:
     differentiable collectives over the frame group.
 
 A sharded run gives the single-device result up to the reassociation of
-sums. NCCL groups use the native collectives. Any other backend (gloo, which
-takes CUDA tensors only for all-reduce and broadcast) all-gathers by an
-all-reduce of a zero-filled buffer holding each rank's part in its own slot,
-which is exact (x + 0 = x), and reduce-scatters by an all-reduce followed by
-the rank's slice (`collective_route` names the route).
+sums. NCCL groups use the native collectives, which a captured CUDA graph
+holds like any other kernel (`graph_collectives`). Any other backend (gloo,
+which takes CUDA tensors only for all-reduce and broadcast) all-gathers by
+an all-reduce of a zero-filled buffer holding each rank's part in its own
+slot, which is exact (x + 0 = x), and reduce-scatters by an all-reduce
+followed by the rank's slice (`collective_route` names the route).
 """
 from __future__ import annotations
 
@@ -179,6 +180,15 @@ def collective_route(group) -> str:
     """"native" on an NCCL group; "all-reduce" elsewhere, where the
     all-gather and the reduce-scatter are built from an all-reduce."""
     return "native" if dist.get_backend(group) == "nccl" else "all-reduce"
+
+
+def graph_collectives(group) -> bool:
+    """Whether collectives over `group` can run inside a captured CUDA
+    graph: NCCL's can, being kernels on the card that a graph records like
+    any other; gloo's run on the host and cannot. False without a process
+    group. Every rank of a group gets the same answer, so every rank makes
+    the same capture decision."""
+    return dist.is_available() and dist.is_initialized() and dist.get_backend(group) == "nccl"
 
 
 def _stacked_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -474,6 +484,14 @@ class BatchShard:
             return self.take(draws)
         return type(draws)(self.draws(d) for d in draws)
 
+    def local(self, fn, *batch, draws, **kw):
+        """fn(*this rank's rows of each tensor of `batch`, init_noise=,
+        step_noise= this rank's rows of the whole batch's sampler draws
+        (init, steps), **kw): how a call handed the whole batch and its
+        draws (a captured one) computes its own rows."""
+        init, steps = self.draws(draws)
+        return fn(*map(self.take, batch), init_noise=init, step_noise=steps, **kw)
+
     def reduce(self, loss: torch.Tensor,
                grads: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The global loss and gradients from this rank's: averaged over the
@@ -498,7 +516,9 @@ class BatchShard:
             flat /= self.dp
         out = list(flat.split([p.numel() for p in parts]))
         if with_loss:
-            loss = out.pop(0).reshape(())
+            # a copy: a view would keep the whole flattened gradient alive
+            # for as long as the caller keeps the loss
+            loss = out.pop(0).reshape(()).clone()
         elif self.split:
             loss = self.sum(loss) / self.dp
         return loss, [v.view_as(g) for v, g in zip(out, grads)]

@@ -35,7 +35,7 @@ weights, samples and rollouts are gathered (Q-hat and the metrics are
 computed whole on every rank), and gradients are averaged before each
 optimizer step. `reweights` stays whole on every rank.
 
-On a CUDA pipeline in one process (`capture`, on by default), each
+On a CUDA pipeline (`capture`, on by default), each
 calibration batch (`_cal_batch`), each evaluation (`_evaluate`: sampling,
 the solver rollout and the metrics), each InfFT step and each full chunk
 of post-training steps is one captured CUDA graph, the counterpart of the
@@ -46,7 +46,9 @@ draws, which are drawn ahead of it as the eager call would draw them. So a
 captured call gives what the eager one gives, bit for bit, and leaves the
 generators where it would. A call of a new shape (a shorter last batch)
 gets a graph of its own; the first call of each graph runs eagerly as its
-warm-up. CPU pipelines and a batch split over data ranks run eagerly.
+warm-up. A batch split over the ranks of an NCCL group is captured with
+its gathers and gradient all-reduce; CPU pipelines and a batch split over
+gloo ranks run eagerly.
 """
 from __future__ import annotations
 
@@ -300,20 +302,23 @@ class BurgersPipeline:
                 base = i * bs + lo
                 if base >= n:  # cal set smaller than the configured batches
                     break
-                sh = pmesh.batch_shard(min(base + chunk, n) - base)
-                rows = sh.take(cal_data[base : min(base + chunk, n)])
+                block = cal_data[base : min(base + chunk, n)]
+                sh = pmesh.batch_shard(len(block))
                 if self.graphs.on(sh):
-                    init, steps = self._draws(self._cal_sampler, rows.shape, noise, generator)
+                    # the whole chunk and its draws: the graph takes this
+                    # rank's rows and gathers every rank's scores and weights
+                    init, steps = self._draws(self._cal_sampler, block.shape, noise, generator)
                     s, w = self.graphs(
-                        "cal", lambda state, Q, init, steps, **w: self._cal_batch(
-                            self._bound(w), state, Q, init_noise=init, step_noise=steps),
-                        state=rows, Q=Q, init=init, steps=steps, **self._weights(params))
+                        "cal", lambda state, Q, init, steps, **w: tuple(map(sh.gather, sh.local(
+                            functools.partial(self._cal_batch, self._bound(w)), state,
+                            draws=(init, steps), Q=Q))),
+                        state=block, Q=Q, init=init, steps=steps, **self._weights(params))
                 else:
-                    state = torch.as_tensor(rows, device=self.device)
-                    s, w = self._cal_batch(params, state, Q,
-                                           **draws_kw(noise, generator, sh))
-                scores.append(sh.gather(s))
-                weights.append(sh.gather(w))
+                    state = torch.as_tensor(sh.take(block), device=self.device)
+                    s, w = map(sh.gather, self._cal_batch(params, state, Q,
+                                                          **draws_kw(noise, generator, sh)))
+                scores.append(s)
+                weights.append(w)
         scores, weights = torch.cat(scores), torch.cat(weights)
         if self.record is not None:
             self.record.update(cal_scores=scores.cpu(), cal_weights=weights.cpu())
@@ -368,13 +373,16 @@ class BurgersPipeline:
         "evaluate"."""
         sh = pmesh.batch_shard(len(test.data))
         if self.graphs.on(sh):
+            # the whole split and its draws: the graph takes this rank's rows
+            # and gathers every rank's samples and rollouts
             init, steps = self._draws(self._sampler, test.data.shape, noise,
                                       self._generator(generator))
             with self._phase("evaluate"):
                 metrics = self.graphs(
-                    ("eval", guided), lambda state, u_target, Q, init, steps, **w: self._evaluate(
-                        self._bound(w), state, u_target, Q, guided=guided, timed=False,
-                        init_noise=init, step_noise=steps),
+                    ("eval", guided), lambda state, u_target, Q, init, steps, **w: sh.local(
+                        functools.partial(self._evaluate, self._bound(w)), state,
+                        draws=(init, steps), u_target=u_target, Q=Q, guided=guided, sh=sh,
+                        timed=False),
                     state=test.data, u_target=test.u_phys, Q=Q, init=init, steps=steps,
                     **self._weights(params))
         else:
@@ -423,7 +431,7 @@ def pretrain(
     micro-batch's (t, noise) in order. `steps_per_call` and `losses`: see
     `run_train_loop`. On a CUDA model each full chunk of `steps_per_call`
     steps is one captured CUDA graph (`run_train_loop(capture=True)`),
-    unless `noise` is given, the batch is split over data ranks or
+    unless `noise` is given, the batch is split over gloo ranks or
     `capture` is False (every step eager, the same values)."""
     num_steps = num_steps or cfg.train_num_steps
     model = build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups, cfg.compute_dtype,

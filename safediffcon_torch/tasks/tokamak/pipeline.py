@@ -37,19 +37,21 @@ weights, samples and rollouts are gathered (Q-hat and the metrics are
 computed whole on every rank), and gradients are averaged before each
 optimizer step. `reweights` stays whole on every rank.
 
-On a CUDA pipeline in one process (`capture`, on by default), each
+On a CUDA pipeline (`capture`, on by default), each
 calibration batch, each evaluation (sampling, the KSTAR rollout and the
 metrics) and each post-training and backward fine-tuning step of
 `run_inference` is one captured CUDA graph, as in the Burgers pipeline
 (`tasks/burgers/pipeline.py`): static inputs refilled before each replay,
 the draws taken ahead of the call as it would take them, the first call
-of each graph eager; the same results bit for bit. CPU pipelines and a
-batch split over data ranks run eagerly.
+of each graph eager; the same results bit for bit. A batch split over the
+ranks of an NCCL group is captured with its gathers and gradient
+all-reduce; CPU pipelines and a batch split over gloo ranks run eagerly.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import time
 from typing import Dict, Iterator, Mapping, Optional, Tuple
@@ -258,18 +260,22 @@ class TokamakPipeline:
                 sl = slice(base, min(base + chunk, n))
                 sh = pmesh.batch_shard(sl.stop - sl.start)
                 if self.graphs.on(sh):
+                    # the whole chunk and its draws: the graph takes this
+                    # rank's rows and gathers every rank's scores and weights
                     init, steps = self._draws(cal.data[sl].shape, noise, generator)
                     s, w = self.graphs(
-                        "cal", lambda state, target, Q, init, steps, w: self._cal_batch(
-                            w, state, target, Q, init_noise=init, step_noise=steps),
+                        "cal", lambda state, target, Q, init, steps, w: tuple(map(
+                            sh.gather, sh.local(functools.partial(self._cal_batch, w), state,
+                                                target, draws=(init, steps), Q=Q))),
                         state=cal.data[sl], target=cal.state_phys[sl], Q=Q, init=init,
                         steps=steps, w=self._weights(params))
                 else:
-                    s, w = self._cal_batch(params, self._tensor(sh.take(cal.data[sl])),
-                                           self._tensor(sh.take(cal.state_phys[sl])), Q,
-                                           **draws_kw(noise, generator, sh))
-                scores.append(sh.gather(s))
-                weights.append(sh.gather(w))
+                    s, w = map(sh.gather, self._cal_batch(
+                        params, self._tensor(sh.take(cal.data[sl])),
+                        self._tensor(sh.take(cal.state_phys[sl])), Q,
+                        **draws_kw(noise, generator, sh)))
+                scores.append(s)
+                weights.append(w)
         scores, weights = torch.cat(scores), torch.cat(weights)
         if self.record is not None:
             self.record.update(cal_scores=scores.cpu(), cal_weights=weights.cpu())
@@ -329,12 +335,14 @@ class TokamakPipeline:
         guided = self.ccfg.use_guidance if guided is None else guided
         sh = pmesh.batch_shard(len(test.data))
         if self.graphs.on(sh):
+            # the whole split and its draws: the graph takes this rank's rows
+            # and gathers every rank's samples, rollouts and targets
             init, steps = self._draws(test.data.shape, noise, self._generator(generator))
             with self._phase("evaluate"):
                 metrics = self.graphs(
-                    ("eval", guided), lambda state, target, Q, init, steps, w: self._evaluate(
-                        w, state, target, Q, guided=guided, timed=False, init_noise=init,
-                        step_noise=steps),
+                    ("eval", guided), lambda state, target, Q, init, steps, w: sh.local(
+                        functools.partial(self._evaluate, w), state, target,
+                        draws=(init, steps), Q=Q, guided=guided, sh=sh, timed=False),
                     state=test.data, target=test.state_phys, Q=Q, init=init, steps=steps,
                     w=self._weights(params))
         else:
@@ -374,7 +382,7 @@ def pretrain(
     micro-batch's (t, noise) in order. `steps_per_call` and `losses`: see
     `run_train_loop`. On a CUDA model each full chunk of `steps_per_call`
     steps is one captured CUDA graph (`run_train_loop(capture=True)`),
-    unless `noise` is given, the batch is split over data ranks or
+    unless `noise` is given, the batch is split over gloo ranks or
     `capture` is False (every step eager, the same values)."""
     num_steps = num_steps or cfg.train_num_steps
     model = build_model(cfg.dim, cfg.dim_mults, cfg.resnet_block_groups, cfg.compute_dtype,

@@ -19,6 +19,7 @@ from safediffcon_torch.core import sampling as TS
 from safediffcon_torch.core.diffusion import DiffusionConfig
 from safediffcon_torch.core.schedules import make_schedule
 from safediffcon_torch.core.train import CapturedCall, Graphs, StaticCall
+from safediffcon_torch.parallel import mesh as pmesh
 from safediffcon_torch.tasks.burgers import task as TK
 
 torch.set_num_threads(1)
@@ -155,11 +156,14 @@ def test_schedule_host_tables():
 
 class _Shard:
     def __init__(self, dp):
-        self.dp, self.split = dp, dp > 1
+        # no process group: a split batch cannot hold its collectives
+        self.dp, self.split, self.group = dp, dp > 1, None
 
 
 def test_graphs_gate_calls_and_clear(monkeypatch, caplog):
-    """`Graphs`: off without `capture` and for a split batch (logged once);
+    """`Graphs`: off without `capture` and for a batch split over ranks
+    whose collectives a graph cannot hold (logged once), on for one split
+    over NCCL;
     one StaticCall per kind and per set of tensors written in place, all
     on one pool; `counts` of graphs captured and replayed; `clear` frees
     them and the next call takes a new pool."""
@@ -170,6 +174,8 @@ def test_graphs_gate_calls_and_clear(monkeypatch, caplog):
         assert graphs.on(_Shard(1))
         assert not graphs.on(_Shard(2)) and not graphs.on(_Shard(2))
     assert sum("eager calls" in r.getMessage() for r in caplog.records) == 1
+    monkeypatch.setattr(pmesh, "graph_collectives", lambda group: True)  # an NCCL group
+    assert graphs.on(_Shard(2)) and graphs.on(_Shard(1))
     a, b = torch.zeros(2), torch.zeros(2)
 
     def step(x, w):

@@ -17,7 +17,9 @@ number or a weights dict bound at capture time is stale in the replay, and
 the test sees the mismatch. Reading a tensor's value on the host
 (`.item()`, `bool(t)`, `torch.equal`, `nonzero`) or making a tensor from
 host data (other than a number) inside a capture raises, as the card's
-capture would fail.
+capture would fail. A collective (gloo's, on a rank of a test's process
+group) is recorded and replayed like any other operation, as an NCCL
+collective is on the card.
 """
 import contextlib
 
@@ -38,6 +40,16 @@ def _tensors(x):
     elif isinstance(x, (list, tuple)):
         for v in x:
             yield from _tensors(v)
+
+
+def _wait(out) -> None:
+    """Wait for a replayed collective (a gloo rank runs it on a thread of
+    its own; the eager call's wrapper waited for it, which is no ATen op)."""
+    if isinstance(out, (list, tuple)):
+        for v in out:
+            _wait(v)
+    elif isinstance(out, torch.ScriptObject) and hasattr(out, "wait"):
+        out.wait()  # a c10d operation's Work
 
 
 def _assign(out, new) -> None:
@@ -68,7 +80,9 @@ class RecordedGraph:
     def replay(self):
         with torch.no_grad():
             for func, args, kwargs, out in self.ops:
-                _assign(out, func(*args, **kwargs))
+                new = func(*args, **kwargs)
+                _wait(new)
+                _assign(out, new)
         self.replays += 1
 
 

@@ -304,3 +304,145 @@ def cli_burgers_pretrain(out):
     finally:
         BP.pretrain, torch.save = real_pretrain, real_save
     return dict(rc=rc, rank=r, saves=saves, params=got)
+
+
+def _pipeline(task, conf, pipe):
+    if task == "burgers":
+        from safediffcon_torch.tasks.burgers import BurgersConformalConfig, BurgersPipeline
+
+        return BurgersPipeline(BurgersConformalConfig(**conf), device="cpu", **pipe)
+    from safediffcon_torch.tasks.tokamak import TokamakConformalConfig, TokamakPipeline
+
+    return TokamakPipeline(TokamakConformalConfig(**conf), device="cpu", **pipe)
+
+
+def _split_serving(task, conf, pipe, sd, cal, test, seeds):
+    from safediffcon_torch.tasks.burgers import BurgersDataset
+    from safediffcon_torch.tasks.tokamak import TokamakDataset
+
+    tp = _pipeline(task, conf, pipe)
+    if task == "burgers":
+        test = BurgersDataset(*test)
+    else:
+        cal, test = TokamakDataset(*cal), TokamakDataset(*test)
+    q = tp.calibrate(sd, cal, 0.0, generator=torch.Generator().manual_seed(1))
+    ms = [tp.evaluate(sd, test, q, generator=torch.Generator().manual_seed(s)) for s in seeds]
+    return dict(q=float(q), m=ms, counts=tp.graphs.counts())
+
+
+def _split_pretrain(task, pretrain_kw, sd, train, num_steps, k):
+    if task == "burgers":
+        from safediffcon_torch.tasks.burgers import BurgersDataset as D
+        from safediffcon_torch.tasks.burgers import BurgersPretrainConfig as C
+        from safediffcon_torch.tasks.burgers import pretrain
+    else:
+        from safediffcon_torch.tasks.tokamak import TokamakDataset as D
+        from safediffcon_torch.tasks.tokamak import TokamakPretrainConfig as C
+        from safediffcon_torch.tasks.tokamak import pretrain
+    losses = []
+    state = pretrain(C(**pretrain_kw), D(*train), num_steps=num_steps, params=sd, device="cpu",
+                     steps_per_call=k, losses=losses)
+    return dict(losses=[float(v) for v in losses],
+                loss_bytes=[v.untyped_storage().nbytes() for v in losses],
+                params={n: v.detach().numpy() for n, v in state.model.state_dict().items()})
+
+
+def _split_phase(task, part, conf, pipe, sd, train, cal, test):
+    """A fine-tuning phase as a user runs it: Burgers `posttrain` (two
+    epochs of 4 steps in chunks of 2, a recalibration between them) or
+    `inference_finetune` (three epochs of one step, each recalibrated; the
+    evaluation, whose 10,000-step rollout is slow to record here, left
+    out), or tokamak `run_inference` (one epoch: calibrate, 3 post-training
+    or backward fine-tuning steps, evaluate). Returns Q-hat, the epoch
+    records, the weights and the replays of the step's graph."""
+    import dataclasses
+
+    import torch_graph_standin as standin
+
+    tp = _pipeline(task, conf, pipe)
+    if task == "burgers":
+        from safediffcon_torch.tasks.burgers import (
+            BurgersConformalConfig, BurgersDataset, BurgersInfFTConfig, BurgersPostTrainConfig,
+            inference_finetune, posttrain,
+        )
+
+        train, cal, test = (BurgersDataset(*d) for d in (train, cal, test))
+        conformal = BurgersConformalConfig(**conf)
+        if part == "posttrain":
+            cfg = BurgersPostTrainConfig(conformal=conformal, finetune_epoch=2, finetune_steps=4,
+                                         finetune_batch_size=4, finetune_lr=1e-3,
+                                         steps_per_call=2)
+            state, q, hist = posttrain(cfg, tp, sd, train, cal, test,
+                                       eval_every_subset_epoch=False)
+            step = (sum(g.replays for g in standin.RecordedGraph.made)
+                    - standin.replays(tp))  # the chunk graph's
+        else:
+            tp.evaluate = lambda *a, **kw: {}
+            cfg = BurgersInfFTConfig(conformal=conformal, InfFT_iters=4, finetune_lr=1e-3)
+            state, q, hist = inference_finetune(cfg, tp, sd, cal, test)
+            step = standin.replays(tp, "infft")
+        params = state.model.state_dict()
+    else:
+        from safediffcon_torch.tasks.tokamak import (
+            TokamakConformalConfig, TokamakDataset, finetune_config, posttrain_config,
+            run_inference,
+        )
+
+        train, cal, test = (TokamakDataset(*d) for d in (train, cal, test))
+        base = finetune_config() if part == "backward" else posttrain_config()
+        cfg = dataclasses.replace(base, finetune_epoch=1, finetune_steps=3, train_batch_size=4,
+                                  finetune_lr=1e-3, conformal=TokamakConformalConfig(**conf))
+        params, q, hist = run_inference(cfg, tp, sd, train, cal, test)
+        step = standin.replays(tp, "backward" if part == "backward" else "weighted")
+    return dict(q=float(q), hist=hist, step_replays=step,
+                params={n: v.detach().numpy() for n, v in params.items()})
+
+
+def split_capture(task, part, args):
+    """A CPU pipeline's calibrate and an evaluate per seed (part "serve",
+    args: conf, pipe, sd, cal, test, seeds), a pretrain of num_steps in
+    chunks of k (part "train", args: pretrain_kw, sd, train, num_steps, k)
+    or a fine-tuning phase (parts "posttrain", "infft", "weighted",
+    "backward"; args: conf, pipe, sd, train, cal, test; `_split_phase`)
+    through the graph stand-in (`torch_graph_standin`), once per route on
+    this rank: "eager" as the gate leaves a batch split over gloo, then
+    "captured" as it treats one split over NCCL (`graph_collectives` forced
+    open: the collectives recorded and replayed in the graphs). Returns
+    each route's results, the pipeline's graph counts and the replays of
+    every graph."""
+    import pytest
+
+    import torch_graph_standin as standin
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    patch = pytest.MonkeyPatch()
+    standin.install(patch)
+    out = {}
+    try:
+        for route in ("eager", "captured"):
+            if route == "captured":
+                patch.setattr(pmesh, "graph_collectives", lambda group: True)
+            before = sum(g.replays for g in standin.RecordedGraph.made)
+            if part == "serve":
+                res = _split_serving(task, *args)
+            elif part == "train":
+                res = _split_pretrain(task, *args)
+            else:
+                res = _split_phase(task, part, *args)
+            res["replays"] = sum(g.replays for g in standin.RecordedGraph.made) - before
+            out[route] = res
+    finally:
+        patch.undo()
+    return out
+
+
+def reduce_loss(numel):
+    """`BatchShard.reduce` of a data-parallel split (this rank's loss and a
+    gradient of numel values): the global loss, its storage's bytes and the
+    averaged gradient."""
+    from safediffcon_torch.parallel import mesh as pmesh
+
+    r = pmesh.rank()
+    sh = pmesh.batch_shard(2 * pmesh.world_size())
+    loss, (grad,) = sh.reduce(torch.tensor(1.0 + r), [torch.full((numel,), float(r))])
+    return dict(loss=float(loss), nbytes=loss.untyped_storage().nbytes(), grad=grad.numpy())

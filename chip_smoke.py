@@ -380,6 +380,36 @@ card 0:
       workers) and `smoke pretrain --sp 2 --conv-impl pallas` on four
       torchrun ranks (`--cli-rank`), each with a few steps: exit 0 and the
       NCCL group in the log; the smoke ranks each 90 K2 launches per step.
+ 17g. The fine-tuning phases, each as a user runs it, with TF32 off in
+      float32, eagerly on the four ranks against the same phase in one
+      process (Q-hat and epoch losses within 1e-5 relative, metrics within
+      1e-3, weights within 2.5 lr and equal on every rank) and, Burgers and
+      tokamak, at the default flags in bf16 eagerly and captured on the
+      ranks, equal bit for bit (Q-hat, epoch records, weights, EMA) with
+      each phase's step graph replayed and no graph in the eager arm:
+      (b) Burgers (turbo UNet2D, DDIM 5): calibrate, `posttrain` one epoch
+      of 7 steps at a global batch of 32 in chunks of 3 (a warm-up chunk,
+      the captured chunk, one step left over) and its evaluation, then
+      `inference_finetune`, two epochs of one step on the 16 test sims,
+      each recalibrated and evaluated; (t) tokamak (turbo UNet1D, DDIM 5)
+      `run_inference` one epoch of 3 steps at a global batch of 32, with
+      `posttrain_config()` and with `finetune_config()` on a
+      `finetune_set="test"` pipeline; (s) smoke (UNet3D dim 64, eager as on
+      one card) `run_inference` post-training (2 steps of 8 from a device
+      pool of 16) and the backward fine-tune, each calibrated and evaluated
+      on 13(d)'s 8 + 8 sims at DDIM 10, at dp 4 and dp 2 x sp 2: 13(d)'s
+      tolerances (the backward loss within 1e-3), 255 K1 launches per rank
+      and evaluation; (f) on four torchrun ranks `burgers posttrain
+      --resume --steps 2 --ddim-steps 5` from 17f's pretrain checkpoint,
+      the same command again once its last epoch's state is set aside (it
+      resumes from the state rank 0 wrote and ends on the uninterrupted
+      run's state bit for bit), and `tokamak infft` from a checkpoint of
+      seeded weights: exit 0 and the NCCL group in each log. Seconds and
+      peak memory per rank and case.
+
+17e's one-card arms at a rank's share of the batch were dropped (PERF.md
+§6 records what they measured), and 17f's Burgers commands take 2 steps (4
+before), to make room for 17g.
 
 It prints a `kernels` line of phase 17's launches with 17b's errors and
 times, the four cards' `nvidia-smi` lines and {"ok": true, "device": {...,
@@ -392,6 +422,7 @@ Its last three lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -3585,15 +3616,16 @@ P17_K2_SHAPE = (64, 64, 64)  # 17b: (H, Cin, Cout), one of phase 6's shapes
 P17_BATCH = {"burgers": 16, "tokamak": 32}
 P17_CMP_K, P17_CMP_STEPS = 3, 9  # chunks: the warm-up, the capture, a replay
 P17_SPEED_K, P17_SPEED_STEPS, P17_SPEED_TIME = 10, 40, (20, 40)
-P17_SPLITS = (128, 24, 16)  # 17e's train, cal and test sims per task
+P17_SPLITS = (128, 24, 16)  # 17e's train, cal and test sims per task (tokamak: 32 test)
 P17_DDIM, P17_CAL_CHUNK = 5, 8  # 17e: three calibration chunks (2 rows per rank)
 P17_EVAL_SEEDS = (2, 3, 2)  # the warm-up, the capture on other draws, a replay
-P17_CLI_STEPS = 4  # 17f: Burgers pretrain steps (steps_per_call 2); smoke: P13_STEPS
+P17_CLI_STEPS = 2  # 17f: Burgers pretrain steps (steps_per_call 2; 4 before); smoke: P13_STEPS
 P17_TIMEOUT_S = 180  # a rank that waits this long in a collective fails
-# the parts the ranks run, each on its (dp, sp) mesh: 17a, 17d, 17c, 17e
+# the parts the ranks run, each on its (dp, sp) mesh: 17a, 17d, 17c, 17e, 17g
 P17_RANK_PARTS = [("a", (P17_CARDS, 1)), ("c", (1, P17_CARDS)), ("c2", (2, 2)),
                   ("b", (P17_CARDS, 1)), ("d", (P17_CARDS, 1)), ("eb", (P17_CARDS, 1)),
-                  ("et", (P17_CARDS, 1))]
+                  ("et", (P17_CARDS, 1)), ("gb", (P17_CARDS, 1)), ("gt", (P17_CARDS, 1)),
+                  ("gs", (P17_CARDS, 1)), ("gs2", (2, 2))]
 
 
 def p17_collectives() -> dict:
@@ -3660,10 +3692,11 @@ def p17_collectives() -> dict:
                 captured_vs_eager=captured, all_reduce_ms=ms)
 
 
+@functools.lru_cache(maxsize=None)
 def _p17_task(name: str):
     """(task module, pretrain config at P17_BATCH, data splits, pipeline
     maker(capture, compute dtype), seeded weights made on the CPU) of 17e,
-    on P17_DIR's data."""
+    on P17_DIR's data (made once per process)."""
     if name == "burgers":
         import safediffcon_torch.tasks.burgers as mod
         from safediffcon_torch.tasks.burgers import pipeline as pl
@@ -3757,8 +3790,7 @@ def p17_task(name: str, one_process: bool = False) -> dict:
     recipes' dtype: the same pretrain and serving calls eagerly and
     captured on these ranks (bit for bit, ranks only), and the speed arms,
     P17_SPEED_STEPS steps in chunks of P17_SPEED_K, eager (ranks only) and
-    captured, steps/s and peak memory; in one process also captured at a
-    rank's share of the batch (the step without its all-reduce)."""
+    captured, steps/s and peak memory."""
     from safediffcon_torch.ops import conv3d_mxu as C
     from safediffcon_torch.ops import pressure_cg as K
 
@@ -3797,18 +3829,288 @@ def p17_task(name: str, one_process: bool = False) -> dict:
             res["speed_" + ("captured" if capture else "eager")] = dict(
                 steps_per_s=arm["steps_per_s"], peak_gb=arm["peak_gb"],
                 finite=all(math.isfinite(v) for v in arm["losses"]))
-        if one_process:
-            share = dataclasses.replace(bf16, batch_size=cfg.batch_size // P17_CARDS)
-            arm = _p17_pretrain(mod, share, data["train"], init, P17_SPEED_K, P17_SPEED_STEPS,
-                                capture=True, timed=P17_SPEED_TIME)
-            res["speed_share"] = dict(steps_per_s=arm["steps_per_s"], peak_gb=arm["peak_gb"])
     res["counts"] = _p13_counts()
     res["k1_k2"] = (K.pressure_cg_cuda.launches, k2_launches(C) + C.conv3d_fused_simt_cuda.launches)
     return res
 
 
+# 17g: the fine-tuning phases of the three tasks on the ranks, against one
+# process on card 0 (TF32 off, float32) and, for Burgers and tokamak, eager
+# against captured on the ranks (default flags, bf16)
+P17G_DIR = P17_DIR / "17g"  # one process's final weights, which the ranks read
+P17G_DDIM = 5  # DDIM steps of the Burgers and tokamak phases (configs: 200 / 250)
+# Burgers posttrain: one epoch of 7 steps at a global batch of 32 in chunks
+# of 3 (a warm-up chunk, the captured chunk, one step left over), evaluated
+# at its end; InfFT: two epochs of one step on the 16 test sims
+P17G_POST = dict(k=3, steps=7, batch=32)
+P17G_T_STEPS, P17G_T_BATCH = 3, 32  # tokamak: steps of its one epoch, global batch
+P17G_S_STEPS, P17G_S_BATCH, P17G_S_POOL = 2, 8, 16  # smoke post-training from its pool
+P17G_S_LOSS_TOL = {"weighted": 1e-5, "backward": 1e-3}  # see p17g_check
+
+
+class GraphTally:
+    """The graphs a phase ran, per kind of call: each graph's capture call
+    and replays, read as the phase frees its pipeline's graphs
+    (`Graphs.clear`), and posttrain's chunk graphs (`ChunkGraph`) as
+    "chunk"."""
+
+    def __enter__(self):
+        from safediffcon_torch.core import train as T
+
+        self.T, self.kinds, self.chunks = T, {}, []
+        self._clear, self._run = T.Graphs.clear, T.ChunkGraph.run
+        tally = self
+
+        def clear(graphs):
+            for key, sc in graphs.calls.items():
+                n = sum(c.calls - c.warm_calls for _, c in sc.graphs.values()
+                        if c.graph is not None)
+                tally.kinds[str(key[0])] = tally.kinds.get(str(key[0]), 0) + n
+            tally._clear(graphs)
+
+        def run(chunk):
+            if not any(c is chunk for c in tally.chunks):
+                tally.chunks.append(chunk)
+            return tally._run(chunk)
+
+        T.Graphs.clear, T.ChunkGraph.run = clear, run
+        return self
+
+    def __exit__(self, *exc):
+        self.T.Graphs.clear, self.T.ChunkGraph.run = self._clear, self._run
+
+    def counts(self) -> dict:
+        out = dict(self.kinds)
+        out["chunk"] = sum(c.call.calls - c.call.warm_calls for c in self.chunks
+                           if c.graph is not None)
+        return out
+
+
+def _ranks_equal(tensors) -> bool:
+    """Whether every rank of the group holds the same values (their
+    all-reduced maximum and minimum are equal)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    hi, lo = flat.clone(), flat
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def _p17g_weights(task: str, weights: dict, one_process: bool, lr: dict) -> dict:
+    """One process saves each phase's final weights under P17G_DIR; a rank
+    reads them and returns its largest difference in units of the phase's
+    lr, and whether the ranks agree bit for bit."""
+    out = {}
+    for name, sd in weights.items():
+        path = P17G_DIR / f"{task}_{name}.pt"
+        if one_process:
+            P17G_DIR.mkdir(parents=True, exist_ok=True)
+            torch.save({k: v.cpu() for k, v in sd.items()}, path)
+            continue
+        ref = torch.load(path, map_location="cuda", weights_only=True)
+        out[name] = dict(lr_units=max(float((sd[k] - v).abs().max()) for k, v in ref.items())
+                         / lr[name], ranks_equal=_ranks_equal(list(sd.values())))
+        del ref
+    return out
+
+
+def _same_weights(a: dict, b: dict) -> bool:
+    return all(torch.equal(v, b[name][k]) for name, sd in a.items() for k, v in sd.items())
+
+
+def _unclipped_safety(sd: dict) -> dict:
+    """InfFT's safety loss has no gradient where random weights clip the s
+    channel: a small final conv with a bias on the s output."""
+    sd = dict(sd, **{"final_conv.weight": sd["final_conv.weight"] * 0.01})
+    sd["final_conv.bias"] = sd["final_conv.bias"].clone()
+    sd["final_conv.bias"][2] = 2.0
+    return sd
+
+
+def _p17g_burgers(capture: bool, dtype) -> dict:
+    """Burgers fine-tuning as a user runs it, on P17_DIR's data from 17e's
+    seeded weights: calibrate the start, then `posttrain` one epoch
+    (P17G_POST, its evaluation at the end), then `inference_finetune` from
+    the start (its s output unclipped) for two epochs of one step on the
+    16 test sims, each recalibrated and evaluated; DDIM P17G_DDIM. Returns
+    Q-hats, epoch records, the graphs per kind, seconds, peak memory and
+    the final weights and EMA (on the card)."""
+    import safediffcon_torch.tasks.burgers as mod
+    from safediffcon_torch.tasks.burgers import pipeline as pl
+
+    _, _, data, _, init = _p17_task("burgers")
+    cal = mod.BurgersDataset.load(str(P17_DIR / "burgers.npz"), "cal")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, weights = {}, {}
+    for name, start, w_score in (("post", init, 5.0), ("infft", _unclipped_safety(init), 2.0)):
+        conf = mod.BurgersConformalConfig(ddim_sampling_steps=P17G_DDIM, w_score=w_score)
+        pipe = mod.BurgersPipeline(conf, **B_MODEL, compute_dtype=dtype, cal_chunk=P17_CAL_CHUNK,
+                                   capture=capture)
+        pipe.model.load_state_dict(start)
+        with GraphTally() as tally:
+            if name == "post":
+                q0 = pipe.calibrate(None, cal.data, 0.0,
+                                    generator=torch.Generator(device="cuda").manual_seed(1))
+                res["q0"] = float(q0)
+                cfg = mod.BurgersPostTrainConfig(
+                    conformal=conf, finetune_epoch=1, finetune_steps=P17G_POST["steps"],
+                    finetune_batch_size=P17G_POST["batch"], steps_per_call=P17G_POST["k"],
+                    finetune_subset_size=P17G_POST["steps"] * P17G_POST["batch"])
+                state, q, hist = pl.posttrain(cfg, pipe, None, data["train"], cal, data["test"])
+            else:
+                cfg = mod.BurgersInfFTConfig(conformal=conf, InfFT_iters=3)
+                state, q, hist = pl.inference_finetune(cfg, pipe, None, cal, data["test"])
+        res[name] = dict(q=float(q), hist=hist, graphs=tally.counts(), lr=cfg.finetune_lr)
+        weights[name] = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        weights[name + "_ema"] = {k: v.clone() for k, v in state.ema_params.items()}
+        del pipe, state
+    torch.cuda.synchronize()
+    return dict(res, weights=weights, seconds=time.perf_counter() - t0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _p17g_tokamak(capture: bool, dtype) -> dict:
+    """Tokamak `run_inference` from 17e's seeded weights, one epoch
+    (calibrate, P17G_T_STEPS steps at a global batch of 32, evaluate; DDIM
+    P17G_DDIM): post-training with `posttrain_config()` ("weighted") and
+    the backward fine-tune with `finetune_config()` on a
+    `finetune_set="test"` pipeline, w_obj 1 so that its loss has a gradient
+    ("backward"). Returns as `_p17g_burgers`."""
+    import safediffcon_torch.tasks.tokamak as mod
+
+    _, _, data, _, init = _p17_task("tokamak")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, weights = {}, {}
+    for name in ("weighted", "backward"):
+        back = name == "backward"
+        base = mod.finetune_config() if back else mod.posttrain_config()
+        conf = dataclasses.replace(base.conformal, ddim_sampling_steps=P17G_DDIM,
+                                   test_batch_size=P17G_T_BATCH,
+                                   **(dict(finetune_set="test", w_obj=1.0) if back else {}))
+        cfg = dataclasses.replace(base, conformal=conf, finetune_epoch=1,
+                                  finetune_steps=P17G_T_STEPS, train_batch_size=P17G_T_BATCH)
+        pipe = mod.TokamakPipeline(conf, compute_dtype=dtype, cal_chunk=P17_CAL_CHUNK,
+                                   capture=capture)
+        with GraphTally() as tally:
+            params, q, hist = mod.run_inference(cfg, pipe, init, data["train"], data["cal"],
+                                                data["test"])
+        res[name] = dict(q=float(q), hist=hist, graphs=tally.counts(), lr=cfg.finetune_lr)
+        weights[name] = {k: v.to("cuda") for k, v in params.items()}
+        del pipe
+    torch.cuda.synchronize()
+    return dict(res, weights=weights, seconds=time.perf_counter() - t0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _p17g_pair(task: str, run, one_process: bool) -> dict:
+    """A fine-tuning case of 17g: with TF32 off in float32, eagerly (the
+    eager split on the ranks, held against one process); on the ranks also
+    at the default flags in bf16, eagerly and captured, equal bit for bit."""
+    t0 = time.perf_counter()
+    with tf32_flag(False):
+        cmp_ = run(False, None)
+    lr = {k: v["lr"] for k, v in cmp_.items() if isinstance(v, dict) and "lr" in v}
+    lr.update({k + "_ema": v for k, v in lr.items()})
+    cmp_["weights"] = _p17g_weights(task, cmp_["weights"], one_process, lr)
+    out = dict(cmp=cmp_, cmp_s=time.perf_counter() - t0)
+    if one_process:
+        return out
+    t0 = time.perf_counter()
+    with tf32_flag(True):
+        eager = run(False, "bfloat16")
+        captured = run(True, "bfloat16")
+    phases = [k for k, v in eager.items() if isinstance(v, dict) and "hist" in v]
+
+    def qs(r: dict) -> dict:
+        return {k: r[k]["q"] for k in phases} | ({"q0": r["q0"]} if "q0" in r else {})
+
+    out["bitwise"] = dict(
+        q=[k for k, v in qs(eager).items() if v != qs(captured)[k]],
+        hist=[k for k in phases if eager[k]["hist"] != captured[k]["hist"]],
+        weights=_same_weights(eager["weights"], captured["weights"]),
+        eager_graphs={k: eager[k]["graphs"] for k in phases},
+        graphs={k: captured[k]["graphs"] for k in phases},
+        losses={k: [r["loss"] for r in captured[k]["hist"]] for k in phases},
+        eager_s=eager["seconds"], captured_s=captured["seconds"],
+        peak_gb=max(eager["peak_gb"], captured["peak_gb"]))
+    out["bitwise_s"] = time.perf_counter() - t0
+    return out
+
+
+def p17g_burgers(one_process: bool = False) -> dict:
+    return _p17g_pair("burgers", _p17g_burgers, one_process)
+
+
+def p17g_tokamak(one_process: bool = False) -> dict:
+    return _p17g_pair("tokamak", _p17g_tokamak, one_process)
+
+
+def p17g_smoke(one_process: bool = False) -> dict:
+    """17g-s on this rank's mesh (dp 4, or dp 2 x sp 2: the UNet3D splits
+    its frames) or in one process, TF32 off, float32 (the smoke pipelines
+    stay eager): `run_inference` of the reference UNet3D on 13(d)'s seeded
+    weights and sims (8 cal, 8 test, DDIM P13_SMOKE_DDIM), one epoch each:
+    post-training, P17G_S_STEPS steps of a global batch of 8 gathered from
+    a device pool of the 16 train sims ("weighted"), and the backward
+    fine-tune on a `finetune_set="test"` pipeline ("backward"); the
+    epoch's calibrate and evaluate (K1) after the steps. K1 launches per
+    phase, Q-hat, the epoch records, seconds and peak memory."""
+    from safediffcon_torch.ops import pressure_cg as K
+    import safediffcon_torch.tasks.smoke as smoke
+    from safediffcon_torch.tasks.smoke.pipeline import init_params
+
+    cal = smoke.SmokeDataset(data=np.load(P13_DIR / "smoke_cal.npy"),
+                             raw=np.load(P13_DIR / "smoke_cal.npy"))
+    test = smoke.SmokeDataset(data=np.load(P13_DIR / "smoke_test.npy"),
+                              raw=np.load(P13_DIR / "smoke_test_raw.npy"))
+    train_arr = np.load(P13_DIR / "train.npy")
+    train = smoke.SmokeDataset(data=train_arr, raw=train_arr)
+    res, weights = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tf32_flag(False):
+        for name in ("weighted", "backward"):
+            back = name == "backward"
+            base = smoke.finetune_config() if back else smoke.posttrain_config()
+            conf = dataclasses.replace(base.conformal, ddim_sampling_steps=P13_SMOKE_DDIM,
+                                       cal_batch_size=P13_SMOKE_SIMS, num_cal_batch=1,
+                                       test_batch_size=P13_SMOKE_SIMS)
+            cfg = dataclasses.replace(
+                base, conformal=conf, finetune_epoch=1,
+                **(dict(finetune_steps=1) if back else dict(
+                    finetune_steps=P17G_S_STEPS, finetune_batch_size=P17G_S_BATCH,
+                    device_pool=P17G_S_POOL)))
+            pipe = smoke.SmokePipeline(conf, finetune_set="test" if back else "train")
+            init_params(pipe.model, seed=3)
+            K.pressure_cg_cuda.launches = 0
+            t1 = time.perf_counter()
+            params, q, hist = smoke.run_inference(cfg, pipe, None, train, cal, test)
+            torch.cuda.synchronize()
+            res[name] = dict(q=float(q), hist=hist, k1=K.pressure_cg_cuda.launches,
+                             lr=cfg.finetune_lr, seconds=time.perf_counter() - t1)
+            weights[name] = params
+            del pipe
+    res["weights"] = _p17g_weights("smoke", weights, one_process,
+                                   {k: res[k]["lr"] for k in weights})
+    return dict(res, seconds=time.perf_counter() - t0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 P17_PARTS = {"a": p17_collectives, "c2": p13_unet3d,
-             "eb": lambda: p17_task("burgers"), "et": lambda: p17_task("tokamak")}
+             "eb": lambda: p17_task("burgers"), "et": lambda: p17_task("tokamak"),
+             "gb": p17g_burgers, "gt": p17g_tokamak, "gs": p17g_smoke, "gs2": p17g_smoke}
 
 
 def phase_p17_kernels(K, C, S) -> dict:
@@ -3975,7 +4277,7 @@ def phase_p17_cli(errors: list) -> dict:
 
 
 def _p17_data(burgers, tokamak, smoke) -> None:
-    """17's data: P17_SPLITS Burgers and tokamak sims, the command line's
+    """17's data: P17_SPLITS Burgers and tokamak sims (32 tokamak test sims), the command line's
     smoke (16 + 8 + 8, on K1) and Burgers generate-data; phase 13's smoke
     files."""
     P17_DIR.mkdir(parents=True, exist_ok=True)
@@ -3983,8 +4285,9 @@ def _p17_data(burgers, tokamak, smoke) -> None:
     burgers.generate_burgers_dataset(str(P17_DIR / "burgers.npz"), n_train=n_train,
                                      n_cal=n_cal, n_test=n_test, seed=0, solve_batch=4096,
                                      device="cuda")
+    # 17g's backward fine-tune takes a test batch of 32
     tokamak.generate_tokamak_dataset(str(P17_DIR / "tokamak.npz"), n_train=n_train,
-                                     n_cal=n_cal, n_test=n_test, seed=0, gen_batch=8192,
+                                     n_cal=n_cal, n_test=P17G_T_BATCH, seed=0, gen_batch=8192,
                                      device="cuda")
     cli = P17_DIR / "cli"
     s_train, s_cal, s_test = CLI_S_SPLITS
@@ -4114,8 +4417,7 @@ def p17_check(ranks: list, errors: list, ref: dict) -> dict:
                 f"{bs['eager_counts']}; {bs['captured_s']:.1f} s against {bs['eager_s']:.1f} s); "
                 f"steps/s eager {g['speed_eager']['steps_per_s']:.2f} captured "
                 f"{g['speed_captured']['steps_per_s']:.2f} (one card captured "
-                f"{one['speed_captured']['steps_per_s']:.2f}, at a rank's batch "
-                f"{one['speed_share']['steps_per_s']:.2f}); peak GB eager "
+                f"{one['speed_captured']['steps_per_s']:.2f}); peak GB eager "
                 f"{g['speed_eager']['peak_gb']:.2f} captured {g['speed_captured']['peak_gb']:.2f} "
                 f"(one card {one['speed_captured']['peak_gb']:.2f}); K1 / K2 {g['k1_k2']}; "
                 f"seconds compare {g['cmp_s']:.1f} bitwise {g['bitwise_s']:.1f}")
@@ -4132,17 +4434,218 @@ def p17_check(ranks: list, errors: list, ref: dict) -> dict:
         if all(gr.get(part) for gr in ranks):
             res[part] = dict(
                 steps_per_s=dict(one_card_captured=one["speed_captured"]["steps_per_s"],
-                                 one_card_captured_rank_batch=one["speed_share"]["steps_per_s"],
                                  four_eager=min(gr[part]["speed_eager"]["steps_per_s"]
                                                 for gr in ranks),
                                  four_captured=min(gr[part]["speed_captured"]["steps_per_s"]
                                                    for gr in ranks)),
                 peak_gb=dict(one_card=one["speed_captured"]["peak_gb"],
-                             one_card_rank_batch=one["speed_share"]["peak_gb"],
                              eager=[gr[part]["speed_eager"]["peak_gb"] for gr in ranks],
                              captured=[gr[part]["speed_captured"]["peak_gb"] for gr in ranks]),
                 batch=P17_BATCH[name])
             log(f"17e {name} " + json.dumps(res[part]))
+    return res
+
+
+def _relf(a, b) -> float:
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def _epoch_metrics(rec: dict) -> dict:
+    """An epoch record's metrics: its evaluation, or each of posttrain's."""
+    out = dict(rec.get("eval") or {})
+    for i, m in enumerate(rec.get("eval_history", [])):
+        out.update({f"{i}/{k}": v for k, v in m.items()})
+    return out
+
+
+def _p17g_against(c: dict, one: dict, loss_tol: dict, metric_tol) -> dict:
+    """One rank's compare arm against one process's: the largest relative
+    error of its Q-hats, epoch losses and metrics (each over its
+    tolerance), its weights' largest difference in lr, the ranks' weights
+    equal."""
+    phases = [k for k, v in one.items() if isinstance(v, dict) and "hist" in v]
+    qs = ([(c["q0"], one["q0"])] if "q0" in one else []) + [(c[k]["q"], one[k]["q"])
+                                                             for k in phases]
+    out = dict(q=0.0, loss=0.0, metrics=0.0, worst_metric=None)
+    for k in phases:
+        assert len(c[k]["hist"]) == len(one[k]["hist"]), k
+        for g, o in zip(c[k]["hist"], one[k]["hist"]):
+            qs.append((g["quantile"], o["quantile"]))
+            out["loss"] = max(out["loss"], _relf(g["loss"], o["loss"]) / loss_tol[k])
+            gm, om = _epoch_metrics(g), _epoch_metrics(o)
+            assert gm.keys() == om.keys() and om, k
+            for m, v in om.items():
+                e = abs(gm[m] - v) / metric_tol(m, v)
+                if e >= out["metrics"]:
+                    out["metrics"], out["worst_metric"] = e, f"{k} {m}"
+    out["q"] = max(_relf(a, b) for a, b in qs) / 1e-5
+    out["lr_units"] = max(v["lr_units"] for v in c["weights"].values())
+    out["ranks_equal"] = all(v["ranks_equal"] for v in c["weights"].values())
+    return out
+
+
+def p17g_check(ranks: list, errors: list, ref: dict) -> dict:
+    """17g: each rank's fine-tuning phases against one process's (Q-hat
+    and losses within 1e-5 relative, the smoke backward loss within 1e-3,
+    metrics within 1e-3 relative or a smoke rate within one sample, weights
+    within 2.5 lr and equal on every rank), Burgers and tokamak captured
+    against eager (bit for bit, the step graphs replayed, the eager arm
+    without graphs), smoke's K1 launches (255 per rank per evaluation).
+    Every failed check is listed in `errors`."""
+    res = {}
+
+    def need(ok: bool, what: str) -> None:
+        if not ok:
+            errors.append(what)
+
+    def f32_tol(m, v):  # 13(d), 17e
+        return 1e-3 * abs(v) + 1e-9
+
+    def smoke_tol(m, v):  # 13(d): a rate may move by one sample
+        return 100 / P13_SMOKE_SIMS + 1e-9 if "percentage" in m else 1e-3 * abs(v) + 1e-9
+
+    steps = {"gb": {"post": "chunk", "infft": "infft"},
+             "gt": {"weighted": "weighted", "backward": "backward"}}
+    for part, name in (("gb", "17g-b Burgers"), ("gt", "17g-t tokamak")):
+        one = ref[part]["cmp"]
+        for r, g in enumerate(gr.get(part) for gr in ranks):
+            if g is None:
+                errors.append(f"{name}: rank {r} has no result")
+                continue
+            try:
+                err = _p17g_against(g["cmp"], one, dict.fromkeys(steps[part], 1e-5), f32_tol)
+            except AssertionError as e:
+                errors.append(f"{name} rank {r}: records differ in shape ({e})")
+                continue
+            b = g["bitwise"]
+            log(f"{name} rank {r} ({g['route']}): against one process, errors over their "
+                f"tolerances {json.dumps(err)}; bf16 captured against eager: Q differs at "
+                f"{b['q']}, records at {b['hist']}, weights and EMA equal {b['weights']}; "
+                f"graphs {json.dumps(b['graphs'])} (eager {json.dumps(b['eager_graphs'])}); "
+                f"losses {json.dumps(b['losses'])}; s compare {g['cmp_s']:.1f} (one process "
+                f"{ref[part]['cmp_s']:.1f}), eager {b['eager_s']:.1f}, captured "
+                f"{b['captured_s']:.1f}; peak {b['peak_gb']:.2f} GB bf16, "
+                f"{g['cmp']['peak_gb']:.2f} GB float32 (one process {one['peak_gb']:.2f})")
+            need(max(err["q"], err["loss"], err["metrics"]) <= 1 and err["lr_units"] <= 2.5
+                 and err["ranks_equal"], f"{name} rank {r}: against one process {err}")
+            need(not b["q"] and not b["hist"] and b["weights"],
+                 f"{name} rank {r}: captured differs from eager {b}")
+            need(all(b["graphs"][k].get(kind, 0) > 0 for k, kind in steps[part].items())
+                 and not any(v for gr_ in b["eager_graphs"].values() for v in gr_.values()),
+                 f"{name} rank {r}: graphs {b['graphs']} eager {b['eager_graphs']}")
+            need(all(any(v for v in ls) for ls in b["losses"].values()),
+                 f"{name} rank {r}: a phase had no loss {b['losses']}")
+        if all(gr.get(part) for gr in ranks):
+            res[part] = dict(
+                seconds=[gr[part]["cmp_s"] + gr[part]["bitwise_s"] for gr in ranks],
+                one_process_s=ref[part]["cmp_s"],
+                peak_gb=[max(gr[part]["cmp"]["peak_gb"], gr[part]["bitwise"]["peak_gb"])
+                         for gr in ranks], one_process_peak_gb=one["peak_gb"],
+                graphs=ranks[0][part]["bitwise"]["graphs"])
+
+    one = ref["gs"]
+    for part, label in (("gs", "dp 4"), ("gs2", "dp 2 x sp 2")):
+        for r, g in enumerate(gr.get(part) for gr in ranks):
+            if g is None:
+                errors.append(f"17g-s smoke {label}: rank {r} has no result")
+                continue
+            try:
+                err = _p17g_against(g, one, P17G_S_LOSS_TOL, smoke_tol)
+            except AssertionError as e:
+                errors.append(f"17g-s smoke {label} rank {r}: records differ in shape ({e})")
+                continue
+            k1 = {k: g[k]["k1"] for k in ("weighted", "backward")}
+            log(f"17g-s smoke {label} rank {r} ({g['route']}): against one process, errors "
+                f"over their tolerances {json.dumps(err)}; K1 {json.dumps(k1)} (one process "
+                f"{json.dumps({k: one[k]['k1'] for k in k1})}); Q {g['weighted']['q']:.6g} / "
+                f"{g['backward']['q']:.6g} (one process {one['weighted']['q']:.6g} / "
+                f"{one['backward']['q']:.6g}); s {json.dumps({k: round(g[k]['seconds'], 1) for k in k1})} "
+                f"(one process {json.dumps({k: round(one[k]['seconds'], 1) for k in k1})}); peak "
+                f"{g['peak_gb']:.2f} GB (one process {one['peak_gb']:.2f})")
+            need(max(err["q"], err["loss"], err["metrics"]) <= 1 and err["lr_units"] <= 2.5
+                 and err["ranks_equal"], f"17g-s smoke {label} rank {r}: {err}")
+            need(all(v == SOLVER_STEPS for v in k1.values()),
+                 f"17g-s smoke {label} rank {r}: K1 {k1}")
+        if all(gr.get(part) for gr in ranks):
+            res[part] = dict(k1_per_rank=[sum(gr[part][k]["k1"] for k in ("weighted", "backward"))
+                                          for gr in ranks],
+                             seconds=[gr[part]["seconds"] for gr in ranks],
+                             one_process_s=one["seconds"],
+                             peak_gb=[gr[part]["peak_gb"] for gr in ranks],
+                             one_process_peak_gb=one["peak_gb"])
+    return res
+
+
+def phase_p17g_cli(errors: list) -> dict:
+    """17g-f: the fine-tuning phases through the command line on four
+    torchrun ranks. `burgers posttrain --resume --steps 2 --ddim-steps 5`
+    from 17f's torchrun pretrain checkpoint (five epochs, each saved by
+    rank 0), then the same command again once the last epoch's state is
+    set aside: it must log that it resumed after epoch 3 and end on the
+    uninterrupted run's state bit for bit (weights, Adam moments, EMA,
+    Q-hat); `tokamak infft` from a checkpoint of 17e's seeded weights
+    written here first. Each exits 0 and logs its NCCL group; a failure is
+    added to `errors` and the next command still runs."""
+    from safediffcon_torch.utils.checkpoint import save_finetuned
+
+    cli = P17_DIR / "cli"
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={P17_CARDS}", "-m", "safediffcon_torch.cli.main"]
+    group = f"rank 0 of {P17_CARDS} in the nccl process group"
+    out, res = cli / "b_torchrun", {}
+    state = out / "burgers-posttrain-state"
+    post = torchrun + ["burgers", "posttrain", "--data", str(cli / "burgers" / "burgers.npz"),
+                       "--out", str(out), "--steps", "2", "--ddim-steps", str(P17G_DDIM),
+                       "--resume"]
+    try:
+        s_full, text = p17_cli(post, "b_posttrain")
+        last = max(int(p.stem.split("-")[1]) for p in state.glob("ckpt-*.pt"))
+        full = P17_DIR / "b_posttrain_full.pt"
+        (state / f"ckpt-{last}.pt").rename(full)
+        s_resume, resumed = p17_cli(post, "b_posttrain_resume")
+        mark = f"resumed phase state after epoch {last - 1} from {state}"
+        a = torch.load(full, weights_only=True)
+        b = torch.load(state / f"ckpt-{last}.pt", weights_only=True)
+
+        def same(x, y) -> bool:
+            if isinstance(x, dict):
+                return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+            if isinstance(x, (list, tuple)):
+                return len(x) == len(y) and all(same(a, b) for a, b in zip(x, y))
+            if isinstance(x, torch.Tensor):
+                return torch.equal(x, y)
+            return x == y
+
+        equal = same(a, b)
+        del a, b
+        missing = [m for m, t in ((group, text), (group, resumed), (mark, resumed))
+                   if m not in t]
+        log(f"17g-f torchrun x{P17_CARDS} burgers posttrain --resume: rc 0 in {s_full:.1f} s, "
+            f"{last + 1} epochs; again after setting epoch {last}'s state aside: rc 0 in "
+            f"{s_resume:.1f} s, its final state equal to the uninterrupted run's {equal}; "
+            f"missing from the logs: {missing}")
+        if not equal or missing:
+            errors.append(f"17g-f burgers posttrain --resume: equal {equal}, missing {missing}")
+        res["burgers_posttrain"] = dict(seconds=s_full, resume_s=s_resume, epochs=last + 1,
+                                        resume_equal=equal)
+    except Exception as e:  # a failed command or check; the next command still runs
+        errors.append(f"17g-f burgers posttrain: {type(e).__name__}: {e}")
+    t_out = cli / "t_infft"
+    _, _, _, _, init = _p17_task("tokamak")
+    save_finetuned(str(t_out / "tokamak-pretrain"), init, 0.0)
+    try:
+        seconds, text = p17_cli(torchrun + ["tokamak", "infft", "--data",
+                                            str(P17_DIR / "tokamak.npz"), "--out", str(t_out)],
+                                "t_infft")
+        results = json.loads((t_out / "tokamak_infft_results.json").read_text())
+        log(f"17g-f torchrun x{P17_CARDS} tokamak infft: rc 0 in {seconds:.1f} s, "
+            f"{len(results)} epochs, Q-hat {[r['quantile'] for r in results]}; group logged "
+            f"{group in text}")
+        if group not in text:
+            errors.append("17g-f tokamak infft: the log lacks its NCCL group")
+        res["tokamak_infft"] = dict(seconds=seconds, epochs=len(results))
+    except Exception as e:
+        errors.append(f"17g-f tokamak infft: {type(e).__name__}: {e}")
     return res
 
 
@@ -4195,24 +4698,36 @@ def cards_main(n_cards: int) -> int:
     ref["et"] = p17_task("tokamak", one_process=True)
     torch.cuda.empty_cache()
     lap("one process")
+    # 17g's: each phase's final weights saved for the ranks
+    for part, fn in (("gb", p17g_burgers), ("gt", p17g_tokamak), ("gs", p17g_smoke)):
+        ref[part] = fn(one_process=True)
+        torch.cuda.empty_cache()
+    lap("one process 17g")
 
     ranks, errors = p13_spawn(P17_RANK_PARTS, P17_CARDS, "nccl")
     lap("ranks")
     res = p17_check(ranks, errors, ref)
+    res["g"] = p17g_check(ranks, errors, ref)
     res["f"] = phase_p17_cli(errors)
     lap("17f")
+    res["gf"] = phase_p17g_cli(errors)
+    lap("17g-f")
     log(f"phase 17 seconds {json.dumps(laps)}; total {time.perf_counter() - t_start:.1f} s")
     if errors:
         raise AssertionError("phase 17: " + "\n".join(errors))
 
     k1_launches = {f"17b cuda:{c['card']} B = {c['batch']}": c["launches"] for c in kernels["k1"]}
     k1_launches["17c DP 4 serving, per rank"] = res["d"]["k1_per_rank"]
+    k1_launches["17g-s smoke run_inference (post-training + backward), DP 4, per rank"] = (
+        res["g"]["gs"]["k1_per_rank"])
+    k1_launches["17g-s the same, DP 2 x SP 2, per rank"] = res["g"]["gs2"]["k1_per_rank"]
     k2_launches = {f"17b cuda:{c['card']}": c["launches"] for c in kernels["k2"]}
     k2_launches.update({"17c DP 4 pretrain, per rank (3xTF32)": res["b"]["k2_per_rank"],
                         "17d SP 4, per rank": res["c"]["k2_per_rank"],
                         "17d DP 2 x SP 2, per rank": res["c2"]["k2_per_rank"],
                         "17f smoke --sp 2, per rank": res["f"]["smoke_sp2"]["k2_modes"]})
-    main_k1 = sum(res["d"]["k1_per_rank"])
+    main_k1 = sum(res["d"]["k1_per_rank"]) + sum(sum(res["g"][p]["k1_per_rank"])
+                                                  for p in ("gs", "gs2"))
     main_k2 = (sum(res["b"]["k2_per_rank"]) + sum(res["f"]["smoke_sp2"]["k2_per_rank"])
                + sum(sum(d.values()) for p in ("c", "c2") for d in res[p]["k2_per_rank"]))
     k1t, k2t = kernels["k1_time"], kernels["k2_time"]

@@ -347,19 +347,21 @@ def _split_pretrain(task, pretrain_kw, sd, train, num_steps, k):
                 params={n: v.detach().numpy() for n, v in state.model.state_dict().items()})
 
 
-def _split_phase(task, part, conf, pipe, sd, train, cal, test):
+def _split_phase(task, part, conf, pipe, sd, train, cal, test, record=True):
     """A fine-tuning phase as a user runs it: Burgers `posttrain` (two
     epochs of 4 steps in chunks of 2, a recalibration between them) or
-    `inference_finetune` (three epochs of one step, each recalibrated; the
-    evaluation, whose 10,000-step rollout is slow to record here, left
-    out), or tokamak `run_inference` (one epoch: calibrate, 3 post-training
-    or backward fine-tuning steps, evaluate). Returns Q-hat, the epoch
-    records, the weights and the replays of the step's graph."""
+    `inference_finetune` (three epochs of one step, each recalibrated; two
+    without `record`), or tokamak `run_inference` (one epoch: calibrate, 3
+    post-training or backward fine-tuning steps, evaluate). Returns Q-hat, the epoch
+    records, the weights and, with `record` (the graph stand-in installed),
+    the replays of the step's graph. With `record` the Burgers evaluations
+    are left out (their 10,000-step rollout is slow to record); without
+    it they run, posttrain's at the end of each epoch."""
     import dataclasses
 
-    import torch_graph_standin as standin
-
     tp = _pipeline(task, conf, pipe)
+    if record:
+        import torch_graph_standin as standin
     if task == "burgers":
         from safediffcon_torch.tasks.burgers import (
             BurgersConformalConfig, BurgersDataset, BurgersInfFTConfig, BurgersPostTrainConfig,
@@ -369,19 +371,25 @@ def _split_phase(task, part, conf, pipe, sd, train, cal, test):
         train, cal, test = (BurgersDataset(*d) for d in (train, cal, test))
         conformal = BurgersConformalConfig(**conf)
         if part == "posttrain":
+            # without `record`, an evaluation at the end of each epoch
+            every = {} if record else dict(finetune_subset_size=16)
             cfg = BurgersPostTrainConfig(conformal=conformal, finetune_epoch=2, finetune_steps=4,
                                          finetune_batch_size=4, finetune_lr=1e-3,
-                                         steps_per_call=2)
+                                         steps_per_call=2, **every)
             state, q, hist = posttrain(cfg, tp, sd, train, cal, test,
-                                       eval_every_subset_epoch=False)
+                                       eval_every_subset_epoch=not record)
             step = (sum(g.replays for g in standin.RecordedGraph.made)
-                    - standin.replays(tp))  # the chunk graph's
+                    - standin.replays(tp)) if record else None  # the chunk graph's
         else:
-            tp.evaluate = lambda *a, **kw: {}
-            cfg = BurgersInfFTConfig(conformal=conformal, InfFT_iters=4, finetune_lr=1e-3)
+            if record:
+                tp.evaluate = lambda *a, **kw: {}
+            # three epochs recorded, two with their evaluations
+            cfg = BurgersInfFTConfig(conformal=conformal, InfFT_iters=4 if record else 3,
+                                     finetune_lr=1e-3)
             state, q, hist = inference_finetune(cfg, tp, sd, cal, test)
-            step = standin.replays(tp, "infft")
+            step = standin.replays(tp, "infft") if record else None
         params = state.model.state_dict()
+        ema = state.ema_params
     else:
         from safediffcon_torch.tasks.tokamak import (
             TokamakConformalConfig, TokamakDataset, finetune_config, posttrain_config,
@@ -393,9 +401,43 @@ def _split_phase(task, part, conf, pipe, sd, train, cal, test):
         cfg = dataclasses.replace(base, finetune_epoch=1, finetune_steps=3, train_batch_size=4,
                                   finetune_lr=1e-3, conformal=TokamakConformalConfig(**conf))
         params, q, hist = run_inference(cfg, tp, sd, train, cal, test)
-        step = standin.replays(tp, "backward" if part == "backward" else "weighted")
+        step = (standin.replays(tp, "backward" if part == "backward" else "weighted")
+                if record else None)
+        ema = {}
     return dict(q=float(q), hist=hist, step_replays=step,
-                params={n: v.detach().numpy() for n, v in params.items()})
+                params={n: v.detach().numpy() for n, v in params.items()},
+                ema={n: v.detach().numpy() for n, v in ema.items()})
+
+
+def split_finetune(task, part, args):
+    """A fine-tuning phase (`_split_phase`, or `_smoke_phase` for task
+    "smoke"; args as there) eagerly on this rank, or in one process where
+    no group is joined, with its evaluations."""
+    if task == "smoke":
+        return _smoke_phase(part, *args)
+    return _split_phase(task, part, *args, record=False)
+
+
+def _smoke_phase(part, conf, pipe, sd, train, cal, test, inf):
+    """Smoke `run_inference` as a user runs it, one epoch: post-training
+    (part "weighted", its batches gathered from a device pool) or the
+    backward fine-tune (part "backward", on a `finetune_set="test"`
+    pipeline), then calibrate and evaluate. Returns Q-hat, the epoch
+    records (losses, metrics) and the weights."""
+    import dataclasses
+
+    from safediffcon_torch.tasks.smoke import (
+        SmokeDataset, SmokePipeline, finetune_config, posttrain_config, run_inference,
+    )
+
+    base = finetune_config() if part == "backward" else posttrain_config()
+    cfg = dataclasses.replace(base, conformal=dataclasses.replace(base.conformal, **conf),
+                              **inf)
+    tp = SmokePipeline(cfg.conformal, device="cpu",
+                       finetune_set="test" if cfg.backward_finetune else "train", **pipe)
+    train, cal, test = (SmokeDataset(*d) for d in (train, cal, test))
+    params, q, hist = run_inference(cfg, tp, sd, train, cal, test)
+    return dict(q=float(q), hist=hist, params={n: v.detach().numpy() for n, v in params.items()})
 
 
 def split_capture(task, part, args):

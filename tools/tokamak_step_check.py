@@ -14,10 +14,20 @@ rounding alone keeps it flat. Printed: one `POINT {...}` line per point
 (the loss's relative difference, the gradient's relative L2 error, the
 worst leaf's largest difference over its largest entry) and a last JSON
 line. `--dim 128 --steps 2000` takes the check to the recipe's width (its
-points every `--steps` / 8). It imports JAX, so it is not part of the port:
+points every `--steps` / 8).
+
+`--dtype bfloat16` pretrains the port in bf16, the recipe's dtype, and
+holds each point's bf16 gradients against the float32 gradient g32 at the
+same point (JAX's; the port's float32 gradient beside it, as a check of the
+float32 agreement): e_p = |g_port,bf16 - g32| / |g32|, e_j the same for
+JAX's bf16 gradient, d = |g_port,bf16 - g_jax,bf16| / |g32| (L2 norms over
+every leaf). A point passes when 0.5 <= e_p / e_j <= 2 and d <= 2 max(e_p,
+e_j); its line also names the three leaves with the largest share of d,
+and each side's three leaves furthest from g32.
+It imports JAX, so it is not part of the port:
 
     JAX_PLATFORMS=cpu python tools/tokamak_step_check.py --data tok_swap.npz \\
-        [--dim 32] [--steps 4000] [--threads 6] [--out r.json]
+        [--dim 32] [--steps 4000] [--dtype float32|bfloat16] [--threads 6] [--out r.json]
 """
 import argparse
 import json
@@ -31,7 +41,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 # as the `tokamak_weight_swap.py --pretrain-steps 4000 --dim 32 --dtype float32` run
-DTYPE, POINTS = "float32", 8
+POINTS = 8
 
 
 def main(argv=None) -> int:
@@ -39,6 +49,8 @@ def main(argv=None) -> int:
     ap.add_argument("--data", required=True, help="the swap's tokamak npz (generated if missing)")
     ap.add_argument("--dim", type=int, default=32, help="the UNet1D's width (recipe: 128)")
     ap.add_argument("--steps", type=int, default=4000, help="pretrain steps (a multiple of 8)")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the pretrain's compute dtype (recipe: bfloat16)")
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 1)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -63,13 +75,13 @@ def main(argv=None) -> int:
     from safediffcon_torch.utils.checkpoint import load_checkpoint
 
     torch.set_num_threads(args.threads)
-    dim, steps, every = args.dim, args.steps, args.steps // POINTS
+    dim, steps, every, dtype = args.dim, args.steps, args.steps // POINTS, args.dtype
     if not os.path.exists(args.data):
         generate_tokamak_dataset(args.data, n_train=1000, n_cal=1000, n_test=50, seed=0,
                                  device="cpu")
     train = TokamakDataset.load(args.data, "train")
     cfg = TokamakPretrainConfig(dim=dim, batch_size=32, checkpoint_every=every,
-                                compute_dtype=DTYPE)
+                                compute_dtype=dtype)
     shape = (cfg.batch_size, 128, 12)
     net = init_params(build_model(dim=dim, device="cpu"), seed=cfg.seed)
     start = {k: v.clone() for k, v in net.state_dict().items()}
@@ -81,22 +93,45 @@ def main(argv=None) -> int:
     pre_s = time.perf_counter() - t0
 
     # the loss of one step on both sides, from the same weights, batch and draws
-    jmodel = JP.build_model(dim, (1, 2, 4, 8), 1, DTYPE)
     jsched = j_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective)
     jdcfg = JDiff.DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective)
     jcond = j_cond()
-
-    @jax.jit
-    def j_value_and_grad(params, batch, t, noise):
-        return jax.value_and_grad(lambda p: JDiff.p_losses(
-            lambda q, x, s: jmodel.apply(q, x, s), p, jsched, jdcfg, batch, t, noise,
-            jcond).mean())(params)
-
-    model = build_model(dim, compute_dtype=DTYPE, device="cpu")
     sched = make_schedule(cfg.timesteps, cfg.beta_schedule, cfg.objective, device="cpu")
     dcfg = DiffusionConfig(timesteps=cfg.timesteps, objective=cfg.objective,
                            beta_schedule=cfg.beta_schedule)
     cond = train_conditioner()
+    dtypes = ("float32",) if dtype == "float32" else ("bfloat16", "float32")
+    models, j_fns = {}, {}
+    for dt in dtypes:
+        models[dt] = build_model(dim, compute_dtype=dt, device="cpu")
+        jmodel = JP.build_model(dim, (1, 2, 4, 8), 1, dt)
+        j_fns[dt] = jax.jit(lambda params, batch, t, noise, m=jmodel: jax.value_and_grad(
+            lambda p: JDiff.p_losses(lambda q, x, s: m.apply(q, x, s), p, jsched, jdcfg,
+                                     batch, t, noise, jcond).mean())(params))
+
+    def flat(tree) -> dict:
+        return {jax.tree_util.keystr(path): np.asarray(v, np.float64)
+                for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    def port(dt, weights, t, noise):
+        model = models[dt]
+        model.load_state_dict(weights)
+        model.zero_grad()
+        loss = p_losses(model, sched, dcfg, batch, t, noise, cond).mean()
+        loss.backward()
+        return float(loss.detach()), flat(state_dict_to_flax(
+            model, {k: p.grad for k, p in model.named_parameters()}))
+
+    def jax_side(dt, weights, t, noise):
+        loss, g = j_fns[dt](
+            jax.tree_util.tree_map(jnp.asarray, state_dict_to_flax(models[dt], weights)),
+            jnp.asarray(batch.numpy()), jnp.asarray(t.numpy(), jnp.int32),
+            jnp.asarray(noise.numpy()))
+        return float(loss), flat(g)
+
+    def l2(a: dict, b: dict) -> float:
+        return sum(float(((a[k] - b[k]) ** 2).sum()) for k in b) ** 0.5
+
     batch = torch.from_numpy(np.ascontiguousarray(train.data[: cfg.batch_size]))
     draws = TR.pretrain_draws(cfg.seed, steps + 1, shape, cfg.timesteps)
     points = []
@@ -105,31 +140,40 @@ def main(argv=None) -> int:
         if step % every:
             continue
         weights = start if step == 0 else load_checkpoint(ckpt, step)["params"]
-        model.load_state_dict(weights)
-        model.zero_grad()
-        loss_t = p_losses(model, sched, dcfg, batch, t, noise, cond).mean()
-        loss_t.backward()
-        loss = float(loss_t.detach())
-        got = state_dict_to_flax(model, {k: p.grad for k, p in model.named_parameters()})
-        ref_loss, ref = j_value_and_grad(
-            jax.tree_util.tree_map(jnp.asarray, state_dict_to_flax(model, weights)),
-            jnp.asarray(batch.numpy()), jnp.asarray(t.numpy(), jnp.int32),
-            jnp.asarray(noise.numpy()))
-        got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
-        num = den = worst = 0.0
-        for path, r in jax.tree_util.tree_flatten_with_path(ref)[0]:
-            r, g = np.asarray(r, np.float64), np.asarray(got[path], np.float64)
-            num += float(((g - r) ** 2).sum())
-            den += float((r ** 2).sum())
-            worst = max(worst, float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30)))
-        point = dict(step=step, loss=[loss, float(ref_loss)],
-                     loss_rel=abs(loss - float(ref_loss)) / abs(float(ref_loss)),
-                     grad_rel_l2=(num / den) ** 0.5, worst_leaf_rel=worst)
+        loss, got = port(dtype, weights, t, noise)
+        ref_loss, ref = jax_side(dtype, weights, t, noise)
+        norm = sum(float((r ** 2).sum()) for r in ref.values()) ** 0.5
+        worst = max(float(np.abs(got[k] - r).max() / max(np.abs(r).max(), 1e-30))
+                    for k, r in ref.items())
+        point = dict(step=step, loss=[loss, ref_loss],
+                     loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+                     grad_rel_l2=l2(got, ref) / norm, worst_leaf_rel=worst)
+        if dtype == "bfloat16":
+            loss32, got32 = port("float32", weights, t, noise)
+            ref_loss32, g32 = jax_side("float32", weights, t, noise)
+            n32 = sum(float((r ** 2).sum()) for r in g32.values()) ** 0.5
+            e_p, e_j, d = l2(got, g32) / n32, l2(ref, g32) / n32, l2(got, ref) / n32
+            share = sorted(((float(((got[k] - ref[k]) ** 2).sum()) / n32 ** 2 / d ** 2, k)
+                            for k in ref), reverse=True)[:3]
+            # each side's leaves furthest from g32, relative to the leaf's norm
+            leaf = {side: sorted(((float(np.linalg.norm(g[k] - r) / max(np.linalg.norm(r), 1e-30)),
+                                   k) for k, r in g32.items()), reverse=True)[:3]
+                    for side, g in (("port", got), ("jax", ref))}
+            point.update(e_p=e_p, e_j=e_j, d=d, ratio=e_p / e_j,
+                         f32_rel_l2=l2(got32, g32) / n32, loss32=[loss32, ref_loss32],
+                         passes=bool(0.5 <= e_p / e_j <= 2 and d <= 2 * max(e_p, e_j)),
+                         worst_leaves=[dict(leaf=k, share_of_d2=v) for v, k in share],
+                         furthest_from_f32={side: [dict(leaf=k, rel_l2=v) for v, k in rows]
+                                            for side, rows in leaf.items()})
         points.append(point)
         print("POINT " + json.dumps(point), flush=True)
     tmp.cleanup()
-    out = json.dumps(dict(dim=dim, steps=steps, every=every, dtype=DTYPE,
-                          pretrain_seconds=pre_s, points=points))
+    summary = dict(dim=dim, steps=steps, every=every, dtype=dtype, pretrain_seconds=pre_s,
+                   points=points)
+    if dtype == "bfloat16":
+        summary["verdict"] = ("no bf16 step fault" if all(p["passes"] for p in points)
+                              else "fault")
+    out = json.dumps(summary)
     print(out, flush=True)
     if args.out:
         Path(args.out).write_text(out + "\n")
